@@ -3,22 +3,28 @@
 
     python3 chip_smoke.py
 
-1. Builds the four CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
+1. Builds the six CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
    one process per source, in parallel).
 2. Holds each kernel against its plain PyTorch version on the card at the
-   shapes the slice run gives it (exact for lif_step, part_degrees and
-   link_loads; rtol 1e-4 / atol 1e-2 for swap_deltas), and times the
-   kernel, the plain version and, where one exists, one PyTorch call that
-   computes the same function.
-3. Runs the slice run — ``profile_snn`` of the paper's edge_5120 SNN
+   shapes the slice runs give it (exact for lif_step, part_degrees,
+   connectivity_degrees and link_loads; rtol 1e-4 / atol 1e-2 for
+   swap_deltas; rtol 1e-6 and bitwise repeatable for hop_cost), and times
+   the kernel, the plain version and, where one exists, one PyTorch call
+   that computes the same function.
+3. Runs the cut slice run — ``profile_snn`` of the paper's edge_5120 SNN
    (1200 steps) and ``run_toolchain`` on a 16x16 mesh at capacity 40 with
    the vec partitioner, the batched SA on the kernel scorer and the
-   link-load screen — with every kernel's launch count set to 0 just
-   before and read just after; every kernel must have launched.
-4. Checks the result by the toolchain's own means: a valid partition whose
-   cut matches a recount, spike conservation in the NoC stats, identical
-   stats from the numpy screen, and an identical partition from a CPU
-   re-run.
+   link-load screen — then the volume slice run on the same profile: the
+   communication-volume objective (vec partitioner on the connectivity
+   kernel), the tree placement objective and the multicast replay.  Each
+   run ends with the total hop cost of its placement on the hop_cost
+   kernel, which must give the run's avg_hop.  Every kernel's launch count
+   is set to 0 just before each run and read just after; each kernel of a
+   run's path must have launched.
+4. Checks both results by the toolchain's own means: a valid partition
+   whose cut (and volume) match a recount, packet conservation in the NoC
+   stats, identical stats from the numpy screen, and an identical
+   partition from a CPU re-run.
 
 Prints one line per kernel, the run's summary, the kernels JSON line, the
 card's name and power limit, and as its last line
@@ -241,6 +247,92 @@ def check_link_loads(dev, rng) -> dict:
         shape=f"B={b} K={k} records/window={per_window}")
 
 
+def check_connectivity_degrees(dev, rng) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.gain_eval.kernel import connectivity_degrees_cuda
+    from repro_torch.kernels.gain_eval.ref import connectivity_degrees_ref
+
+    # The finest level of the volume run that passes the kernel's gates:
+    # n = 3072 vertices, E = 4096 hyperedges, ~32 incidences a row, k = 141.
+    n, ne, k, per_row = 3072, 4096, 141, 32
+    inc_np = np.zeros((n, ne), dtype=np.float32)
+    cols = rng.integers(0, ne, (n, per_row))
+    inc_np[np.arange(n)[:, None], cols] = rng.integers(1, 60, (n, per_row))
+    if 2 * inc_np.sum() >= 2 ** 24:
+        fail("connectivity_degrees test incidence exceeds the exact-f32 gate")
+    inc = torch.tensor(inc_np, device=dev)
+    phi = torch.tensor(rng.integers(0, 4, (ne, k)).astype(np.uint8), device=dev)
+    pres = torch.cat([phi > 0, phi > 1], dim=1).to(torch.float32)
+    rows = torch.arange(n, dtype=torch.int64, device=dev)
+    got = connectivity_degrees_cuda(inc, pres, rows)
+    want = connectivity_degrees_ref(inc, pres, rows)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail("connectivity_degrees differs from the plain version")
+    nnz = int((inc[rows] != 0).sum())
+    t_bound, by = bound(nbytes(inc, pres, rows, got), 2.0 * nnz * 2 * k)
+    return dict(
+        name="connectivity_degrees",
+        source="src/repro_torch/csrc/connectivity_degrees.cu",
+        replaces="src/repro/kernels/gain_eval/kernel.py:100",
+        max_abs_err=float((got - want).abs().max()),
+        kernel=lambda: connectivity_degrees_cuda(inc, pres, rows),
+        plain=lambda: connectivity_degrees_ref(inc, pres, rows),
+        library=lambda: torch.matmul(inc[rows], pres), iters=50,
+        bound_ms=t_bound, bound_by=by,
+        shape=f"R=n={n} E={ne} 2k={2 * k} nnz={nnz}")
+
+
+def _hop_inputs(dev, rng, kk: int, mesh_w: int):
+    import numpy as np
+    import torch
+
+    c = torch.tensor(rng.integers(0, 600, (kk, kk)).astype(np.float32), device=dev)
+    place = rng.permutation(max(kk, mesh_w * mesh_w))[:kk]
+    x = torch.tensor((place % mesh_w).astype(np.float32), device=dev)
+    y = torch.tensor((place // mesh_w).astype(np.float32), device=dev)
+    return c, x, y
+
+
+def check_hop_cost(dev, rng) -> dict:
+    import torch
+
+    from repro_torch.kernels.hop_eval.kernel import hop_cost_cuda
+    from repro_torch.kernels.hop_eval.ref import hop_cost_ref
+
+    rows = {}
+    for kk, mesh_w in ((141, 16), (4096, 64)):  # the slice's k; a large K
+        c, x, y = _hop_inputs(dev, rng, kk, mesh_w)
+        got = hop_cost_cuda(c, x, y)
+        want = hop_cost_ref(c, x, y)
+        again = [hop_cost_cuda(c, x, y) for _ in range(3)]
+        torch.cuda.synchronize()
+        if not torch.allclose(got, want, rtol=1e-6, atol=0.0):
+            fail(f"hop_cost at K={kk} differs from the plain version beyond "
+                 f"rtol 1e-6 ({float(got)} vs {float(want)})")
+        if not all(torch.equal(a, got) for a in again):
+            fail(f"hop_cost at K={kk} is not bitwise repeatable")
+        # Per entry: two subtractions, one addition, a product, a sum.
+        t_bound, by = bound(nbytes(c, x, y, got), 5.0 * kk * kk)
+        rows[kk] = dict(
+            name="hop_cost", source="src/repro_torch/csrc/hop_cost.cu",
+            replaces="src/repro/kernels/hop_eval/kernel.py:43",
+            max_abs_err=float((got - want).abs()),
+            kernel=lambda c=c, x=x, y=y: hop_cost_cuda(c, x, y),
+            plain=lambda c=c, x=x, y=y: hop_cost_ref(c, x, y),
+            library=None, iters=200 if kk < 1024 else 50,
+            bound_ms=t_bound, bound_by=by, shape=f"K={kk}")
+    # The K = 4096 timing is printed beside the slice-shape row.
+    big = timed(rows[4096])
+    print(f"kernel hop_cost [K=4096]: max_abs_err={big['max_abs_err']} "
+          f"bound_ms={big['bound_ms']:.5f} ({big['bound_by']}); per call "
+          f"ms={big['ms']:.5f} plain_ms={big['plain_ms']:.5f}; device time "
+          f"per call ms={big['device_ms']} plain_ms={big['device_plain_ms']}")
+    return rows[141]
+
+
 # ------------------------------------------------------------- slice run
 
 
@@ -257,73 +349,170 @@ def timed(row: dict) -> dict:
     return out
 
 
-def kernel_modules():
+def launch_counters():
+    """Each kernel's name -> (module, attribute) of its launch count."""
     from repro_torch.kernels.gain_eval import kernel as gain_eval
+    from repro_torch.kernels.hop_eval import kernel as hop_eval
     from repro_torch.kernels.lif_step import kernel as lif_step
     from repro_torch.kernels.link_load import kernel as link_load
     from repro_torch.kernels.swap_delta import kernel as swap_delta
 
-    return {"lif_step": lif_step, "part_degrees": gain_eval,
-            "swap_deltas": swap_delta, "link_loads": link_load}
+    return {"lif_step": (lif_step, "launches"),
+            "part_degrees": (gain_eval, "launches"),
+            "connectivity_degrees": (gain_eval, "connectivity_launches"),
+            "swap_deltas": (swap_delta, "launches"),
+            "link_loads": (link_load, "launches"),
+            "hop_cost": (hop_eval, "launches")}
 
 
-def slice_config(device: str, screen: str):
+# The kernels each run's path goes through.
+PATHS = {
+    "cut": ("lif_step", "part_degrees", "swap_deltas", "link_loads", "hop_cost"),
+    "volume": ("connectivity_degrees", "link_loads", "hop_cost"),
+}
+
+
+def slice_config(objective: str, device: str, screen: str):
     from repro_torch.core import ToolchainConfig
 
+    # The tree placement objective (volume's default) has no device scorer:
+    # score_backend="auto" is the pairwise objective's.
+    mapper_kwargs = ({"impl": "vec", "score_backend": "auto"}
+                     if objective == "cut" else {"impl": "vec"})
     return ToolchainConfig(
         method="sneap", mesh_w=SLICE["mesh_w"], mesh_h=SLICE["mesh_h"],
         capacity=SLICE["capacity"], seed=SLICE["seed"],
-        partition_impl="vec", objective="cut", mapper="sa",
-        mapper_kwargs={"impl": "vec", "score_backend": "auto"},
-        noc_mode="queued", noc_kwargs={"screen": screen}, device=device)
+        partition_impl="vec", objective=objective, mapper="sa",
+        mapper_kwargs=mapper_kwargs, noc_mode="queued",
+        noc_kwargs={"screen": screen}, device=device)
 
 
-def run_slice(device: str = "cuda"):
-    """The main path, through the entry points a user calls."""
+def placement_hop_cost(prof, res, objective: str, device: str = "cuda") -> float:
+    """avg_hop of a finished run recomputed on the hop_cost kernel: the
+    total hop cost of the run's traffic at the placed coordinates over the
+    run's packet count."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.pipeline import build_traffic
+    from repro_torch.kernels.hop_eval import hop_cost
+
+    cfg = slice_config(objective, device, "linkload").resolve(prof.graph.hyper)
+    traffic = build_traffic(prof, res.partition, cfg)
+    place = np.asarray(res.mapping.placement, dtype=np.int64)[:res.partition.k]
+    x = torch.tensor(place % SLICE["mesh_w"], dtype=torch.float32, device=device)
+    y = torch.tensor(place // SLICE["mesh_w"], dtype=torch.float32, device=device)
+    total = hop_cost(torch.tensor(traffic, dtype=torch.float32, device=device),
+                     x, y)
+    return float(total) / int(traffic.sum())
+
+
+def run_slice(objective: str, prof=None, device: str = "cuda"):
+    """One slice run of the main path, through the entry points a user
+    calls: the profile (unless given), the toolchain, and the placement's
+    total hop cost on the hop_cost kernel."""
     from repro_torch.core import run_toolchain
     from repro_torch.snn import make_snn, profile_snn
 
-    t0 = time.perf_counter()
-    prof = profile_snn(make_snn(SLICE["snn"]), num_steps=SLICE["num_steps"],
-                       seed=SLICE["seed"], device=device)
-    profile_s = time.perf_counter() - t0
-    res = run_toolchain(prof, config=slice_config(device, "linkload"))
-    return prof, res, profile_s
+    profile_s = 0.0
+    if prof is None:
+        t0 = time.perf_counter()
+        prof = profile_snn(make_snn(SLICE["snn"]), num_steps=SLICE["num_steps"],
+                           seed=SLICE["seed"], device=device)
+        profile_s = time.perf_counter() - t0
+    res = run_toolchain(prof, config=slice_config(objective, device, "linkload"))
+    hop = placement_hop_cost(prof, res, objective, device)
+    return prof, res, profile_s, hop
 
 
-def check_result(prof, res, device: str = "cuda") -> None:
+def check_result(prof, res, objective: str, hop: float,
+                 device: str = "cuda") -> None:
     import numpy as np
 
-    from repro_torch.core import edge_cut, evaluate_phase, partition_phase
+    from repro_torch.core import (comm_volume, edge_cut, evaluate_phase,
+                                  partition_phase)
     from repro_torch.core.graph import validate_partition
+    from repro_torch.core.pipeline import build_traffic
 
     pres = res.partition
     validate_partition(prof.graph, pres.part, pres.k, SLICE["capacity"])
     if edge_cut(prof.graph, pres.part) != pres.edge_cut:
-        fail("edge_cut does not match a recount of the partition")
+        fail(f"{objective}: edge_cut does not match a recount of the partition")
+    if (objective == "volume"
+            and comm_volume(prof.graph.hyper, pres.part) != pres.comm_volume):
+        fail("volume: comm_volume does not match a recount of the partition")
     if not np.isfinite(res.mapping.avg_hop) or res.mapping.avg_hop <= 0:
-        fail(f"avg_hop is not a positive finite number: {res.mapping.avg_hop}")
+        fail(f"{objective}: avg_hop is not a positive finite number: "
+             f"{res.mapping.avg_hop}")
+    if not np.isclose(hop, res.mapping.avg_hop, rtol=1e-6, atol=0.0):
+        fail(f"{objective}: hop_cost / trace_len = {hop!r} differs from "
+             f"avg_hop = {res.mapping.avg_hop!r} beyond rtol 1e-6")
     placement = np.asarray(res.mapping.placement)
     if np.unique(placement).shape[0] != pres.k:
-        fail("placement is not one distinct core per partition")
+        fail(f"{objective}: placement is not one distinct core per partition")
+    # Every packet of the run's traffic model is delivered once: over the
+    # NoC or locally (one per transmission under unicast, one per
+    # (firing, destination partition) under multicast).
+    cfg = slice_config(objective, device, "numpy")
+    packets = int(build_traffic(prof, pres, cfg.resolve(prof.graph.hyper)).sum())
     noc = res.noc
-    if noc.num_noc_spikes + noc.num_local_spikes != prof.num_spikes:
-        fail("NoC stats lose spikes: noc + local != trace length")
+    if noc.num_noc_spikes + noc.num_local_spikes != packets:
+        fail(f"{objective}: NoC stats lose packets: noc + local != {packets}")
+    if objective == "cut" and packets != prof.num_spikes:
+        fail("cut: unicast packets != trace length")
     if not np.isfinite(noc.avg_latency) or noc.avg_latency < noc.avg_hop:
-        fail("average latency is below the average hop count")
+        fail(f"{objective}: average latency is below the average hop count")
     # The screen never changes results (the reference's promise).
-    numpy_screen = evaluate_phase(prof, pres, res.mapping,
-                                  slice_config(device, "numpy"))
+    numpy_screen = evaluate_phase(prof, pres, res.mapping, cfg)
     for f in dataclasses.fields(noc):
         a, b = getattr(noc, f.name), getattr(numpy_screen, f.name)
         same = np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b
         if not same:
-            fail(f"NoCStats.{f.name} differs between the linkload and "
-                 f"numpy screens")
+            fail(f"{objective}: NoCStats.{f.name} differs between the "
+                 f"linkload and numpy screens")
     # The device never changes the partition.
-    cpu = partition_phase(prof, slice_config("cpu", "numpy"))
-    if not np.array_equal(cpu.part, pres.part) or cpu.edge_cut != pres.edge_cut:
-        fail("the CPU re-partition differs from the card's")
+    cpu = partition_phase(prof, slice_config(objective, "cpu", "numpy"))
+    if (not np.array_equal(cpu.part, pres.part) or cpu.edge_cut != pres.edge_cut
+            or cpu.comm_volume != pres.comm_volume):
+        fail(f"{objective}: the CPU re-partition differs from the card's")
+
+
+def traced_run(objective: str, counters: dict, prof=None):
+    """Drive one slice run with every launch count set to 0 just before and
+    read just after, under device-only tracing (kernels, copies, fills),
+    which gives the card's busy time without timing any host op."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    with profile(activities=[ProfilerActivity.CUDA]) as trace:
+        t0 = time.perf_counter()
+        prof, res, profile_s, hop = run_slice(objective, prof)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    busy = sorted(((getattr(e, "self_device_time_total", 0.0), e.count, e.key)
+                   for e in trace.key_averages()), reverse=True)
+    busy_s = sum(b[0] for b in busy) / 1e6
+    print(f"{objective} slice device: busy {busy_s:.4f} s of {wall:.3f} s "
+          f"wall ({100 * busy_s / wall:.2f}% busy)")
+    for us, count, key in busy[:8]:
+        print(f"{objective} slice device time {us / 1e3:.3f} ms over {count} "
+              f"calls: {key[:90]}")
+    if profile_s:
+        print(f"{objective} slice: profile {profile_s:.2f} s, "
+              f"{prof.num_neurons} neurons, {prof.num_steps} steps kept, "
+              f"{prof.num_spikes} transmissions")
+    print(f"{objective} slice summary:", json.dumps(res.summary()))
+    print(f"{objective} slice phase_seconds:", json.dumps(res.phase_seconds))
+    print(f"{objective} slice hop_cost / trace_len: {hop!r} "
+          f"(avg_hop {res.mapping.avg_hop!r})")
+    print(f"{objective} slice launches:", json.dumps(launches))
+    for name in PATHS[objective]:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the {objective} slice run")
+    return prof, res, hop, launches
 
 
 def main() -> int:
@@ -350,7 +539,8 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     rows = [timed(check(dev, rng)) for check in (
-        check_lif_step, check_part_degrees, check_swap_deltas, check_link_loads)]
+        check_lif_step, check_part_degrees, check_connectivity_degrees,
+        check_swap_deltas, check_link_loads, check_hop_cost)]
 
     def fmt(x):
         return "n/a" if x is None else f"{x:.5f}"
@@ -364,35 +554,13 @@ def main() -> int:
               f"plain_ms={fmt(r['device_plain_ms'])} "
               f"library_ms={fmt(r['device_library_ms'])}")
 
-    from torch.profiler import ProfilerActivity, profile
-
-    mods = kernel_modules()
-    for m in mods.values():
-        m.launches = 0
-    # Device-only tracing (kernels, copies, fills) of the whole main path:
-    # it gives the card's busy time without timing any host op.
-    with profile(activities=[ProfilerActivity.CUDA]) as trace:
-        t0 = time.perf_counter()
-        prof, res, profile_s = run_slice()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    launches = {name: m.launches for name, m in mods.items()}
-    busy = sorted(((getattr(e, "self_device_time_total", 0.0), e.count, e.key)
-                   for e in trace.key_averages()), reverse=True)
-    busy_s = sum(b[0] for b in busy) / 1e6
-    print(f"slice device: busy {busy_s:.4f} s of {wall:.3f} s wall "
-          f"({100 * busy_s / wall:.2f}% busy)")
-    for us, count, key in busy[:8]:
-        print(f"slice device time {us / 1e3:.3f} ms over {count} calls: {key[:90]}")
-    print(f"slice: profile {profile_s:.2f} s, {prof.num_neurons} neurons, "
-          f"{prof.num_steps} steps kept, {prof.num_spikes} transmissions")
-    print("slice summary:", json.dumps(res.summary()))
-    print("slice phase_seconds:", json.dumps(res.phase_seconds))
-    print("slice launches:", json.dumps(launches))
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"kernel {name} was not launched by the slice run")
-    check_result(prof, res)
+    counters = launch_counters()
+    prof, cut_res, cut_hop, cut_launches = traced_run("cut", counters)
+    _, vol_res, vol_hop, vol_launches = traced_run("volume", counters, prof)
+    check_result(prof, cut_res, "cut", cut_hop)
+    check_result(prof, vol_res, "volume", vol_hop)
+    launches = {name: cut_launches[name] + vol_launches[name]
+                for name in counters}
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     if loaded:

@@ -69,13 +69,15 @@ lets the batch engine match the scalar FM queue's hill-climbing on volume
 plateaus without delegating levels to its O(n)-Python queue.
 
 For large k the dense per-partition degree matrix is also expressible as
-``A @ onehot(part)``; ``repro_torch.kernels.gain_eval`` computes its rows
-(a per-row partition histogram in a CUDA kernel) and is used here when
-running on the card with a graph small enough to densify (coarse levels).
-The dense adjacency is uploaded once per level; only the partition vector
-and the requested rows move per evaluation.  The volume objective's dense
-form ``B @ presence`` (the reference's connectivity-mode kernel) is not
-ported yet: volume levels keep the numpy paths.
+``A @ onehot(part)``, and the volume objective's D* as ``B @ presence``
+(the hfire-weighted incidence against [Φ > 0 | Φ > 1]);
+``repro_torch.kernels.gain_eval`` computes the requested rows of either
+(a per-row partition histogram, and a per-row gather over the incidence
+row's non-zeros, both CUDA kernels) and is used here when running on the
+card with a graph small enough to densify (coarse levels).  The dense
+adjacency or incidence is uploaded once per level; per evaluation only the
+partition vector (cut) or the live Φ table clamped to 2 (volume), and the
+requested row ids, move.
 """
 from __future__ import annotations
 
@@ -250,6 +252,52 @@ def _degrees_via_kernel(adj: torch.Tensor, part: np.ndarray, k: int,
     return deg.cpu().numpy().astype(np.float64)
 
 
+def _volume_degrees_via_kernel(inc: torch.Tensor, hyper: Hypergraph,
+                               part: np.ndarray, k: int, rows: np.ndarray,
+                               phi: np.ndarray | None = None) -> np.ndarray:
+    """Row-subset D* via the gain_eval kernel's connectivity mode on
+    ``inc``'s device.
+
+    ``inc`` is the level's dense (n, E) incidence, already resident there.
+    base = B @ [Φ>0] counts every member (the row vertex included); the own
+    column is overwritten from the B @ [Φ>1] half, which demands a second
+    member — exactly ``graph.volume_degrees``.  ``phi`` is the caller's
+    live member-count table when it maintains one (recomputed otherwise).
+    Per call only Φ clamped to 2 (E·k bytes of uint8) and the row ids go
+    to the device, where the (E, 2k) presence is built; the (rows, k)
+    result comes back as float64 like the numpy path's.
+    """
+    from repro_torch.kernels.gain_eval import connectivity_degrees
+
+    if phi is None:
+        phi = edge_partition_counts(hyper, part, k)
+    dev = inc.device
+    phi2 = torch.from_numpy(np.minimum(phi, 2).astype(np.uint8)).to(dev)
+    pres = torch.cat([phi2 > 0, phi2 > 1], dim=1).to(torch.float32)
+    both = connectivity_degrees(inc, pres,
+                                torch.from_numpy(rows.astype(np.int64)).to(dev))
+    own = torch.from_numpy(part[rows].astype(np.int64)).to(dev)[:, None]
+    base = both[:, :k].contiguous()
+    base.scatter_(1, own, both[:, k:].gather(1, own))
+    return base.cpu().numpy().astype(np.float64)
+
+
+def _kernel_auto(graph: Graph, k: int, objective: str,
+                 dev: torch.device) -> bool:
+    """The ``use_kernel=None`` rule: the reference's gates — the dense form
+    fits (n <= _KERNEL_MAX_N, and for volume E <= _KERNEL_MAX_N too),
+    k >= _KERNEL_MIN_K, and the total weight the f32 sums can reach stays
+    below 2^24 — keyed on the card where the reference keys on the TPU."""
+    if (dev.type != "cuda" or k < _KERNEL_MIN_K
+            or graph.num_vertices > _KERNEL_MAX_N):
+        return False
+    if objective == "cut":
+        return int(graph.adjwgt.sum()) < (1 << 24)
+    hyper = graph.hyper
+    return (hyper.num_hyperedges <= _KERNEL_MAX_N
+            and int(hyper.hfire.sum()) * 2 < (1 << 24))
+
+
 def refine_level_vec(
     graph: Graph,
     part: np.ndarray,
@@ -287,21 +335,17 @@ def refine_level_vec(
     per-objective default (see ``_PLATEAU_ROUNDS``); 0 disables the walk.
 
     ``use_kernel=None`` auto-enables the gain_eval kernel path when
-    ``device`` is the card, for cut levels small enough to densify — and
-    only when the total weight fits in float32's exact-integer range
-    (< 2^24), since the kernel accumulates spike counts in f32 and the
-    incremental bookkeeping demands exact integer gains.  True forces the
-    path on ``device`` (on the CPU it runs the kernel's plain PyTorch
-    version, which the tests use), False keeps the pure-numpy (exact
-    float64) bincount path.  The volume objective's kernel is not ported:
-    ``use_kernel=True`` with ``objective="volume"`` raises.
+    ``device`` is the card, for levels small enough to densify (the
+    adjacency for cut, the incidence for volume) — and only when the total
+    weight fits in float32's exact-integer range (< 2^24), since the
+    kernels accumulate spike counts in f32 and the incremental bookkeeping
+    demands exact integer gains (see ``_kernel_auto``).  True forces the
+    path on ``device`` (on the CPU it runs the kernels' plain PyTorch
+    versions, which the tests use), False keeps the pure-numpy (exact
+    float64) paths.
     """
     if objective not in ("cut", "volume"):
         raise ValueError(f"unknown objective {objective!r}")
-    if use_kernel and objective == "volume":
-        raise NotImplementedError(
-            "use_kernel=True with objective='volume' needs the connectivity "
-            "kernel, not ported yet (ROADMAP queue 2: connectivity_matmul)")
     _refuse_shards(shards)
     dev = resolve_device(device)
     hyper = graph.hyper
@@ -323,6 +367,8 @@ def refine_level_vec(
         max_iters = _MAX_ITERS[objective]
     src = graph.edge_src
     nbr = adjncy.astype(np.int64)
+    if use_kernel is None:
+        use_kernel = _kernel_auto(graph, k, objective, dev)
     # Incremental Φ bookkeeping (the scalar FM queue's VolumeState, driven
     # in batch mode) unless the dense (E, k) table would blow the memory
     # cap — then each chunk recounts Φ for its incident edges from scratch.
@@ -338,7 +384,7 @@ def refine_level_vec(
             # Dense only where it wins: the sparse epilogue costs ~avg_inc
             # gather-bound entries per (row, column), the matmul ne
             # BLAS-rate flops — crossover around a 16x flop discount.
-            if (n * ne <= _DENSE_EVAL_ENTRIES
+            if (not use_kernel and n * ne <= _DENSE_EVAL_ENTRIES
                     and avg_inc * 16 >= ne):
                 # Exact in float64: entries are hfire-weighted 0/1 sums.
                 dense_inc = _dense_incidence(hyper).astype(np.float64)
@@ -355,18 +401,14 @@ def refine_level_vec(
             slot_out = np.zeros(vstate.phi.size, dtype=np.int32)
         slot_rank = np.zeros(vstate.phi.size, dtype=np.int32)
         slot_done = np.zeros(vstate.phi.size, dtype=bool)
-    if use_kernel is None:
-        # Same three gates as the reference (dense size, k, exact f32
-        # sums), keyed on the card instead of the TPU; cut levels only.
-        total_w = int(adjwgt.sum()) if objective == "cut" else 0
-        use_kernel = (objective == "cut" and dev.type == "cuda"
-                      and n <= _KERNEL_MAX_N and k >= _KERNEL_MIN_K
-                      and total_w < (1 << 24))
 
-    # The level's dense adjacency goes to the device once, here; each
-    # eval_rows call moves only the partition vector and the row ids.
-    dense = (torch.from_numpy(_dense_adjacency(graph)).to(dev)
-             if use_kernel else None)
+    # The level's dense adjacency (cut) or incidence (volume) goes to the
+    # device once, here; each eval_rows call moves only the partition
+    # vector or the clamped Φ table, and the row ids.
+    dense = None
+    if use_kernel:
+        dense = torch.from_numpy(_dense_adjacency(graph) if objective == "cut"
+                                 else _dense_incidence(hyper)).to(dev)
     # The volume path materializes a (pairs, k) product where pairs is the
     # chunk's total incidence degree — bound the chunk by that expansion,
     # not just rows * k, or fan-out-heavy graphs blow the memory cap.
@@ -383,6 +425,10 @@ def refine_level_vec(
             if use_kernel:
                 return _degrees_via_kernel(dense, pvec, k, rows_v)
             return partition_degrees(graph, pvec, k, rows=rows_v)
+        if use_kernel:
+            return _volume_degrees_via_kernel(
+                dense, hyper, pvec, k, rows_v,
+                phi=None if vstate is None else vstate.phi)
         if dense_inc is not None:
             # One (rows, E) @ (E, 2k) BLAS call against the live Φ
             # presence: base counts any member, the own column demands a

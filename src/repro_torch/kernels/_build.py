@@ -23,7 +23,8 @@ __all__ = ["KERNELS", "build_all", "build_dir", "check", "load",
            "ptxas_report", "require"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNELS = ("lif_step", "part_degrees", "swap_deltas", "link_loads")
+KERNELS = ("lif_step", "part_degrees", "connectivity_degrees", "swap_deltas",
+           "link_loads", "hop_cost")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v",

@@ -1,18 +1,29 @@
-"""Plain PyTorch version of the cut-mode partition degree matrix.
+"""Plain PyTorch versions of the partition degree and gain matrices.
 
 For a dense weighted adjacency A (n, n) and a partition vector p (n,),
 
     D = A @ onehot(p)          D[v, b] = sum of w(v, u) over u with p[u] = b
 
 Column p[v] of row v is v's internal degree; every other column is an
-external degree (see `repro_torch.core.refine_vec`).  Only the requested
-``rows`` of D are computed.
+external degree (see `repro_torch.core.refine_vec`).  The move gain is
+then elementwise arithmetic:
+
+    gain[v, b] = D[v, b] - D[v, p[v]]     (0 in the own column)
+
+The volume objective's counterpart is the connectivity-mode product
+
+    D* = inc @ pres
+
+of the hfire-weighted vertex x hyperedge incidence and a per-hyperedge
+partition-presence matrix.  Only the requested ``rows`` of D and D* are
+computed.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["part_onehot", "part_degrees_ref"]
+__all__ = ["part_onehot", "part_degrees_ref", "gain_matrix_ref",
+           "connectivity_degrees_ref"]
 
 
 def part_onehot(part: torch.Tensor, k: int) -> torch.Tensor:
@@ -26,3 +37,24 @@ def part_degrees_ref(adj: torch.Tensor, part: torch.Tensor, k: int,
     """(R, k) f32 rows of D = A @ onehot(p); all n rows when ``rows`` is None."""
     a = adj if rows is None else adj[rows]
     return a.to(torch.float32) @ part_onehot(part, k)
+
+
+def gain_matrix_ref(adj: torch.Tensor, part: torch.Tensor, k: int) -> torch.Tensor:
+    """(n, k) f32 move gains; the own column is exactly zero."""
+    deg = part_degrees_ref(adj, part, k)
+    own = torch.take_along_dim(deg, part[:, None].to(torch.int64), dim=1)
+    return (deg - own) * (1.0 - part_onehot(part, k))
+
+
+def connectivity_degrees_ref(inc: torch.Tensor, pres: torch.Tensor,
+                             rows: torch.Tensor | None = None) -> torch.Tensor:
+    """(R, c) f32 rows of D* = inc @ pres; all n rows when ``rows`` is None.
+
+    ``inc`` (n, E) is the hfire-weighted vertex x hyperedge incidence and
+    ``pres`` (E, c) the per-hyperedge partition presence; the product sums,
+    per vertex and column, the fire counts of incident hyperedges with a
+    member present there (the volume objective's lambda-gain matrix, see
+    `repro_torch.core.graph.volume_degrees`).
+    """
+    a = inc if rows is None else inc[rows]
+    return a.to(torch.float32) @ pres.to(torch.float32)

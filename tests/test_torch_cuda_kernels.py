@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card: bitwise for lif_step, exact for part_degrees and link_loads, rtol
-1e-4 / atol 1e-2 for swap_deltas.  Every test is marked ``cuda`` and skips
+card: bitwise for lif_step, exact for part_degrees, connectivity_degrees
+and link_loads, rtol 1e-4 / atol 1e-2 for swap_deltas, rtol 1e-6 (and
+bitwise repeatable) for hop_cost.  Every test is marked ``cuda`` and skips
 where CUDA is unavailable; this file imports torch and numpy only, so it
 runs where the reference's JAX is not installed."""
 import numpy as np
@@ -9,7 +10,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.gain_eval import kernel as gain_kernel  # noqa: E402
+from repro_torch.kernels.gain_eval import connectivity_degrees_ref  # noqa: E402
 from repro_torch.kernels.gain_eval import part_degrees_ref  # noqa: E402
+from repro_torch.kernels.hop_eval import hop_cost_ref  # noqa: E402
+from repro_torch.kernels.hop_eval import kernel as hop_kernel  # noqa: E402
 from repro_torch.kernels.lif_step import kernel as lif_kernel  # noqa: E402
 from repro_torch.kernels.lif_step import lif_step_ref  # noqa: E402
 from repro_torch.kernels.link_load import kernel as link_kernel  # noqa: E402
@@ -51,6 +55,34 @@ def test_part_degrees_kernel_matches_plain_exactly(cuda, n, k):
     rows = torch.tensor(RNG.permutation(n)[: n // 2 + 1], device=cuda)
     assert torch.equal(gain_kernel.part_degrees_cuda(adj, part, k, rows),
                        part_degrees_ref(adj, part, k, rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,e,k", [(7, 5, 3), (260, 513, 130), (3072, 4096, 141)])
+def test_connectivity_degrees_kernel_matches_plain_exactly(cuda, n, e, k):
+    """Sparse integer incidence (hfire-like weights) against a 0/1 (E, 2k)
+    presence; rows longer than the kernel's 2048-entry segment included."""
+    inc = RNG.integers(1, 9, (n, e)) * (RNG.random((n, e)) < 0.03)
+    inc = torch.tensor(inc.astype(np.float32), device=cuda)
+    pres = torch.tensor((RNG.random((e, 2 * k)) < 0.3).astype(np.float32),
+                        device=cuda)
+    rows = torch.tensor(RNG.permutation(n)[: n // 2 + 1], device=cuda)
+    for r in (rows, None):
+        assert torch.equal(gain_kernel.connectivity_degrees_cuda(inc, pres, r),
+                           connectivity_degrees_ref(inc, pres, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 141, 256, 513, 4096])
+def test_hop_cost_kernel_matches_plain_and_repeats(cuda, k):
+    c = torch.tensor(RNG.integers(0, 100, (k, k)).astype(np.float32), device=cuda)
+    x = torch.tensor(RNG.integers(0, 16, k).astype(np.float32), device=cuda)
+    y = torch.tensor(RNG.integers(0, 16, k).astype(np.float32), device=cuda)
+    got = hop_kernel.hop_cost_cuda(c, x, y)
+    assert got.dim() == 0 and got.dtype == torch.float32
+    torch.testing.assert_close(got, hop_cost_ref(c, x, y), rtol=1e-6, atol=0.0)
+    for _ in range(3):
+        assert torch.equal(hop_kernel.hop_cost_cuda(c, x, y), got)
 
 
 @pytest.mark.cuda

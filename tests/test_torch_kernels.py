@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 from repro.core.hopcost import hop_distance_matrix, swap_delta  # noqa: E402
 from repro.core.mapping import pad_traffic  # noqa: E402
 from repro.kernels import gain_eval as ref_gain  # noqa: E402
+from repro.kernels import hop_eval as ref_hop  # noqa: E402
 from repro.kernels import lif_step as ref_lif  # noqa: E402
 from repro.kernels import link_load as ref_link  # noqa: E402
 from repro.kernels import swap_delta as ref_swap  # noqa: E402
@@ -19,7 +20,14 @@ from repro.nocsim.xy import link_ids_for_routes  # noqa: E402
 
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.gain_eval import kernel as gain_kernel  # noqa: E402
-from repro_torch.kernels.gain_eval import part_degrees  # noqa: E402
+from repro_torch.kernels.gain_eval import (  # noqa: E402
+    connectivity_degrees,
+    gain_matrix,
+    gain_matrix_ref,
+    part_degrees,
+)
+from repro_torch.kernels.hop_eval import hop_cost  # noqa: E402
+from repro_torch.kernels.hop_eval import kernel as hop_kernel  # noqa: E402
 from repro_torch.kernels.lif_step import kernel as lif_kernel  # noqa: E402
 from repro_torch.kernels.lif_step import lif_step  # noqa: E402
 from repro_torch.kernels.link_load import kernel as link_kernel  # noqa: E402
@@ -78,6 +86,58 @@ def test_part_degrees_plain_matches_reference(n, k):
     rows = RNG.permutation(n)[: max(1, n // 3)].astype(np.int64)
     np.testing.assert_array_equal(
         part_degrees(t(a), t(p), k, t(rows)).numpy(), got[rows])
+
+
+@pytest.mark.parametrize("n,e,k", [(1, 1, 1), (7, 5, 3), (128, 128, 128),
+                                   (150, 90, 70), (260, 513, 130)])
+def test_connectivity_degrees_plain_matches_reference(n, e, k):
+    """Integer incidence against 0/1 presence: every sum is an exact f32
+    integer, so the plain version equals the reference bitwise."""
+    inc = (RNG.random((n, e)) < 0.2).astype(np.float32) * RNG.integers(1, 9, (n, e))
+    inc = inc.astype(np.float32)
+    pres = (RNG.random((e, k)) < 0.3).astype(np.float32)
+    got = connectivity_degrees(t(inc), t(pres)).numpy()
+    jargs = (jnp.asarray(inc), jnp.asarray(pres))
+    np.testing.assert_array_equal(
+        got, np.asarray(ref_gain.connectivity_degrees_ref(*jargs)))
+    np.testing.assert_array_equal(
+        got, np.asarray(ref_gain.connectivity_degrees(*jargs, backend="interpret")))
+    rows = RNG.permutation(n)[: max(1, n // 3)].astype(np.int64)
+    np.testing.assert_array_equal(
+        connectivity_degrees(t(inc), t(pres), t(rows)).numpy(), got[rows])
+
+
+@pytest.mark.parametrize("n,k", [(7, 3), (200, 60), (513, 130)])
+def test_gain_matrix_matches_reference(n, k):
+    a = RNG.integers(0, 40, (n, n)).astype(np.float32)
+    a = a + a.T
+    np.fill_diagonal(a, 0)
+    p = RNG.integers(0, k, n).astype(np.int32)
+    got = gain_matrix(t(a), t(p), k).numpy()
+    jargs = (jnp.asarray(a), jnp.asarray(p), k)
+    np.testing.assert_array_equal(got, np.asarray(ref_gain.gain_matrix_ref(*jargs)))
+    np.testing.assert_array_equal(
+        got, np.asarray(ref_gain.gain_matrix(*jargs, backend="interpret")))
+    np.testing.assert_array_equal(gain_matrix_ref(t(a), t(p), k).numpy(), got)
+    assert (got[np.arange(n), p] == 0).all()
+
+
+# -------------------------------------------------------------- hop_eval
+
+@pytest.mark.parametrize("k", [1, 7, 25, 128, 256, 300, 513])
+def test_hop_cost_plain_matches_reference(k):
+    c = RNG.integers(0, 100, (k, k)).astype(np.float32)
+    x = RNG.integers(0, 16, k).astype(np.float32)
+    y = RNG.integers(0, 16, k).astype(np.float32)
+    got = hop_cost(t(c), t(x), t(y))
+    assert got.dtype == torch.float32 and got.dim() == 0
+    jargs = (jnp.asarray(c), jnp.asarray(x), jnp.asarray(y))
+    for want in (ref_hop.hop_cost_ref(*jargs),
+                 ref_hop.hop_cost(*jargs, backend="interpret")):
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    brute = (c.astype(np.float64) * (np.abs(x[:, None] - x[None, :])
+                                     + np.abs(y[:, None] - y[None, :]))).sum()
+    np.testing.assert_allclose(float(got), brute, rtol=1e-6)
 
 
 # ------------------------------------------------------------ swap_delta
@@ -144,17 +204,23 @@ def test_window_link_loads_match_reference_and_route_bincount(w, h, windows):
 # ------------------------------------------------------ dispatch / guards
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
-    before = (lif_kernel.launches, gain_kernel.launches, swap_kernel.launches,
-              link_kernel.launches)
+    def counts():
+        return (lif_kernel.launches, gain_kernel.launches,
+                gain_kernel.connectivity_launches, swap_kernel.launches,
+                link_kernel.launches, hop_kernel.launches)
+
+    before = counts()
     lif_step(torch.zeros(4), torch.zeros(4, dtype=torch.int32), torch.ones(4),
              **LIF_KW)
     part_degrees(torch.ones(3, 3), torch.zeros(3, dtype=torch.int32), 2)
+    gain_matrix(torch.ones(3, 3), torch.zeros(3, dtype=torch.int32), 2)
+    connectivity_degrees(torch.ones(3, 2), torch.ones(2, 4))
+    hop_cost(torch.ones(3, 3), torch.zeros(3), torch.zeros(3))
     swap_deltas(torch.ones(3, 3), torch.zeros(3), torch.zeros(3))
     link_loads(torch.ones(1, 4, 4, dtype=torch.int32),
                torch.tensor([0, 1, 0, 1], dtype=torch.int32),
                torch.tensor([0, 0, 1, 1], dtype=torch.int32), 2, 2)
-    assert before == (lif_kernel.launches, gain_kernel.launches,
-                      swap_kernel.launches, link_kernel.launches)
+    assert before == counts()
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -166,7 +232,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         gain_kernel.part_degrees_cuda(torch.ones(3, 3),
                                       torch.zeros(3, dtype=torch.int32), 2)
     with pytest.raises(ValueError, match="CUDA tensor"):
+        gain_kernel.connectivity_degrees_cuda(torch.ones(3, 2), torch.ones(2, 4))
+    with pytest.raises(ValueError, match="CUDA tensor"):
         swap_kernel.swap_deltas_cuda(torch.ones(3, 3), torch.zeros(3), torch.zeros(3))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        hop_kernel.hop_cost_cuda(torch.ones(3, 3), torch.zeros(3), torch.zeros(3))
     with pytest.raises(ValueError, match="CUDA tensor"):
         link_kernel.link_loads_cuda(torch.ones(1, 4, 4, dtype=torch.int32),
                                     torch.zeros(4, dtype=torch.int32),
@@ -177,6 +247,12 @@ def test_ops_refuse_other_devices():
     with pytest.raises(ValueError, match="cuda or cpu"):
         part_degrees(torch.ones(3, 3, device="meta"),
                      torch.zeros(3, dtype=torch.int32, device="meta"), 2)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        connectivity_degrees(torch.ones(3, 2, device="meta"),
+                             torch.ones(2, 4, device="meta"))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        hop_cost(torch.ones(3, 3, device="meta"), torch.zeros(3, device="meta"),
+                 torch.zeros(3, device="meta"))
 
 
 def test_kernel_build_hash_tracks_source():
