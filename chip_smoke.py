@@ -7,10 +7,11 @@
    one process per source, in parallel).
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes the slice runs give it (exact for lif_step, part_degrees,
-   connectivity_degrees and link_loads; rtol 1e-4 / atol 1e-2 for
-   swap_deltas; rtol 1e-6 and bitwise repeatable for hop_cost), and times
-   the kernel, the plain version and, where one exists, one PyTorch call
-   that computes the same function.
+   connectivity_degrees, swap_deltas and link_loads; rtol 1e-6 and bitwise
+   repeatable for hop_cost), and times the kernel, the plain version and,
+   where one exists, one PyTorch call that computes the same function.
+   swap_deltas also runs at K = 1024 (a 32 x 32 mesh), connectivity_degrees
+   also on a 64-row subset, and hop_cost also at K = 4096.
 3. Runs the cut slice run — ``profile_snn`` of the paper's edge_5120 SNN
    (1200 steps) and ``run_toolchain`` on a 16x16 mesh at capacity 40 with
    the vec partitioner, the batched SA on the kernel scorer and the
@@ -20,7 +21,9 @@
    run ends with the total hop cost of its placement on the hop_cost
    kernel, which must give the run's avg_hop.  Every kernel's launch count
    is set to 0 just before each run and read just after; each kernel of a
-   run's path must have launched.
+   run's path must have launched.  Each run prints the device time per
+   launch of swap_deltas and connectivity_degrees and the count and device
+   time of its host-to-device copies.
 4. Checks both results by the toolchain's own means: a valid partition
    whose cut (and volume) match a recount, packet conservation in the NoC
    stats, identical stats from the numpy screen, and an identical
@@ -44,6 +47,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 on the CUDA cores, H100 SXM data sheet
+H100_TF32_FLOPS = 494.7e12  # TF32 tensor cores, dense, H100 SXM data sheet
+EXACT_F32 = 2 ** 24  # integers below this add exactly in f32
 
 SLICE = dict(snn="edge_5120", num_steps=1200, mesh_w=16, mesh_h=16,
              capacity=40, seed=0)
@@ -95,11 +100,12 @@ def device_ms(fn, iters: int) -> float | None:
     return total_us / iters / 1e3 if total_us > 0 else None
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float,
+          rate: float = H100_F32_FLOPS) -> tuple[float, str]:
     """Least time (ms) for the work: the larger of bytes over the memory
-    rate and operations over the f32 rate."""
+    rate and operations over ``rate`` (f32 unless given)."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_F32_FLOPS * 1e3
+    t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -178,6 +184,20 @@ def check_part_degrees(dev, rng) -> dict:
         shape=f"n={n} k={k} nnz={nnz}")
 
 
+def tf32_splits(sym) -> int:
+    """How many of the parts S = hi + mid + lo (top 11 significant bits,
+    next 11, last 2) the swap_deltas kernel multiplies for this traffic:
+    the parts that are not all zero."""
+    import torch
+
+    def top11(v):
+        return (v.view(torch.int32) & -8192).view(torch.float32)
+
+    rest = sym - top11(sym)
+    lo = rest - top11(rest)
+    return 1 + int(bool(top11(rest).any())) + int(bool(lo.any()))
+
+
 def check_swap_deltas(dev, rng) -> dict:
     import numpy as np
     import torch
@@ -185,33 +205,47 @@ def check_swap_deltas(dev, rng) -> dict:
     from repro_torch.kernels.swap_delta.kernel import swap_deltas_cuda
     from repro_torch.kernels.swap_delta.ref import distance_matrix, swap_deltas_ref
 
-    kc, k, mesh_w = 256, 141, 16  # 141 partitions padded to 256 cores
-    c = np.zeros((kc, kc), dtype=np.float32)
-    c[:k, :k] = rng.integers(0, 600, (k, k))
-    np.fill_diagonal(c, 0.0)
-    sym = torch.tensor(c + c.T, device=dev)
-    perm = rng.permutation(kc)
-    x = torch.tensor((perm % mesh_w).astype(np.float32), device=dev)
-    y = torch.tensor((perm // mesh_w).astype(np.float32), device=dev)
-    got = swap_deltas_cuda(sym, x, y)
-    want = swap_deltas_ref(sym, x, y)
-    torch.cuda.synchronize()
-    if not torch.allclose(got, want, rtol=1e-4, atol=1e-2):
-        fail("swap_deltas differs from the plain version beyond "
-             "rtol 1e-4 / atol 1e-2")
-    if float(torch.diagonal(got).abs().max()) > 1e-3:
-        fail("swap_deltas diagonal is not ~0")
-    d = distance_matrix(x, y)
-    t_bound, by = bound(nbytes(sym, x, y, got), 4.0 * kc ** 3)
-    return dict(
-        name="swap_deltas", source="src/repro_torch/csrc/swap_deltas.cu",
-        replaces="src/repro/kernels/swap_delta/kernel.py:68",
-        max_abs_err=float((got - want).abs().max()),
-        kernel=lambda: swap_deltas_cuda(sym, x, y),
-        plain=lambda: swap_deltas_ref(sym, x, y),
-        library=lambda: (sym @ d, d @ sym), iters=200,
-        bound_ms=t_bound, bound_by=by,
-        shape=f"K={kc}")
+    rows = {}
+    # The slice: 141 partitions padded to 256 cores of the 16 x 16 mesh; and
+    # 900 partitions on the 32 x 32 mesh (K = 1024).  Integer traffic whose
+    # sums stay below 2^24, so the kernel must equal the plain version.
+    for kc, k, mesh_w, top in ((256, 141, 16, 600), (1024, 900, 32, 60)):
+        c = np.zeros((kc, kc), dtype=np.float32)
+        c[:k, :k] = rng.integers(0, top, (k, k))
+        np.fill_diagonal(c, 0.0)
+        sym = torch.tensor(c + c.T, device=dev)
+        perm = rng.permutation(kc)
+        x = torch.tensor((perm % mesh_w).astype(np.float32), device=dev)
+        y = torch.tensor((perm // mesh_w).astype(np.float32), device=dev)
+        d = distance_matrix(x, y)
+        if 2 * float(sym.sum(1).max()) * float(d.max()) >= EXACT_F32:
+            fail(f"swap_deltas test traffic at K={kc} exceeds the exact-f32 gate")
+        got = swap_deltas_cuda(sym, x, y)
+        want = swap_deltas_ref(sym, x, y)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"swap_deltas at K={kc} differs from the plain version on "
+                 f"integer traffic (max abs err "
+                 f"{float((got - want).abs().max())})")
+        if not torch.equal(got, got.T) or float(torch.diagonal(got).abs().max()):
+            fail(f"swap_deltas at K={kc} is not symmetric with a zero diagonal")
+        # Split TF32 on the tensor cores: 2 K^3 flops with the symmetry for
+        # each split this traffic needs.  The dense f32 form's bound (two
+        # K^3 products, 4 K^3 flops at 67 TFLOP/s) is printed beside it.
+        t_bound, by = bound(nbytes(sym, x, y, got),
+                            2.0 * tf32_splits(sym) * kc ** 3, H100_TF32_FLOPS)
+        rows[kc] = dict(
+            name="swap_deltas", source="src/repro_torch/csrc/swap_deltas.cu",
+            replaces="src/repro/kernels/swap_delta/kernel.py:68",
+            max_abs_err=float((got - want).abs().max()),
+            kernel=lambda sym=sym, x=x, y=y: swap_deltas_cuda(sym, x, y),
+            plain=lambda sym=sym, x=x, y=y: swap_deltas_ref(sym, x, y),
+            library=lambda sym=sym, d=d: (sym @ d, d @ sym),
+            iters=200 if kc < 1024 else 50, bound_ms=t_bound, bound_by=by,
+            shape=f"K={kc}", dense_bound_ms=bound(nbytes(sym, x, y, got),
+                                                4.0 * kc ** 3)[0])
+    print_row(timed(rows[1024]), "K=1024")  # beside the JSON row's K=256
+    return rows[256]
 
 
 def check_link_loads(dev, rng) -> dict:
@@ -251,38 +285,60 @@ def check_connectivity_degrees(dev, rng) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.kernels.gain_eval.kernel import connectivity_degrees_cuda
-    from repro_torch.kernels.gain_eval.ref import connectivity_degrees_ref
+    from repro_torch.kernels.gain_eval.kernel import volume_degree_rows_cuda
+    from repro_torch.kernels.gain_eval.ref import volume_degree_rows_ref
 
     # The finest level of the volume run that passes the kernel's gates:
-    # n = 3072 vertices, E = 4096 hyperedges, ~32 incidences a row, k = 141.
+    # n = 3072 vertices, E = 4096 hyperedges, 32 incidences a row, k = 141,
+    # as the vertex -> hyperedge CSR with hfire-like weights, and Φ in 0..3
+    # so that both presence halves and the own-column rule matter.
     n, ne, k, per_row = 3072, 4096, 141, 32
-    inc_np = np.zeros((n, ne), dtype=np.float32)
-    cols = rng.integers(0, ne, (n, per_row))
-    inc_np[np.arange(n)[:, None], cols] = rng.integers(1, 60, (n, per_row))
-    if 2 * inc_np.sum() >= 2 ** 24:
+    vedges_np = np.stack([rng.choice(ne, per_row, replace=False)
+                          for _ in range(n)]).reshape(-1).astype(np.int32)
+    w_np = rng.integers(1, 60, vedges_np.shape[0]).astype(np.float32)
+    if 2 * w_np.sum() >= EXACT_F32:
         fail("connectivity_degrees test incidence exceeds the exact-f32 gate")
-    inc = torch.tensor(inc_np, device=dev)
-    phi = torch.tensor(rng.integers(0, 4, (ne, k)).astype(np.uint8), device=dev)
+    vxadj = torch.arange(0, n * per_row + 1, per_row, dtype=torch.int32, device=dev)
+    vedges = torch.tensor(vedges_np, device=dev)
+    w = torch.tensor(w_np, device=dev)
+    phi = torch.tensor(rng.integers(0, 4, (ne, k)).astype(np.int32), device=dev)
+    own_all = torch.tensor(rng.integers(0, k, n), device=dev)
+    # The library yardstick: the dense product without the own-column
+    # overwrite, as the TPU kernel states it.
+    inc = torch.zeros((n, ne), dtype=torch.float32, device=dev)
+    inc[torch.arange(n, device=dev).repeat_interleave(per_row), vedges.long()] = w
     pres = torch.cat([phi > 0, phi > 1], dim=1).to(torch.float32)
-    rows = torch.arange(n, dtype=torch.int64, device=dev)
-    got = connectivity_degrees_cuda(inc, pres, rows)
-    want = connectivity_degrees_ref(inc, pres, rows)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        fail("connectivity_degrees differs from the plain version")
-    nnz = int((inc[rows] != 0).sum())
-    t_bound, by = bound(nbytes(inc, pres, rows, got), 2.0 * nnz * 2 * k)
-    return dict(
-        name="connectivity_degrees",
-        source="src/repro_torch/csrc/connectivity_degrees.cu",
-        replaces="src/repro/kernels/gain_eval/kernel.py:100",
-        max_abs_err=float((got - want).abs().max()),
-        kernel=lambda: connectivity_degrees_cuda(inc, pres, rows),
-        plain=lambda: connectivity_degrees_ref(inc, pres, rows),
-        library=lambda: torch.matmul(inc[rows], pres), iters=50,
-        bound_ms=t_bound, bound_by=by,
-        shape=f"R=n={n} E={ne} 2k={2 * k} nnz={nnz}")
+    rows = {}
+    for r in (n, 64):  # every row of the level; a path-sized row subset
+        ids = torch.tensor(rng.permutation(n)[:r], device=dev)
+        own = own_all[ids].contiguous()
+        got = volume_degree_rows_cuda(vxadj, vedges, w, phi, ids, own)
+        want = volume_degree_rows_ref(vxadj, vedges, w, phi, ids, own)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"connectivity_degrees at R={r} differs from the plain version")
+        # Bytes once: the rows' (e, w) lists, the Φ rows they touch, the
+        # rows' CSR offsets, row and own ids, and the (R, k) output.
+        touched = vedges.view(n, per_row)[ids].unique().numel()
+        moved = (8 * r * per_row + 4 * k * touched + 8 * r
+                 + nbytes(ids, own, got))
+        t_bound, by = bound(moved, 2.0 * r * per_row * k)
+        dense_bound = bound(nbytes(inc, pres, ids) + 8 * r * k,
+                            2.0 * r * per_row * 2 * k)[0]
+        rows[r] = dict(
+            name="connectivity_degrees",
+            source="src/repro_torch/csrc/connectivity_degrees.cu",
+            replaces="src/repro/kernels/gain_eval/kernel.py:100",
+            max_abs_err=float((got - want).abs().max()),
+            kernel=lambda ids=ids, own=own: volume_degree_rows_cuda(
+                vxadj, vedges, w, phi, ids, own),
+            plain=lambda ids=ids, own=own: volume_degree_rows_ref(
+                vxadj, vedges, w, phi, ids, own),
+            library=lambda ids=ids: torch.matmul(inc[ids], pres), iters=50,
+            bound_ms=t_bound, bound_by=by, dense_bound_ms=dense_bound,
+            shape=f"R={r} n={n} E={ne} k={k} nnz={r * per_row}")
+    print_row(timed(rows[64]), "R=64")  # beside the JSON row's R=n
+    return rows[n]
 
 
 def _hop_inputs(dev, rng, kk: int, mesh_w: int):
@@ -324,16 +380,26 @@ def check_hop_cost(dev, rng) -> dict:
             plain=lambda c=c, x=x, y=y: hop_cost_ref(c, x, y),
             library=None, iters=200 if kk < 1024 else 50,
             bound_ms=t_bound, bound_by=by, shape=f"K={kk}")
-    # The K = 4096 timing is printed beside the slice-shape row.
-    big = timed(rows[4096])
-    print(f"kernel hop_cost [K=4096]: max_abs_err={big['max_abs_err']} "
-          f"bound_ms={big['bound_ms']:.5f} ({big['bound_by']}); per call "
-          f"ms={big['ms']:.5f} plain_ms={big['plain_ms']:.5f}; device time "
-          f"per call ms={big['device_ms']} plain_ms={big['device_plain_ms']}")
+    print_row(timed(rows[4096]), "K=4096")  # beside the JSON row's K=141
     return rows[141]
 
 
 # ------------------------------------------------------------- slice run
+
+
+def fmt(x):
+    return "n/a" if x is None else f"{x:.5f}"
+
+
+def print_row(r: dict, shape: str) -> None:
+    old = (f" (dense f32 form bound {r['dense_bound_ms']:.5f})"
+           if "dense_bound_ms" in r else "")
+    print(f"kernel {r['name']} [{shape}]: max_abs_err={r['max_abs_err']} "
+          f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}){old}; per call "
+          f"ms={fmt(r['ms'])} plain_ms={fmt(r['plain_ms'])} "
+          f"library_ms={fmt(r['library_ms'])}; device time per call "
+          f"ms={fmt(r['device_ms'])} plain_ms={fmt(r['device_plain_ms'])} "
+          f"library_ms={fmt(r['device_library_ms'])}")
 
 
 def timed(row: dict) -> dict:
@@ -477,6 +543,19 @@ def check_result(prof, res, objective: str, hop: float,
         fail(f"{objective}: the CPU re-partition differs from the card's")
 
 
+# Device-side names of the redesigned kernels, for per-launch times on
+# the slice runs.
+DEVICE_SYMBOLS = {"swap_deltas": "swap_deltas_kernel",
+                  "connectivity_degrees": "volume_degree_rows_kernel"}
+
+
+def device_total(busy, key_part: str) -> tuple[float, int]:
+    """Summed device microseconds and call count of the profiler entries
+    whose name contains ``key_part``."""
+    hits = [(us, count) for us, count, key in busy if key_part in key]
+    return sum(h[0] for h in hits), sum(h[1] for h in hits)
+
+
 def traced_run(objective: str, counters: dict, prof=None):
     """Drive one slice run with every launch count set to 0 just before and
     read just after, under device-only tracing (kernels, copies, fills),
@@ -500,6 +579,14 @@ def traced_run(objective: str, counters: dict, prof=None):
     for us, count, key in busy[:8]:
         print(f"{objective} slice device time {us / 1e3:.3f} ms over {count} "
               f"calls: {key[:90]}")
+    for name, symbol in DEVICE_SYMBOLS.items():
+        us, count = device_total(busy, symbol)
+        per = f"{us / count:.3f} us a launch" if count else "no launch"
+        print(f"{objective} slice kernel {name}: {count} launches, "
+              f"{us / 1e3:.3f} ms device, {per}")
+    us, count = device_total(busy, "Memcpy HtoD")
+    print(f"{objective} slice host-to-device copies: {count} copies, "
+          f"{us / 1e3:.3f} ms device")
     if profile_s:
         print(f"{objective} slice: profile {profile_s:.2f} s, "
               f"{prof.num_neurons} neurons, {prof.num_steps} steps kept, "
@@ -542,17 +629,8 @@ def main() -> int:
         check_lif_step, check_part_degrees, check_connectivity_degrees,
         check_swap_deltas, check_link_loads, check_hop_cost)]
 
-    def fmt(x):
-        return "n/a" if x is None else f"{x:.5f}"
-
     for r in rows:
-        print(f"kernel {r['name']} [{r.pop('shape')}]: max_abs_err="
-              f"{r['max_abs_err']} bound_ms={r['bound_ms']:.5f} "
-              f"({r['bound_by']}); per call ms={fmt(r['ms'])} "
-              f"plain_ms={fmt(r['plain_ms'])} library_ms={fmt(r['library_ms'])}; "
-              f"device time per call ms={fmt(r['device_ms'])} "
-              f"plain_ms={fmt(r['device_plain_ms'])} "
-              f"library_ms={fmt(r['device_library_ms'])}")
+        print_row(r, r.pop("shape"))
 
     counters = launch_counters()
     prof, cut_res, cut_hop, cut_launches = traced_run("cut", counters)

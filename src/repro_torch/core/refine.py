@@ -182,7 +182,7 @@ class VolumeState:
         self.phi[eids, dst] += 1
 
     def apply_moves(self, movers: np.ndarray, srcs: np.ndarray,
-                    dsts: np.ndarray) -> None:
+                    dsts: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """Batch Φ update for a simultaneous mover set.
 
         Movers may share hyperedges — the fat conflict rounds admit several
@@ -192,6 +192,10 @@ class VolumeState:
         updates are merged per unique flat slot key (``edge * k + column``)
         and applied buffered, which is both exact and faster than the
         unbuffered ``np.add.at`` scatter.
+
+        Returns the updates it applied, for a mirror of Φ to replay: the
+        flat slot keys (int64) and their signed counts (int64).  A key may
+        appear twice, once as a source and once as a destination slot.
         """
         idx, local = csr_gather(self.vxadj, movers)
         eids = self.vedges[idx]
@@ -200,6 +204,8 @@ class VolumeState:
         flat[sk] -= sc.astype(np.int32)
         dk, dc = np.unique(eids * self.k + dsts[local], return_counts=True)
         flat[dk] += dc.astype(np.int32)
+        return (np.concatenate([sk, dk]).astype(np.int64),
+                np.concatenate([-sc, dc]).astype(np.int64))
 
     def touched_moves(self, movers: np.ndarray, srcs: np.ndarray,
                       dsts: np.ndarray) -> np.ndarray:

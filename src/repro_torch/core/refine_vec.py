@@ -70,14 +70,16 @@ plateaus without delegating levels to its O(n)-Python queue.
 
 For large k the dense per-partition degree matrix is also expressible as
 ``A @ onehot(part)``, and the volume objective's D* as ``B @ presence``
-(the hfire-weighted incidence against [Φ > 0 | Φ > 1]);
-``repro_torch.kernels.gain_eval`` computes the requested rows of either
-(a per-row partition histogram, and a per-row gather over the incidence
-row's non-zeros, both CUDA kernels) and is used here when running on the
-card with a graph small enough to densify (coarse levels).  The dense
-adjacency or incidence is uploaded once per level; per evaluation only the
-partition vector (cut) or the live Φ table clamped to 2 (volume), and the
-requested row ids, move.
+(the hfire-weighted incidence against [Φ > 0 | Φ > 1], own column from
+the second half); ``repro_torch.kernels.gain_eval`` computes the
+requested rows of either (a per-row partition histogram over the dense
+adjacency; a per-row gather of Φ rows over the sparse vertex -> hyperedge
+CSR, both CUDA kernels) and is used here when running on the card on a
+level within the reference's kernel gates (coarse levels).  Cut uploads
+the dense adjacency once per level and the partition vector per
+evaluation.  Volume uploads the incidence CSR and Φ once per level
+(``_VolumeKernelState``), replays each batch's merged Φ updates on the
+card, and per evaluation moves only the row ids and their own columns.
 """
 from __future__ import annotations
 
@@ -148,9 +150,11 @@ _MAX_ITERS = {"cut": 200, "volume": 2000}
 # batch (see ``select_movers``).
 _LUBY_ROUNDS = 4
 
-# Densifying for the gain_eval kernel is only worthwhile on the card and only
-# for problems whose dense form fits comfortably in HBM (adjacency (n, n)
-# for cut; incidence (n, E) for volume).
+# The gain_eval kernels run on the card within the reference's gates, which
+# keep its dense forms in HBM: n (and for volume E) at most _KERNEL_MAX_N,
+# k at least _KERNEL_MIN_K.  Cut densifies the (n, n) adjacency; volume
+# keeps its incidence sparse here but the same gate, so both engines pick
+# the same levels.
 _KERNEL_MAX_N = 4096
 _KERNEL_MIN_K = 64
 
@@ -252,34 +256,81 @@ def _degrees_via_kernel(adj: torch.Tensor, part: np.ndarray, k: int,
     return deg.cpu().numpy().astype(np.float64)
 
 
-def _volume_degrees_via_kernel(inc: torch.Tensor, hyper: Hypergraph,
-                               part: np.ndarray, k: int, rows: np.ndarray,
-                               phi: np.ndarray | None = None) -> np.ndarray:
-    """Row-subset D* via the gain_eval kernel's connectivity mode on
-    ``inc``'s device.
+class _VolumeKernelState:
+    """The volume kernel path's inputs, resident on ``dev`` for one level.
 
-    ``inc`` is the level's dense (n, E) incidence, already resident there.
-    base = B @ [Φ>0] counts every member (the row vertex included); the own
-    column is overwritten from the B @ [Φ>1] half, which demands a second
-    member — exactly ``graph.volume_degrees``.  ``phi`` is the caller's
-    live member-count table when it maintains one (recomputed otherwise).
-    Per call only Φ clamped to 2 (E·k bytes of uint8) and the row ids go
-    to the device, where the (E, 2k) presence is built; the (rows, k)
-    result comes back as float64 like the numpy path's.
+    The vertex -> hyperedge CSR (``hyper.incidence()``, one entry per
+    membership) goes up once as ``vxadj``/``vedges`` (int32) with the
+    entry weights ``w = hfire[vedges]`` (f32), never densified.  ``phi``
+    is the (E, k) int32 member-count table when the refiner keeps one
+    live: it goes up once, and ``apply`` replays on the card the merged
+    ±count updates ``VolumeState.apply_moves`` returns, so it equals the
+    host table after every round (integer adds are exact in any order).
+    Without a live table (``phi=None``) each evaluation uploads a recount.
     """
-    from repro_torch.kernels.gain_eval import connectivity_degrees
 
+    def __init__(self, hyper: Hypergraph, phi: np.ndarray | None,
+                 dev: torch.device):
+        vxadj, vedges = hyper.incidence()
+        self.dev = dev
+        self._staging = None  # pinned host buffer reused by put()
+        self.vxadj, self.vedges, self.w = self.put(
+            vxadj.astype(np.int32), vedges.astype(np.int32),
+            hyper.hfire[vedges].astype(np.float32))
+        self.phi = None if phi is None else self.put(phi.astype(np.int32))[0]
+
+    def put(self, *arrays: np.ndarray) -> list[torch.Tensor]:
+        """Copies of ``arrays`` on the device, from one host-to-device copy
+        staged through a reused pinned host buffer on the card (the copy is
+        synchronous, so the buffer is free again when this returns)."""
+        srcs = [torch.from_numpy(np.array(a)) for a in arrays]
+        if self.dev.type != "cuda":
+            return srcs
+        sizes = [s.numel() * s.element_size() for s in srcs]
+        offs = np.concatenate([[0], np.cumsum([-(-n // 8) * 8 for n in sizes])])
+        total = int(offs[-1])
+        if self._staging is None or self._staging.numel() < total:
+            self._staging = torch.empty(max(total, 1 << 16), dtype=torch.uint8,
+                                        pin_memory=True)
+        for s, o, n in zip(srcs, offs, sizes):
+            self._staging[o:o + n].view(s.dtype).copy_(s.reshape(-1))
+        dev = self._staging[:total].to(self.dev)
+        return [dev[o:o + n].view(s.dtype).view(s.shape)
+                for s, o, n in zip(srcs, offs, sizes)]
+
+    def apply(self, keys: np.ndarray, deltas: np.ndarray) -> None:
+        """Add ``deltas`` at the flat Φ slots ``keys`` (duplicates sum):
+        one upload and one ``index_add_``."""
+        if keys.shape[0]:
+            k_d, d_d = self.put(keys, deltas.astype(np.int32))
+            self.phi.view(-1).index_add_(0, k_d, d_d)
+
+
+def _volume_degrees_via_kernel(kstate: _VolumeKernelState, part: np.ndarray,
+                               rows: np.ndarray,
+                               phi: np.ndarray | None = None) -> np.ndarray:
+    """Row-subset D* via the gain_eval volume kernel on ``kstate``'s device.
+
+    Column c counts hfire of each incident hyperedge with a member in c;
+    the own column demands a second member (the row vertex always sits
+    there itself) — exactly ``graph.volume_degrees``.  Φ is ``kstate``'s
+    resident table, or ``phi`` (a recount, uploaded for this call) where
+    the refiner keeps none.  Per call the row ids and their own columns go
+    up in one copy and the (rows, k) result comes back as float64 like the
+    numpy path's.
+    """
+    from repro_torch.kernels.gain_eval import volume_degree_rows
+
+    ids = rows.astype(np.int64)
     if phi is None:
-        phi = edge_partition_counts(hyper, part, k)
-    dev = inc.device
-    phi2 = torch.from_numpy(np.minimum(phi, 2).astype(np.uint8)).to(dev)
-    pres = torch.cat([phi2 > 0, phi2 > 1], dim=1).to(torch.float32)
-    both = connectivity_degrees(inc, pres,
-                                torch.from_numpy(rows.astype(np.int64)).to(dev))
-    own = torch.from_numpy(part[rows].astype(np.int64)).to(dev)[:, None]
-    base = both[:, :k].contiguous()
-    base.scatter_(1, own, both[:, k:].gather(1, own))
-    return base.cpu().numpy().astype(np.float64)
+        rows_d, own_d = kstate.put(ids, part[ids].astype(np.int64))
+        table = kstate.phi
+    else:
+        rows_d, own_d, table = kstate.put(ids, part[ids].astype(np.int64),
+                                          phi.astype(np.int32))
+    deg = volume_degree_rows(kstate.vxadj, kstate.vedges, kstate.w, table,
+                             rows_d, own_d)
+    return deg.cpu().numpy().astype(np.float64)
 
 
 def _kernel_auto(graph: Graph, k: int, objective: str,
@@ -402,13 +453,15 @@ def refine_level_vec(
         slot_rank = np.zeros(vstate.phi.size, dtype=np.int32)
         slot_done = np.zeros(vstate.phi.size, dtype=bool)
 
-    # The level's dense adjacency (cut) or incidence (volume) goes to the
-    # device once, here; each eval_rows call moves only the partition
-    # vector or the clamped Φ table, and the row ids.
-    dense = None
-    if use_kernel:
-        dense = torch.from_numpy(_dense_adjacency(graph) if objective == "cut"
-                                 else _dense_incidence(hyper)).to(dev)
+    # The level's dense adjacency (cut), or incidence CSR and Φ (volume),
+    # go to the device once, here; each eval_rows call moves only the
+    # partition vector (cut) or the row ids and own columns (volume).
+    dense = kstate = None
+    if use_kernel and objective == "cut":
+        dense = torch.from_numpy(_dense_adjacency(graph)).to(dev)
+    elif use_kernel:
+        kstate = _VolumeKernelState(
+            hyper, None if vstate is None else vstate.phi, dev)
     # The volume path materializes a (pairs, k) product where pairs is the
     # chunk's total incidence degree — bound the chunk by that expansion,
     # not just rows * k, or fan-out-heavy graphs blow the memory cap.
@@ -427,8 +480,9 @@ def refine_level_vec(
             return partition_degrees(graph, pvec, k, rows=rows_v)
         if use_kernel:
             return _volume_degrees_via_kernel(
-                dense, hyper, pvec, k, rows_v,
-                phi=None if vstate is None else vstate.phi)
+                kstate, pvec, rows_v,
+                phi=(None if vstate is not None
+                     else edge_partition_counts(hyper, pvec, k)))
         if dense_inc is not None:
             # One (rows, E) @ (E, 2k) BLAS call against the live Φ
             # presence: base counts any member, the own column demands a
@@ -876,7 +930,9 @@ def refine_level_vec(
         part[moved] = dest
         cut -= int(round(moved_gain.sum()))
         if vstate is not None:
-            vstate.apply_moves(moved, prev, dest)
+            applied = vstate.apply_moves(moved, prev, dest)
+            if kstate is not None:
+                kstate.apply(*applied)  # the card's Φ follows the host's
         if plateau_move:
             cooled_until[moved] = it + plateau_cooldown
         if cut < best_cut:

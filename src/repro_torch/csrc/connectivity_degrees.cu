@@ -1,109 +1,150 @@
-// Connectivity-mode degree rows D*[r, c] = sum_e inc[rows[r], e] * pres[e, c].
+// Volume-mode degree rows from the sparse incidence and the live Φ table
+//   D*[r, c] = sum over the hyperedges e of vertex rows[r] of
+//              w[e] * [phi(e, c) > (c == own[r])]
+// where w = hfire, phi (E, k) is the member-count table Φ and own[r] the
+// row vertex's partition: a column counts a hyperedge with a member
+// there, and the own column one with a second member (the row vertex
+// always sits there itself).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/gain_eval/kernel.py
 // (connectivity_matmul_pallas / _matmul_kernel), a dense 128-tiled MXU
 // matmul of the (n, E) hfire-weighted incidence with the (E, 2k) presence
-// [phi > 0 | phi > 1].  The incidence is sparse but stored dense (a coarse
-// level of edge_5120 has ~30-110 non-zeros in a row of E = 4096), so on
-// Hopper the product is rethought as a gather: one block per requested
-// row scans the row's E entries with coalesced loads, compacts its
-// non-zeros (e, w) into shared memory in ascending e (warp ballots and a
-// block prefix over the warps, no atomics), and then each thread owns
-// output columns and sums w * pres[e, c] over the list; the reads of a
-// presence row are coalesced across the threads.  Rows longer than SEG
-// entries are scanned in SEG-wide segments, the column sums carried in
-// shared memory between them.
+// [phi > 0 | phi > 1], together with the own-column overwrite the
+// reference's wrapper applies after it (src/repro/core/refine_vec.py,
+// _volume_degrees_via_kernel).  The incidence is > 99% zeros on the
+// refiner's levels, so on Hopper it stays sparse: the vertex -> hyperedge
+// CSR (vxadj, vedges) with the weights w = hfire[vedges] beside it, put on
+// the card once per level; Φ lives on the card as int32 and the refiner
+// applies its ±count updates there.
 //
-// Bound on an H100: memory.  Each requested incidence row is read once
-// (4E bytes), the presence once (8Ek bytes, L2-resident across blocks)
-// and 8k bytes written per row; at R = n = 3072, E = 4096, k = 141 that
-// is ~58 MB, ~17 us at 3.35 TB/s.  The multiply-adds, 2 * nnz * 2k, are
-// a few MFLOP.
+// Design: one 256-thread block per requested row.  The block copies the
+// row's list of (e, w) entries into shared memory with cp.async, SEG
+// entries at a time in ascending list order; its 8 warps split the list,
+// each taking NB consecutive entries per step, so 32 Φ rows of one row's
+// list are in flight at once.  Each lane owns columns c = lane + 32 j and
+// sums w * [phi(e, c) > (c == own)] over its warp's entries: one
+// coalesced 4-byte read of each Φ row across the lanes decides both
+// presence halves and the own-column rule.  The warps' partial sums are
+// added in a fixed order through shared memory.  Why not a warp per row
+// (or 2-4 rows a block): measured on the H100, a warp walking its list
+// alone is bound by one L2 round trip per entry (15.8 us for 64 rows of 32
+// entries, 35 us a launch on the volume run, whose calls are small row
+// subsets of coarse levels with long lists); the time of a call is its
+// longest list's walk, so the parallelism goes into each row.  At k = 141
+// CPL = 5 columns a lane cover the row in one pass with 88% of the lanes
+// busy; larger k runs further passes over the list.  No atomics, no scan
+// over zeros.
+//
+// Bound on an H100: memory.  The requested rows' lists (8 bytes an entry),
+// Φ once (4 E k bytes; L2-resident across blocks), the row and own ids
+// (16 bytes a row) and the (R, k) f32 output; at R = 3072, E = 4096,
+// k = 141 and 32 entries a row that is ~4.8 MB, ~1.4 us at 3.35 TB/s.
 //
 // Exactness: the refiner takes this path only while 2 * sum(hfire) is
-// below 2**24 (refine_vec's gate), so every partial sum is an integer
-// that float32 holds exactly; the result equals the plain version bit for
-// bit whatever the summation order (which here is fixed: ascending e).
+// below 2**24 (refine_vec's gate), so every partial sum is an integer that
+// float32 holds exactly; the result equals the plain version bit for bit
+// whatever the summation order (which here is fixed: each warp's entries
+// in ascending list order, then the warps in order).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int SEG = 2048;  // incidence entries compacted per pass
+constexpr int WARPS = 8;  // warps sharing one row's list
+constexpr int THREADS = 32 * WARPS;
+constexpr int SEG = 1024;  // list entries staged at a time
+constexpr int CPL = 5;     // columns per lane per pass: 160 >= k = 141
+constexpr int NB = 4;      // list entries a warp reads per step
 
-__global__ void connectivity_degrees_kernel(const float* __restrict__ inc,
-                                            const float* __restrict__ pres,
-                                            const int64_t* __restrict__ rows,
-                                            float* __restrict__ out, int E,
-                                            int C) {
-  // Dynamic shared memory: acc[C] | w[SEG] | e[SEG].
-  extern __shared__ float smem[];
-  float* acc = smem;
-  float* lw = acc + C;
-  int* le = reinterpret_cast<int*>(lw + SEG);
-  __shared__ int warp_nnz[WARPS];
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(d), "l"(src) : "memory");
+}
+
+__global__ void __launch_bounds__(THREADS)
+volume_degree_rows_kernel(const int* __restrict__ vxadj,
+                          const int* __restrict__ vedges,
+                          const float* __restrict__ w,
+                          const int* __restrict__ phi,
+                          const int64_t* __restrict__ rows,
+                          const int64_t* __restrict__ own,
+                          float* __restrict__ out, int k) {
+  __shared__ int s_e[SEG];
+  __shared__ float s_w[SEG];
+  __shared__ float s_part[WARPS][32 * CPL];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const unsigned below = (1u << lane) - 1u;
+  const int64_t v = rows[blockIdx.x];
+  const int o = static_cast<int>(own[blockIdx.x]);
+  const int beg = vxadj[v];
+  const int end = vxadj[v + 1];
+  float* orow = out + static_cast<int64_t>(blockIdx.x) * k;
 
-  // Each thread owns columns tid, tid + THREADS, ...: no sharing of acc.
-  for (int c = tid; c < C; c += THREADS) acc[c] = 0.0f;
-  const float* a = inc + rows[blockIdx.x] * static_cast<int64_t>(E);
-  for (int s0 = 0; s0 < E; s0 += SEG) {
-    const int s1 = min(s0 + SEG, E);
-    int count = 0;  // list length so far, the same in every thread
-    for (int base = s0; base < s1; base += THREADS) {
-      const int e = base + tid;
-      const float w = e < s1 ? a[e] : 0.0f;
-      const bool nz = w != 0.0f;
-      const unsigned ballot = __ballot_sync(0xffffffffu, nz);
-      if (lane == 0) warp_nnz[warp] = __popc(ballot);
-      __syncthreads();
-      int off = count;
-      int total = 0;
+  for (int c0 = 0; c0 < k; c0 += 32 * CPL) {
+    float acc[CPL];
 #pragma unroll
-      for (int q = 0; q < WARPS; ++q) {
-        const int cnt = warp_nnz[q];
-        off += q < warp ? cnt : 0;
-        total += cnt;
+    for (int j = 0; j < CPL; ++j) acc[j] = 0.0f;
+    for (int s0 = beg; s0 < end; s0 += SEG) {
+      const int n = min(SEG, end - s0);
+      __syncthreads();  // every warp is done with the previous segment
+      for (int i = tid; i < n; i += THREADS) {
+        cp_async4(&s_e[i], vedges + s0 + i);
+        cp_async4(&s_w[i], w + s0 + i);
       }
-      if (nz) {
-        const int pos = off + __popc(ballot & below);
-        le[pos] = e;
-        lw[pos] = w;
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();  // the segment is visible to every warp
+      for (int i0 = warp * NB; i0 < n; i0 += WARPS * NB) {
+        // Issue all NB x CPL loads before any use.
+        int val[NB][CPL];
+        float wb[NB];
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          const bool ok = i0 + b < n;
+          const int* prow = phi + static_cast<int64_t>(ok ? s_e[i0 + b] : 0) * k;
+          wb[b] = ok ? s_w[i0 + b] : 0.0f;
+#pragma unroll
+          for (int j = 0; j < CPL; ++j) {
+            const int c = c0 + lane + 32 * j;
+            val[b][j] = ok && c < k ? __ldg(prow + c) : 0;
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+#pragma unroll
+          for (int j = 0; j < CPL; ++j) {
+            const int c = c0 + lane + 32 * j;
+            acc[j] += val[b][j] > (c == o) ? wb[b] : 0.0f;
+          }
+        }
       }
-      count += total;
-      __syncthreads();  // list entries visible; warp_nnz free for reuse
     }
-    for (int c = tid; c < C; c += THREADS) {
-      float s = acc[c];
-      for (int i = 0; i < count; ++i) {
-        s += lw[i] * pres[static_cast<int64_t>(le[i]) * C + c];
-      }
-      acc[c] = s;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) s_part[warp][lane + 32 * j] = acc[j];
+    __syncthreads();
+    for (int c = tid; c < 32 * CPL && c0 + c < k; c += THREADS) {
+      float sum = s_part[0][c];
+#pragma unroll
+      for (int q = 1; q < WARPS; ++q) sum += s_part[q][c];
+      orow[c0 + c] = sum;
     }
-    __syncthreads();  // every thread is done with the list before refill
+    __syncthreads();  // s_part is rewritten by the next column pass
   }
-  float* o = out + static_cast<int64_t>(blockIdx.x) * C;
-  for (int c = tid; c < C; c += THREADS) o[c] = acc[c];
 }
 
 }  // namespace
 
-// The wrapper keeps C * 4 + SEG * 8 within the 48 KB a block gets without
-// opting in (C <= 8192, k <= 4096).
-extern "C" int connectivity_degrees_launch(const float* inc, const float* pres,
-                                           const int64_t* rows, float* out,
-                                           int E, int C, int num_rows,
+extern "C" int connectivity_degrees_launch(const int* vxadj, const int* vedges,
+                                           const float* w, const int* phi,
+                                           const int64_t* rows,
+                                           const int64_t* own, float* out,
+                                           int k, int num_rows,
                                            cudaStream_t stream) {
-  if (num_rows > 0 && C > 0) {
-    const size_t smem = static_cast<size_t>(C) * sizeof(float) +
-                        static_cast<size_t>(SEG) * (sizeof(float) + sizeof(int));
-    connectivity_degrees_kernel<<<num_rows, THREADS, smem, stream>>>(
-        inc, pres, rows, out, E, C);
+  if (num_rows > 0 && k > 0) {
+    volume_degree_rows_kernel<<<num_rows, THREADS, 0, stream>>>(
+        vxadj, vedges, w, phi, rows, own, out, k);
   }
   return static_cast<int>(cudaGetLastError());
 }

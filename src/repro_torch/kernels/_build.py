@@ -19,7 +19,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["KERNELS", "build_all", "build_dir", "check", "load",
+__all__ = ["KERNELS", "bind", "build_all", "build_dir", "check", "load",
            "ptxas_report", "require"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_bound: dict[str, object] = {}
 
 
 def build_dir() -> Path:
@@ -105,6 +106,19 @@ def load(name: str) -> ctypes.CDLL:
         path = build_all((name,))[name]
         lib = _loaded[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def bind(name: str, argtypes) -> object:
+    """Kernel ``name``'s C launch function ``<name>_launch`` with its
+    ``argtypes`` set (``c_void_p`` for every pointer and the stream) and an
+    int result, loaded and bound once per process."""
+    fn = _bound.get(name)
+    if fn is None:
+        fn = getattr(load(name), f"{name}_launch")
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _bound[name] = fn
+    return fn
 
 
 def check(rc: int, name: str) -> None:

@@ -1,6 +1,6 @@
 """Launch of the CUDA degree kernels: cut-mode partition degrees
-(``csrc/part_degrees.cu``) and volume-mode connectivity degrees
-(``csrc/connectivity_degrees.cu``)."""
+(``csrc/part_degrees.cu``) and volume-mode degree rows from the sparse
+incidence and the live Φ table (``csrc/connectivity_degrees.cu``)."""
 from __future__ import annotations
 
 import ctypes
@@ -9,34 +9,20 @@ import torch
 
 from .. import _build
 
-__all__ = ["part_degrees_cuda", "connectivity_degrees_cuda", "launches",
+__all__ = ["part_degrees_cuda", "volume_degree_rows_cuda", "launches",
            "connectivity_launches"]
 
 # Launches since the last reset (set to 0 by callers that count a run), one
 # counter per kernel: ``launches`` counts part_degrees,
-# ``connectivity_launches`` counts connectivity_degrees.
+# ``connectivity_launches`` counts connectivity_degrees (volume_degree_rows).
 launches = 0
 connectivity_launches = 0
 
 # The k-bin histogram lives in (static-limit) dynamic shared memory.
 _MAX_K = 48 * 1024 // 4
-# connectivity_degrees keeps C column sums and a 2048-entry (e, w) list in
-# the same 48 KB: C * 4 + 2048 * 8 bytes.
-_MAX_C = (48 * 1024 - 2048 * 8) // 4
 
-
-def _fn():
-    f = _build.load("part_degrees").part_degrees_launch
-    f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    f.restype = ctypes.c_int
-    return f
-
-
-def _conn_fn():
-    f = _build.load("connectivity_degrees").connectivity_degrees_launch
-    f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    f.restype = ctypes.c_int
-    return f
+_PART_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_CONN_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
 def _rows_or_all(rows: torch.Tensor | None, n: int,
@@ -64,37 +50,42 @@ def part_degrees_cuda(adj: torch.Tensor, part: torch.Tensor, k: int,
     _build.require(part, "part", torch.int32, (n,), adj.device)
     rows = _rows_or_all(rows, n, adj.device)
     out = torch.empty((rows.shape[0], k), dtype=torch.float32, device=adj.device)
-    rc = _fn()(adj.data_ptr(), part.data_ptr(), rows.data_ptr(),
-               out.data_ptr(), n, k, rows.shape[0],
-               torch.cuda.current_stream(adj.device).cuda_stream)
+    rc = _build.bind("part_degrees", _PART_ARGTYPES)(
+        adj.data_ptr(), part.data_ptr(), rows.data_ptr(), out.data_ptr(), n, k,
+        rows.shape[0], torch.cuda.current_stream(adj.device).cuda_stream)
     _build.check(rc, "part_degrees")
     launches += 1
     return out
 
 
-def connectivity_degrees_cuda(inc: torch.Tensor, pres: torch.Tensor,
-                              rows: torch.Tensor | None = None) -> torch.Tensor:
-    """inc: (n, E) f32 incidence; pres: (E, C) f32 presence; rows: (R,) i64
-    row ids in [0, n) or None (all rows).
+def volume_degree_rows_cuda(vxadj: torch.Tensor, vedges: torch.Tensor,
+                            w: torch.Tensor, phi: torch.Tensor,
+                            rows: torch.Tensor | None,
+                            own: torch.Tensor) -> torch.Tensor:
+    """vxadj: (n + 1,) i32 and vedges: (nnz,) i32, the vertex -> hyperedge
+    CSR; w: (nnz,) f32 the weight of each entry (hfire of its hyperedge);
+    phi: (E, k) i32 member counts; rows: (R,) i64 vertex ids or None (all
+    n); own: (R,) i64 the partition of each row vertex.
 
-    Returns the (R, C) f32 rows of ``inc @ pres``, equal to computing every
-    row and indexing ``[rows]``.
+    Returns the (R, k) f32 rows D*[r, c] = sum of w over the row's entries
+    e with phi[e, c] > (c == own[r]).
     """
     global connectivity_launches
-    if inc.dim() != 2 or pres.dim() != 2:
-        raise ValueError("inc and pres must be 2-D")
-    n, ne = inc.shape
-    c = pres.shape[1]
-    if not 0 < c <= _MAX_C:
-        raise ValueError(f"{c} presence columns outside the kernel's range "
-                         f"1..{_MAX_C}")
-    _build.require(inc, "inc", torch.float32)
-    _build.require(pres, "pres", torch.float32, (ne, c), inc.device)
-    rows = _rows_or_all(rows, n, inc.device)
-    out = torch.empty((rows.shape[0], c), dtype=torch.float32, device=inc.device)
-    rc = _conn_fn()(inc.data_ptr(), pres.data_ptr(), rows.data_ptr(),
-                    out.data_ptr(), ne, c, rows.shape[0],
-                    torch.cuda.current_stream(inc.device).cuda_stream)
+    dev = vxadj.device
+    _build.require(vxadj, "vxadj", torch.int32)
+    if vxadj.dim() != 1 or phi.dim() != 2:
+        raise ValueError("vxadj must be 1-D and phi 2-D")
+    _build.require(vedges, "vedges", torch.int32, device=dev)
+    _build.require(w, "w", torch.float32, tuple(vedges.shape), dev)
+    _build.require(phi, "phi", torch.int32, device=dev)
+    rows = _rows_or_all(rows, vxadj.shape[0] - 1, dev)
+    _build.require(own, "own", torch.int64, tuple(rows.shape), dev)
+    k = phi.shape[1]
+    out = torch.empty((rows.shape[0], k), dtype=torch.float32, device=dev)
+    rc = _build.bind("connectivity_degrees", _CONN_ARGTYPES)(
+        vxadj.data_ptr(), vedges.data_ptr(), w.data_ptr(), phi.data_ptr(),
+        rows.data_ptr(), own.data_ptr(), out.data_ptr(), k, rows.shape[0],
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "connectivity_degrees")
     connectivity_launches += 1
     return out

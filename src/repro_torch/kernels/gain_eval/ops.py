@@ -3,10 +3,10 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import connectivity_degrees_cuda, part_degrees_cuda
-from .ref import connectivity_degrees_ref, part_degrees_ref, part_onehot
+from .kernel import part_degrees_cuda, volume_degree_rows_cuda
+from .ref import part_degrees_ref, part_onehot, volume_degree_rows_ref
 
-__all__ = ["part_degrees", "connectivity_degrees", "gain_matrix"]
+__all__ = ["part_degrees", "volume_degree_rows", "gain_matrix"]
 
 
 def part_degrees(adj: torch.Tensor, part: torch.Tensor, k: int,
@@ -19,15 +19,18 @@ def part_degrees(adj: torch.Tensor, part: torch.Tensor, k: int,
     raise ValueError(f"part_degrees runs on cuda or cpu tensors, not {adj.device}")
 
 
-def connectivity_degrees(inc: torch.Tensor, pres: torch.Tensor,
-                         rows: torch.Tensor | None = None) -> torch.Tensor:
-    """(R, c) f32 connectivity-mode degrees D*[r] = inc[rows[r]] @ pres."""
-    if inc.device.type == "cuda":
-        return connectivity_degrees_cuda(inc, pres, rows)
-    if inc.device.type == "cpu":
-        return connectivity_degrees_ref(inc, pres, rows)
+def volume_degree_rows(vxadj: torch.Tensor, vedges: torch.Tensor,
+                       w: torch.Tensor, phi: torch.Tensor,
+                       rows: torch.Tensor | None,
+                       own: torch.Tensor) -> torch.Tensor:
+    """(R, k) f32 volume-mode degrees D*[r, c] = sum of w over the CSR
+    entries e of vertex rows[r] with phi[e, c] > (c == own[r])."""
+    if vxadj.device.type == "cuda":
+        return volume_degree_rows_cuda(vxadj, vedges, w, phi, rows, own)
+    if vxadj.device.type == "cpu":
+        return volume_degree_rows_ref(vxadj, vedges, w, phi, rows, own)
     raise ValueError(
-        f"connectivity_degrees runs on cuda or cpu tensors, not {inc.device}")
+        f"volume_degree_rows runs on cuda or cpu tensors, not {vxadj.device}")
 
 
 def gain_matrix(adj: torch.Tensor, part: torch.Tensor, k: int) -> torch.Tensor:

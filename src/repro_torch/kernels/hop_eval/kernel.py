@@ -17,11 +17,7 @@ launches = 0
 ROWS_PER_BLOCK = 8
 
 
-def _fn():
-    f = _build.load("hop_cost").hop_cost_launch
-    f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    f.restype = ctypes.c_int
-    return f
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
 def hop_cost_cuda(traffic: torch.Tensor, x: torch.Tensor,
@@ -41,9 +37,10 @@ def hop_cost_cuda(traffic: torch.Tensor, x: torch.Tensor,
         return out[0]
     blocks = -(-k // ROWS_PER_BLOCK)
     partials = torch.empty(blocks, dtype=torch.float64, device=traffic.device)
-    rc = _fn()(traffic.data_ptr(), x.data_ptr(), y.data_ptr(),
-               partials.data_ptr(), out.data_ptr(), k, ROWS_PER_BLOCK,
-               torch.cuda.current_stream(traffic.device).cuda_stream)
+    rc = _build.bind("hop_cost", _ARGTYPES)(
+        traffic.data_ptr(), x.data_ptr(), y.data_ptr(), partials.data_ptr(),
+        out.data_ptr(), k, ROWS_PER_BLOCK,
+        torch.cuda.current_stream(traffic.device).cuda_stream)
     _build.check(rc, "hop_cost")
     launches += 1
     return out[0]

@@ -13,13 +13,9 @@ __all__ = ["lif_step_cuda", "launches"]
 launches = 0
 
 
-def _fn():
-    f = _build.load("lif_step").lif_step_launch
-    f.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_int, ctypes.c_void_p]
-    f.restype = ctypes.c_int
-    return f
+_ARGTYPES = [ctypes.c_void_p] * 6 + [
+    ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+    ctypes.c_int, ctypes.c_void_p]
 
 
 def lif_step_cuda(
@@ -42,10 +38,10 @@ def lif_step_cuda(
     v_out = torch.empty_like(v)
     refr_out = torch.empty_like(refr)
     fired = torch.empty(n, dtype=torch.bool, device=v.device)
-    rc = _fn()(v.data_ptr(), refr.data_ptr(), current.data_ptr(),
-               v_out.data_ptr(), refr_out.data_ptr(), fired.data_ptr(), n,
-               decay, threshold, v_reset, refractory,
-               torch.cuda.current_stream(v.device).cuda_stream)
+    rc = _build.bind("lif_step", _ARGTYPES)(
+        v.data_ptr(), refr.data_ptr(), current.data_ptr(), v_out.data_ptr(),
+        refr_out.data_ptr(), fired.data_ptr(), n, decay, threshold, v_reset,
+        refractory, torch.cuda.current_stream(v.device).cuda_stream)
     _build.check(rc, "lif_step")
     launches += 1
     return v_out, refr_out, fired

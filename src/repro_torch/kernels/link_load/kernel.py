@@ -18,11 +18,7 @@ launches = 0
 _MAX_LINKS = 48 * 1024 // 4
 
 
-def _fn():
-    f = _build.load("link_loads").link_loads_launch
-    f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    f.restype = ctypes.c_int
-    return f
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def link_loads_cuda(counts: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
@@ -41,9 +37,9 @@ def link_loads_cuda(counts: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     _build.require(y, "y", torch.int32, (k,), counts.device)
     out = torch.empty((b, link_count(mesh_w, mesh_h)), dtype=torch.int32,
                       device=counts.device)
-    rc = _fn()(counts.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
-               b, k, mesh_w, mesh_h,
-               torch.cuda.current_stream(counts.device).cuda_stream)
+    rc = _build.bind("link_loads", _ARGTYPES)(
+        counts.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(), b, k,
+        mesh_w, mesh_h, torch.cuda.current_stream(counts.device).cuda_stream)
     _build.check(rc, "link_loads")
     launches += 1
     return out

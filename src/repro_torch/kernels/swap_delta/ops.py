@@ -15,7 +15,9 @@ def swap_deltas(sym: torch.Tensor, x: torch.Tensor,
     """(K, K) matrix of hop-cost deltas for swapping partitions a and b.
 
     `sym` must be the symmetrized traffic C + C^T (zero-padded to the core
-    count if virtual partitions are in play).
+    count if virtual partitions are in play): the CUDA kernel relies on its
+    symmetry (it computes the tiles on and above the diagonal and mirrors
+    them).  The result is symmetric.
     """
     if sym.device.type == "cuda":
         return swap_deltas_cuda(sym, x, y)

@@ -22,11 +22,11 @@ def distance_matrix(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
             + (y[:, None] - y[None, :]).abs()).to(torch.float32)
 
 
-def swap_prepass(sym: torch.Tensor, x: torch.Tensor,
-                 y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(r, diag): r[a] = sum_j S[a, j] D[a, j] and the diagonal of S."""
-    d = distance_matrix(x, y)
-    return (sym * d).sum(dim=1), torch.diagonal(sym).contiguous()
+def swap_prepass(sym: torch.Tensor,
+                 d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(r, diag): r[a] = sum_j S[a, j] D[a, j] and the diagonal of S (the
+    CUDA kernel computes both itself, in the same launch)."""
+    return (sym * d).sum(dim=1), torch.diagonal(sym)
 
 
 def swap_deltas_ref(sym: torch.Tensor, x: torch.Tensor,
@@ -36,7 +36,6 @@ def swap_deltas_ref(sym: torch.Tensor, x: torch.Tensor,
     d = distance_matrix(x, y)
     sd = sym @ d
     ds = d @ sym
-    r = (sym * d).sum(dim=1)
-    diag = torch.diagonal(sym)
+    r, diag = swap_prepass(sym, d)
     return (sd + ds - r[:, None] - r[None, :]
             - (diag[:, None] + diag[None, :] - 2.0 * sym) * d)

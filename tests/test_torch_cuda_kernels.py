@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card: bitwise for lif_step, exact for part_degrees, connectivity_degrees
-and link_loads, rtol 1e-4 / atol 1e-2 for swap_deltas, rtol 1e-6 (and
-bitwise repeatable) for hop_cost.  Every test is marked ``cuda`` and skips
+card: bitwise for lif_step, exact for part_degrees, volume_degree_rows
+(the connectivity_degrees kernel) and link_loads, exact for swap_deltas on
+integer traffic and rtol 1e-4 / atol 1e-2 on fractional traffic, rtol
+1e-6 (and bitwise repeatable) for hop_cost.  Every test is marked ``cuda`` and skips
 where CUDA is unavailable; this file imports torch and numpy only, so it
 runs where the reference's JAX is not installed."""
 import numpy as np
@@ -10,8 +11,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.gain_eval import kernel as gain_kernel  # noqa: E402
-from repro_torch.kernels.gain_eval import connectivity_degrees_ref  # noqa: E402
 from repro_torch.kernels.gain_eval import part_degrees_ref  # noqa: E402
+from repro_torch.kernels.gain_eval import volume_degree_rows_ref  # noqa: E402
 from repro_torch.kernels.hop_eval import hop_cost_ref  # noqa: E402
 from repro_torch.kernels.hop_eval import kernel as hop_kernel  # noqa: E402
 from repro_torch.kernels.lif_step import kernel as lif_kernel  # noqa: E402
@@ -58,18 +59,27 @@ def test_part_degrees_kernel_matches_plain_exactly(cuda, n, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,e,k", [(7, 5, 3), (260, 513, 130), (3072, 4096, 141)])
-def test_connectivity_degrees_kernel_matches_plain_exactly(cuda, n, e, k):
-    """Sparse integer incidence (hfire-like weights) against a 0/1 (E, 2k)
-    presence; rows longer than the kernel's 2048-entry segment included."""
-    inc = RNG.integers(1, 9, (n, e)) * (RNG.random((n, e)) < 0.03)
-    inc = torch.tensor(inc.astype(np.float32), device=cuda)
-    pres = torch.tensor((RNG.random((e, 2 * k)) < 0.3).astype(np.float32),
-                        device=cuda)
+@pytest.mark.parametrize("n,e,k,longest", [(7, 5, 3, 5), (260, 513, 130, 500),
+                                           (50, 64, 300, 64),
+                                           (3072, 4096, 141, 700)])
+def test_connectivity_degrees_kernel_matches_plain_exactly(cuda, n, e, k, longest):
+    """volume_degree_rows on a sparse incidence CSR (integer hfire-like
+    weights, lists up to ``longest`` entries: longer than the kernel's
+    256-entry shared segment) against Φ in 0..3, all rows and a subset;
+    k = 300 runs two column passes."""
+    counts = RNG.integers(0, longest + 1, n)
+    vxadj = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    vedges = np.concatenate(
+        [RNG.choice(e, c, replace=False) for c in counts]).astype(np.int32)
+    args = (torch.tensor(vxadj, device=cuda), torch.tensor(vedges, device=cuda),
+            torch.tensor(RNG.integers(1, 9, vedges.shape[0]).astype(np.float32),
+                         device=cuda),
+            torch.tensor(RNG.integers(0, 4, (e, k)).astype(np.int32), device=cuda))
+    own = torch.tensor(RNG.integers(0, k, n), device=cuda)
     rows = torch.tensor(RNG.permutation(n)[: n // 2 + 1], device=cuda)
-    for r in (rows, None):
-        assert torch.equal(gain_kernel.connectivity_degrees_cuda(inc, pres, r),
-                           connectivity_degrees_ref(inc, pres, r))
+    for r, o in ((rows, own[rows]), (None, own)):
+        assert torch.equal(gain_kernel.volume_degree_rows_cuda(*args, r, o),
+                           volume_degree_rows_ref(*args, r, o))
 
 
 @pytest.mark.cuda
@@ -85,15 +95,43 @@ def test_hop_cost_kernel_matches_plain_and_repeats(cuda, k):
         assert torch.equal(hop_kernel.hop_cost_cuda(c, x, y), got)
 
 
+def _swap_inputs(cuda, k, traffic):
+    """Symmetric traffic C + C^T and coordinates on the smallest square
+    mesh with k cores (16 x 16 up to 256, 32 x 32 beyond)."""
+    w = 16 if k <= 256 else 32
+    place = RNG.permutation(max(k, w * w))[:k]
+    sym = torch.tensor(traffic + traffic.T, device=cuda)
+    x = torch.tensor((place % w).astype(np.float32), device=cuda)
+    y = torch.tensor((place // w).astype(np.float32), device=cuda)
+    return sym, x, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,top", [(1, 50), (5, 50), (16, 8000), (100, 50),
+                                   (256, 50), (300, 50), (1024, 50), (1030, 50)])
+def test_swap_deltas_kernel_matches_plain_exactly_on_integer_traffic(cuda, k, top):
+    """Integer traffic whose sums stay below 2^24 (top = 8000 needs the
+    second TF32 split): the split-TF32 tensor core products are exact, so
+    the kernel equals the plain version bit for bit; the output is
+    symmetric with a zero diagonal, in one launch."""
+    sym, x, y = _swap_inputs(cuda, k, RNG.integers(0, top, (k, k)).astype(np.float32))
+    before = swap_kernel.launches
+    got = swap_kernel.swap_deltas_cuda(sym, x, y)
+    assert swap_kernel.launches == before + 1
+    assert torch.equal(got, swap_deltas_ref(sym, x, y))
+    assert torch.equal(got, got.T)
+    assert float(torch.diagonal(got).abs().max()) == 0.0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [5, 100, 256, 300])
 def test_swap_deltas_kernel_matches_plain(cuda, k):
-    c = RNG.integers(0, 100, (k, k)).astype(np.float32)
-    sym = torch.tensor(c + c.T, device=cuda)
-    x = torch.tensor(RNG.integers(0, 16, k).astype(np.float32), device=cuda)
-    y = torch.tensor(RNG.integers(0, 16, k).astype(np.float32), device=cuda)
+    """Fractional traffic in [0, 2): within rtol 1e-4 / atol 1e-2 of the
+    plain f32 version (both round their f32 sums, in different orders)."""
+    sym, x, y = _swap_inputs(cuda, k, RNG.random((k, k)).astype(np.float32))
     got = swap_kernel.swap_deltas_cuda(sym, x, y)
     torch.testing.assert_close(got, swap_deltas_ref(sym, x, y), rtol=1e-4, atol=1e-2)
+    assert torch.equal(got, got.T)
     assert float(torch.diagonal(got).abs().max()) <= 1e-3
 
 

@@ -9,6 +9,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.core import refine_vec as ref_refine_vec  # noqa: E402
+from repro.core.graph import build_hypergraph as ref_build_hypergraph  # noqa: E402
+from repro.core.graph import edge_partition_counts as ref_edge_partition_counts  # noqa: E402
+from repro.core.graph import volume_degrees as ref_volume_degrees  # noqa: E402
 from repro.core.hopcost import hop_distance_matrix, swap_delta  # noqa: E402
 from repro.core.mapping import pad_traffic  # noqa: E402
 from repro.kernels import gain_eval as ref_gain  # noqa: E402
@@ -21,10 +25,11 @@ from repro.nocsim.xy import link_ids_for_routes  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.gain_eval import kernel as gain_kernel  # noqa: E402
 from repro_torch.kernels.gain_eval import (  # noqa: E402
-    connectivity_degrees,
+    connectivity_degrees_ref,
     gain_matrix,
     gain_matrix_ref,
     part_degrees,
+    volume_degree_rows,
 )
 from repro_torch.kernels.hop_eval import hop_cost  # noqa: E402
 from repro_torch.kernels.hop_eval import kernel as hop_kernel  # noqa: E402
@@ -92,11 +97,12 @@ def test_part_degrees_plain_matches_reference(n, k):
                                    (150, 90, 70), (260, 513, 130)])
 def test_connectivity_degrees_plain_matches_reference(n, e, k):
     """Integer incidence against 0/1 presence: every sum is an exact f32
-    integer, so the plain version equals the reference bitwise."""
+    integer, so the dense plain statement of the TPU kernel's product
+    equals the reference bitwise."""
     inc = (RNG.random((n, e)) < 0.2).astype(np.float32) * RNG.integers(1, 9, (n, e))
     inc = inc.astype(np.float32)
     pres = (RNG.random((e, k)) < 0.3).astype(np.float32)
-    got = connectivity_degrees(t(inc), t(pres)).numpy()
+    got = connectivity_degrees_ref(t(inc), t(pres)).numpy()
     jargs = (jnp.asarray(inc), jnp.asarray(pres))
     np.testing.assert_array_equal(
         got, np.asarray(ref_gain.connectivity_degrees_ref(*jargs)))
@@ -104,7 +110,46 @@ def test_connectivity_degrees_plain_matches_reference(n, e, k):
         got, np.asarray(ref_gain.connectivity_degrees(*jargs, backend="interpret")))
     rows = RNG.permutation(n)[: max(1, n // 3)].astype(np.int64)
     np.testing.assert_array_equal(
-        connectivity_degrees(t(inc), t(pres), t(rows)).numpy(), got[rows])
+        connectivity_degrees_ref(t(inc), t(pres), t(rows)).numpy(), got[rows])
+
+
+def _volume_case(n, pins, k, seed):
+    """A reference hypergraph, a partition, its Φ and a random Φ in 0..3."""
+    r = np.random.default_rng(seed)
+    src, dst = r.integers(0, n, pins), r.integers(0, n, pins)
+    hg = ref_build_hypergraph(n, src, dst, r.integers(1, 9, n))
+    part = r.integers(0, k, n).astype(np.int64)
+    phi = np.asarray(ref_edge_partition_counts(hg, part, k), dtype=np.int32)
+    noise = r.integers(0, 4, phi.shape).astype(np.int32)
+    return hg, part, phi, noise, r
+
+
+@pytest.mark.parametrize("n,pins,k", [(1, 1, 1), (40, 200, 5), (120, 500, 66),
+                                      (300, 2500, 130)])
+def test_volume_degree_rows_plain_matches_reference(n, pins, k):
+    """The plain volume_degree_rows over the incidence CSR equals the
+    reference's _volume_degrees_via_kernel (its Pallas connectivity kernel
+    in interpret mode plus the own-column overwrite) bitwise: with Φ from
+    the partition (then also graph.volume_degrees) and with Φ drawn from
+    0..3, so both presence halves matter; all rows and a permuted subset."""
+    hg, part, phi, noise, r = _volume_case(n, pins, k, seed=n)
+    vxadj, vedges = hg.incidence()
+    csr = (t(vxadj.astype(np.int32)), t(vedges.astype(np.int32)),
+           t(hg.hfire[vedges].astype(np.float32)))
+    inc = ref_refine_vec._dense_incidence(hg)
+    for table, extra in ((phi, ref_volume_degrees(hg, part, k)), (noise, None)):
+        for rows in (np.arange(n, dtype=np.int64), r.permutation(n)[: n // 3 + 1]):
+            want = ref_refine_vec._volume_degrees_via_kernel(
+                inc, hg, part, k, rows, "interpret", phi=table)
+            got = volume_degree_rows(*csr, t(table), t(rows), t(part[rows]))
+            assert got.dtype == torch.float32
+            np.testing.assert_array_equal(got.numpy(), want)
+            if extra is not None:
+                np.testing.assert_array_equal(got.numpy(), extra[rows])
+    all_rows = volume_degree_rows(*csr, t(noise), None, t(part)).numpy()
+    np.testing.assert_array_equal(
+        all_rows, ref_refine_vec._volume_degrees_via_kernel(
+            inc, hg, part, k, np.arange(n), "interpret", phi=noise))
 
 
 @pytest.mark.parametrize("n,k", [(7, 3), (200, 60), (513, 130)])
@@ -168,6 +213,22 @@ def test_swap_deltas_plain_matches_reference(k, cores, w):
         np.testing.assert_allclose(pairs[i], expect, rtol=1e-5, atol=1e-2)
 
 
+@pytest.mark.parametrize("k,w", [(1, 1), (5, 5), (100, 16), (256, 16)])
+def test_swap_deltas_plain_is_symmetric(k, w):
+    """On symmetric traffic the delta matrix is symmetric (the CUDA kernel
+    computes the upper tiles and mirrors them): exactly for integer
+    traffic, where every sum is exact, and within the swap_deltas parity
+    tolerance (rtol 1e-4 / atol 1e-2) otherwise."""
+    place = RNG.permutation(max(k, w * w))[:k]
+    x, y = t((place % w).astype(np.float32)), t((place // w).astype(np.float32))
+    c = RNG.integers(0, 600, (k, k)).astype(np.float32)
+    got = swap_deltas(t(c + c.T), x, y)
+    assert torch.equal(got, got.T)
+    c = RNG.random((k, k)).astype(np.float32)
+    got = swap_deltas(t(c + c.T), x, y)
+    torch.testing.assert_close(got, got.T, rtol=1e-4, atol=1e-2)
+
+
 # ------------------------------------------------------------- link_load
 
 @pytest.mark.parametrize("k,w,h", [(5, 5, 5), (256, 16, 16), (30, 8, 4)])
@@ -203,6 +264,14 @@ def test_window_link_loads_match_reference_and_route_bincount(w, h, windows):
 
 # ------------------------------------------------------ dispatch / guards
 
+def _tiny_csr(device="cpu"):
+    """(vxadj, vedges, w, phi) of two vertices sharing one hyperedge, k = 3."""
+    return (torch.tensor([0, 1, 2], dtype=torch.int32, device=device),
+            torch.tensor([0, 0], dtype=torch.int32, device=device),
+            torch.ones(2, device=device),
+            torch.tensor([[2, 0, 1]], dtype=torch.int32, device=device))
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     def counts():
         return (lif_kernel.launches, gain_kernel.launches,
@@ -214,7 +283,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
              **LIF_KW)
     part_degrees(torch.ones(3, 3), torch.zeros(3, dtype=torch.int32), 2)
     gain_matrix(torch.ones(3, 3), torch.zeros(3, dtype=torch.int32), 2)
-    connectivity_degrees(torch.ones(3, 2), torch.ones(2, 4))
+    volume_degree_rows(*_tiny_csr(), None, torch.zeros(2, dtype=torch.int64))
     hop_cost(torch.ones(3, 3), torch.zeros(3), torch.zeros(3))
     swap_deltas(torch.ones(3, 3), torch.zeros(3), torch.zeros(3))
     link_loads(torch.ones(1, 4, 4, dtype=torch.int32),
@@ -232,7 +301,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         gain_kernel.part_degrees_cuda(torch.ones(3, 3),
                                       torch.zeros(3, dtype=torch.int32), 2)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        gain_kernel.connectivity_degrees_cuda(torch.ones(3, 2), torch.ones(2, 4))
+        gain_kernel.volume_degree_rows_cuda(*_tiny_csr(), None,
+                                            torch.zeros(2, dtype=torch.int64))
     with pytest.raises(ValueError, match="CUDA tensor"):
         swap_kernel.swap_deltas_cuda(torch.ones(3, 3), torch.zeros(3), torch.zeros(3))
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -248,8 +318,8 @@ def test_ops_refuse_other_devices():
         part_degrees(torch.ones(3, 3, device="meta"),
                      torch.zeros(3, dtype=torch.int32, device="meta"), 2)
     with pytest.raises(ValueError, match="cuda or cpu"):
-        connectivity_degrees(torch.ones(3, 2, device="meta"),
-                             torch.ones(2, 4, device="meta"))
+        volume_degree_rows(*_tiny_csr("meta"), None,
+                           torch.zeros(2, dtype=torch.int64, device="meta"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         hop_cost(torch.ones(3, 3, device="meta"), torch.zeros(3, device="meta"),
                  torch.zeros(3, device="meta"))

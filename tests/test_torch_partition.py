@@ -20,6 +20,8 @@ from conftest import random_hypergraph  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.core import refine_vec  # noqa: E402
 from repro_torch.core.graph import comm_volume, edge_cut  # noqa: E402
+from repro_torch.core.graph import edge_partition_counts  # noqa: E402
+from repro_torch.core.refine import VolumeState  # noqa: E402
 from repro_torch.core.partition import sneap_partition  # noqa: E402
 
 CAPACITY = 16  # smooth_1280 at capacity 16: k = 88 >= the kernel's 64
@@ -133,8 +135,9 @@ def test_kernel_auto_rule_keys_on_the_card(ref_profile, monkeypatch):
 
 
 def test_volume_degrees_via_kernel_matches_reference():
-    """tests/test_kernels.py's exactness case: the connectivity-mode path
-    reproduces graph.volume_degrees bit for bit, all rows and a subset."""
+    """tests/test_kernels.py's exactness case: the volume kernel path (the
+    incidence CSR and Φ resident, or Φ recounted per call) reproduces
+    graph.volume_degrees bit for bit, all rows and a subset."""
     r = np.random.default_rng(7)
     n, k = 120, 66
     src, dst = r.integers(0, n, 500), r.integers(0, n, 500)
@@ -147,17 +150,78 @@ def test_volume_degrees_via_kernel_matches_reference():
             ref_refine_vec._dense_incidence(hg), hg, part, k, rows, "interpret"),
         want)
     hyper = interop.hypergraph_from(hg)
-    inc = torch.from_numpy(refine_vec._dense_incidence(hyper))
-    got = refine_vec._volume_degrees_via_kernel(inc, hyper, part, k, rows)
+    from repro_torch.core.graph import edge_partition_counts
+    phi = edge_partition_counts(hyper, part, k)
+    cpu = torch.device("cpu")
+    kstate = refine_vec._VolumeKernelState(hyper, phi, cpu)
+    got = refine_vec._volume_degrees_via_kernel(kstate, part, rows)
     assert got.dtype == np.float64
     np.testing.assert_array_equal(got, want)
     sub = r.permutation(n)[:37]
-    from repro_torch.core.graph import edge_partition_counts
     np.testing.assert_array_equal(
         refine_vec._volume_degrees_via_kernel(
-            inc, hyper, part, k, sub,
-            phi=edge_partition_counts(hyper, part, k)),
+            refine_vec._VolumeKernelState(hyper, None, cpu), part, sub, phi=phi),
         want[sub])
+
+
+def _port_hyper_case(seed: int):
+    """A random SNN graph with its hypergraph (port types), a random
+    partition into k = 70 parts and the rng that made them."""
+    r = np.random.default_rng(seed)
+    g = interop.graph_from(random_hypergraph(150, 900, seed=seed, max_fire=9))
+    return g, r.integers(0, 70, g.num_vertices).astype(np.int64), 70, r
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_volume_kernel_csr_lists_the_dense_incidence(seed):
+    """The CSR the volume kernel path takes from VolumeState lists exactly
+    the non-zeros of _dense_incidence, once each, with the same weights
+    (plus the memberships of hyperedges whose source never fired, with
+    weight 0, which add nothing)."""
+    g, part, k, _ = _port_hyper_case(seed)
+    vstate = VolumeState(g, part, k)
+    kstate = refine_vec._VolumeKernelState(vstate.hyper, vstate.phi,
+                                           torch.device("cpu"))
+    vxadj, vedges, w = (kstate.vxadj.numpy(), kstate.vedges.numpy(),
+                        kstate.w.numpy())
+    np.testing.assert_array_equal(vxadj, vstate.vxadj)
+    np.testing.assert_array_equal(vedges, vstate.vedges)
+    dense = refine_vec._dense_incidence(g.hyper)
+    verts = np.repeat(np.arange(g.num_vertices), np.diff(vxadj))
+    assert len(set(zip(verts.tolist(), vedges.tolist()))) == vedges.shape[0]
+    assert np.count_nonzero(w) == np.count_nonzero(dense)
+    assert (g.hyper.hfire[vedges[w == 0]] == 0).all()
+    rebuilt = np.zeros_like(dense)
+    rebuilt[verts, vedges] = w
+    np.testing.assert_array_equal(rebuilt, dense)
+    np.testing.assert_array_equal(kstate.phi.numpy(), vstate.phi)
+
+
+def test_volume_kernel_phi_mirror_follows_apply_moves():
+    """Batches whose movers share hyperedges (several movers on one slot,
+    merged into counts above 1) keep the kernel path's Φ equal to
+    VolumeState's after every batch."""
+    g, part, k, r = _port_hyper_case(3)
+    hyper = g.hyper
+    vstate = VolumeState(g, part, k)
+    kstate = refine_vec._VolumeKernelState(hyper, vstate.phi,
+                                           torch.device("cpu"))
+    for _ in range(6):
+        e = int(r.integers(0, hyper.num_hyperedges))
+        members = np.unique(hyper.members(e).astype(np.int64))
+        extra = r.choice(g.num_vertices, 5, replace=False)
+        movers = np.unique(np.concatenate([members, extra]))
+        prev = part[movers].copy()
+        # One destination for the whole batch: the edge's members all
+        # enter the slot (e, d), so merged counts exceed 1.
+        d = int(r.choice(np.setdiff1d(np.arange(k), prev)))
+        dest = np.full_like(prev, d)
+        part[movers] = dest
+        keys, deltas = vstate.apply_moves(movers, prev, dest)
+        assert deltas.max() > 1
+        kstate.apply(keys, deltas)
+        np.testing.assert_array_equal(kstate.phi.numpy(), vstate.phi)
+    np.testing.assert_array_equal(vstate.phi, edge_partition_counts(hyper, part, k))
 
 
 @pytest.mark.parametrize("case", ["smooth_1280", "hypergraph"])
