@@ -6,10 +6,13 @@
 1. Builds the six CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
    one process per source, in parallel).
 2. Holds each kernel against its plain PyTorch version on the card at the
-   shapes the slice runs give it (exact for lif_step, part_degrees,
-   connectivity_degrees, swap_deltas and link_loads; rtol 1e-6 and bitwise
-   repeatable for hop_cost), and times the kernel, the plain version and,
-   where one exists, one PyTorch call that computes the same function.
+   shapes the slice runs give it (bitwise for lif_step — 60 fused steps of
+   edge_5120 from rest, raster, v and refr, and the step alone on a given
+   current — exact for part_degrees, connectivity_degrees, swap_deltas and
+   link_loads over 256 windows x 8,000 packet records; rtol 1e-6 and
+   bitwise repeatable for hop_cost), and times the kernel, the plain
+   version and, where one exists, one PyTorch call that computes the same
+   function (for lif_step the product ``spikes @ weights`` alone).
    swap_deltas also runs at K = 1024 (a 32 x 32 mesh), connectivity_degrees
    also on a 64-row subset, and hop_cost also at K = 4096.
 3. Runs the cut slice run — ``profile_snn`` of the paper's edge_5120 SNN
@@ -21,13 +24,17 @@
    run ends with the total hop cost of its placement on the hop_cost
    kernel, which must give the run's avg_hop.  Every kernel's launch count
    is set to 0 just before each run and read just after; each kernel of a
-   run's path must have launched.  Each run prints the device time per
-   launch of swap_deltas and connectivity_degrees and the count and device
+   run's path must have launched, the cut run exactly one lif_step launch
+   a profiled step and each run exactly one link_loads launch (counted by
+   the wrappers and seen by the profiler).  Each run prints the device
+   time per launch of the four redesigned kernels and the count and device
    time of its host-to-device copies.
 4. Checks both results by the toolchain's own means: a valid partition
    whose cut (and volume) match a recount, packet conservation in the NoC
    stats, identical stats from the numpy screen, and an identical
-   partition from a CPU re-run.
+   partition from a CPU re-run.  Then reruns the 1,200-step profile loop
+   on the card and holds its raster bitwise against the CPU path's
+   (``lif_run(..., device="cpu")``), printing the loop's own seconds.
 
 Prints one line per kernel, the run's summary, the kernels JSON line, the
 card's name and power limit, and as its last line
@@ -116,33 +123,68 @@ def nbytes(*ts) -> int:
 # --------------------------------------------------------- kernel checks
 
 
+def lif_inputs(steps: int):
+    """edge_5120's weights (host numpy) and the (steps, N) drive
+    ``profile_snn`` feeds it from the slice's seed."""
+    import numpy as np
+
+    from repro_torch.snn import make_snn, profile_drive
+
+    topo = make_snn(SLICE["snn"])
+    return (np.ascontiguousarray(topo.weights, dtype=np.float32),
+            profile_drive(topo, steps, SLICE["seed"]))
+
+
 def check_lif_step(dev, rng) -> dict:
     import torch
 
-    from repro_torch.kernels.lif_step.kernel import lif_step_cuda
-    from repro_torch.kernels.lif_step.ref import lif_step_ref
+    from repro_torch.kernels.lif_step import synapses_from_dense
+    from repro_torch.kernels.lif_step.kernel import lif_step_cuda, lif_steps_cuda
+    from repro_torch.kernels.lif_step.ref import lif_step_ref, lif_steps_ref
 
-    n = 5120  # edge_5120's neurons; one launch per profiling step
+    # The profile's loop: edge_5120's synapse list and drive, T steps from
+    # rest, one fused launch a step; raster, v and refr must be bitwise.
+    steps = 60
     kw = dict(decay=0.9, threshold=1.0, v_reset=0.0, refractory=1)
+    weights, drive_np = lif_inputs(steps)
+    syn = synapses_from_dense(torch.from_numpy(weights)).to(dev)
+    drive = torch.from_numpy(drive_np).to(dev)
+    args = (syn.src, syn.w, syn.deg, drive)
+    got = lif_steps_cuda(*args, **kw)
+    want = lif_steps_ref(*args, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("raster", "v", "refr"), got, want):
+        if not torch.equal(a, b):
+            fail(f"fused lif_step {name} differs from the plain version "
+                 f"({int((a != b).sum())} entries)")
+    # The step alone on a given current (lif_step on CUDA tensors).
+    n = weights.shape[0]
     v = torch.tensor(rng.uniform(-0.5, 1.2, n).astype("float32"), device=dev)
     refr = torch.tensor(rng.integers(0, 3, n).astype("int32"), device=dev)
     cur = torch.tensor(rng.uniform(0.0, 0.6, n).astype("float32"), device=dev)
-    got = lif_step_cuda(v, refr, cur, **kw)
-    want = lif_step_ref(v, refr, cur, **kw)
-    torch.cuda.synchronize()
-    for name, a, b in zip(("v", "refr", "fired"), got, want):
+    for name, a, b in zip(("v", "refr", "fired"), lif_step_cuda(v, refr, cur, **kw),
+                          lif_step_ref(v, refr, cur, **kw)):
         if not torch.equal(a, b):
-            fail(f"lif_step {name} differs from the plain version "
-                 f"({int((a != b).sum())} of {n})")
-    err = float((got[0] - want[0]).abs().max())
-    t_bytes, by = bound(nbytes(v, refr, cur, *got), 4 * n)
+            fail(f"lif_step {name} differs from the plain version")
+    nnz = int(syn.deg.sum())
+    # Bytes once a step: the synapses (source and weight), their counts,
+    # the previous raster row, the drive row, v and refr read and written,
+    # the raster row written.  One add a synapse at most.
+    step_bytes = 8 * nnz + 4 * n + n + 4 * n + 16 * n + n
+    t_bound, by = bound(step_bytes, nnz)
+    dense = torch.from_numpy(weights).to(dev)  # the library's yardstick only
+    spikes = got[0][steps // 2].to(torch.float32)
     return dict(
         name="lif_step", source="src/repro_torch/csrc/lif_step.cu",
-        replaces="src/repro/kernels/lif_step/kernel.py:38", max_abs_err=err,
-        kernel=lambda: lif_step_cuda(v, refr, cur, **kw),
-        plain=lambda: lif_step_ref(v, refr, cur, **kw),
-        library=None, iters=200, bound_ms=t_bytes, bound_by=by,
-        shape=f"N={n}")
+        replaces="src/repro/kernels/lif_step/kernel.py:38",
+        max_abs_err=float((got[1] - want[1]).abs().max()),
+        kernel=lambda: lif_steps_cuda(*args, **kw),
+        plain=lambda: lif_steps_ref(*args, **kw),
+        library=lambda: spikes @ dense, iters=10, per_call={"kernel": steps,
+                                                            "plain": steps},
+        bound_ms=t_bound, bound_by=by,
+        shape=f"N={n} nnz={nnz} width={syn.src.shape[0]}, a step of {steps}; "
+              f"library = spikes @ weights, the product alone")
 
 
 def check_part_degrees(dev, rng) -> dict:
@@ -252,33 +294,35 @@ def check_link_loads(dev, rng) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.kernels.link_load.kernel import link_loads_cuda
-    from repro_torch.kernels.link_load.ref import link_loads_ref
+    from repro_torch.kernels.link_load.kernel import link_loads_records_cuda
+    from repro_torch.kernels.link_load.ref import link_loads_records_ref, pack_routes
 
-    b, w, h, per_window = 256, 16, 16, 8000  # one chunk of the slice replay
+    # 256 windows of 8,000 packets on the slice's 16 x 16 mesh, as the
+    # replay hands them over: window-sorted 4-byte route records.
+    b, w, h, per_window = 256, 16, 16, 8000
     k = w * h
-    win = np.repeat(np.arange(b), per_window)
-    s = rng.integers(0, k, win.shape[0])
-    t = rng.integers(0, k, win.shape[0])
-    counts_np = np.bincount((win * k + s) * k + t, minlength=b * k * k)
-    counts = torch.tensor(counts_np.reshape(b, k, k).astype(np.int32), device=dev)
+    n = b * per_window
+    woff = torch.arange(0, n + 1, per_window, dtype=torch.int32, device=dev)
+    s = rng.integers(0, k, n)
+    t = rng.integers(0, k, n)
+    rec = pack_routes(torch.tensor(s, device=dev), torch.tensor(t, device=dev))
     cores = torch.arange(k, dtype=torch.int32, device=dev)
     x, y = cores % w, cores // w
-    got = link_loads_cuda(counts, x, y, w, h)
-    want = link_loads_ref(counts, x, y, w, h)
+    got = link_loads_records_cuda(woff, rec, None, x, y, w, h)
+    want = link_loads_records_ref(woff, rec, None, x, y, w, h)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         fail("link_loads differs from the plain version")
     hops = (np.abs(s % w - t % w) + np.abs(s // w - t // w)).sum()
-    t_bound, by = bound(nbytes(counts, x, y, got), float(hops))
+    t_bound, by = bound(nbytes(woff, rec, x, y, got), float(hops))
     return dict(
         name="link_loads", source="src/repro_torch/csrc/link_loads.cu",
         replaces="src/repro/kernels/link_load/kernel.py:99",
         max_abs_err=float((got - want).abs().max()),
-        kernel=lambda: link_loads_cuda(counts, x, y, w, h),
-        plain=lambda: link_loads_ref(counts, x, y, w, h),
+        kernel=lambda: link_loads_records_cuda(woff, rec, None, x, y, w, h),
+        plain=lambda: link_loads_records_ref(woff, rec, None, x, y, w, h),
         library=None, iters=20, bound_ms=t_bound, bound_by=by,
-        shape=f"B={b} K={k} records/window={per_window}")
+        shape=f"{b} windows x {per_window} packet records, K={k}")
 
 
 def check_connectivity_degrees(dev, rng) -> dict:
@@ -405,13 +449,18 @@ def print_row(r: dict, shape: str) -> None:
 def timed(row: dict) -> dict:
     """Time a kernel check's three callables: ``ms``/``plain_ms``/
     ``library_ms`` per call (CUDA events) and the device time per call of
-    each (profiler), the library call only where one exists."""
+    each (profiler), the library call only where one exists.  A callable
+    that runs several kernel calls (``per_call``: the fused LIF run's T
+    steps) is divided down to one."""
     out = {k: v for k, v in row.items()
-           if k not in ("kernel", "plain", "library", "iters")}
-    for key, fn in (("ms", row["kernel"]), ("plain_ms", row["plain"]),
-                    ("library_ms", row["library"])):
-        out[key] = None if fn is None else cuda_ms(fn, row["iters"])
-        out["device_" + key] = None if fn is None else device_ms(fn, row["iters"])
+           if k not in ("kernel", "plain", "library", "iters", "per_call")}
+    per = row.get("per_call", {})
+    for key, part in (("ms", "kernel"), ("plain_ms", "plain"),
+                      ("library_ms", "library")):
+        fn, calls = row[part], per.get(part, 1)
+        out[key] = None if fn is None else cuda_ms(fn, row["iters"]) / calls
+        dev_ms = None if fn is None else device_ms(fn, row["iters"])
+        out["device_" + key] = None if dev_ms is None else dev_ms / calls
     return out
 
 
@@ -545,8 +594,14 @@ def check_result(prof, res, objective: str, hop: float,
 
 # Device-side names of the redesigned kernels, for per-launch times on
 # the slice runs.
-DEVICE_SYMBOLS = {"swap_deltas": "swap_deltas_kernel",
-                  "connectivity_degrees": "volume_degree_rows_kernel"}
+DEVICE_SYMBOLS = {"lif_step": "lif_step_kernel",
+                  "swap_deltas": "swap_deltas_kernel",
+                  "connectivity_degrees": "volume_degree_rows_kernel",
+                  "link_loads": "link_loads_kernel"}
+# Launches each slice run must make exactly: one fused LIF launch a
+# profiled step, one link_loads launch for the whole replay.
+EXACT_LAUNCHES = {"cut": {"lif_step": SLICE["num_steps"], "link_loads": 1},
+                  "volume": {"lif_step": 0, "link_loads": 1}}
 
 
 def device_total(busy, key_part: str) -> tuple[float, int]:
@@ -579,8 +634,10 @@ def traced_run(objective: str, counters: dict, prof=None):
     for us, count, key in busy[:8]:
         print(f"{objective} slice device time {us / 1e3:.3f} ms over {count} "
               f"calls: {key[:90]}")
+    seen = {}
     for name, symbol in DEVICE_SYMBOLS.items():
         us, count = device_total(busy, symbol)
+        seen[name] = count
         per = f"{us / count:.3f} us a launch" if count else "no launch"
         print(f"{objective} slice kernel {name}: {count} launches, "
               f"{us / 1e3:.3f} ms device, {per}")
@@ -599,7 +656,51 @@ def traced_run(objective: str, counters: dict, prof=None):
     for name in PATHS[objective]:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched by the {objective} slice run")
+    for name, want in EXACT_LAUNCHES[objective].items():
+        if launches[name] != want:
+            fail(f"{objective}: {name} launched {launches[name]} times, not {want}")
+        if busy_s > 0 and seen[name] != want:
+            fail(f"{objective}: the profiler saw {seen[name]} {name} launches, "
+                 f"not {want}")
     return prof, res, hop, launches
+
+
+def check_profile_raster(prof, dev) -> None:
+    """The card's whole profile raster against the CPU path's, bitwise, on
+    the inputs ``profile_snn`` builds; its first kept steps must give the
+    traced profile's fire counts.  Prints the step loop's own seconds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.lif_step import lif_steps, synapses_from_dense
+    from repro_torch.snn import LIFParams, lif_run
+
+    steps = SLICE["num_steps"]
+    weights, drive_np = lif_inputs(steps)
+    params = LIFParams()
+    kw = dict(decay=params.decay, threshold=params.threshold,
+              v_reset=params.v_reset, refractory=params.refractory)
+    syn = synapses_from_dense(torch.from_numpy(weights)).to(dev)
+    drive = torch.from_numpy(drive_np).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raster, _, _ = lif_steps(syn, drive, **kw)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    card = raster.cpu().numpy()
+    t0 = time.perf_counter()
+    cpu = lif_run(torch.from_numpy(weights), torch.from_numpy(drive_np), params)
+    cpu_s = time.perf_counter() - t0
+    if not np.array_equal(card, cpu):
+        t, i = np.argwhere(card != cpu)[0]
+        fail(f"the card's profile raster differs from the CPU path's "
+             f"({int((card != cpu).sum())} entries, first at step {t}, "
+             f"neuron {i})")
+    if not np.array_equal(card[:prof.num_steps].sum(axis=0), prof.fire_counts):
+        fail("the profile's fire counts are not its raster's")
+    print(f"profile raster: card == CPU bitwise over {steps} steps "
+          f"({int(card.sum())} firings); step loop {loop_s:.4f} s on the card "
+          f"({steps} launches), {cpu_s:.2f} s on the CPU path")
 
 
 def main() -> int:
@@ -637,6 +738,7 @@ def main() -> int:
     _, vol_res, vol_hop, vol_launches = traced_run("volume", counters, prof)
     check_result(prof, cut_res, "cut", cut_hop)
     check_result(prof, vol_res, "volume", vol_hop)
+    check_profile_raster(prof, dev)
     launches = {name: cut_launches[name] + vol_launches[name]
                 for name in counters}
     loaded = [m for m in sys.modules

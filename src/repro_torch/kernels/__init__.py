@@ -11,10 +11,12 @@ Each subpackage mirrors the reference's layout:
                   version, a CUDA tensor to the kernel.  There is no
                   fallback from the kernel to the plain version.
 
-  lif_step   — LIF membrane update + spike detect (profiling loop).
+  lif_step   — LIF step with the synaptic product fused in (profiling
+               loop), and the membrane update alone.
   gain_eval  — cut-mode partition degree rows and volume-mode
                connectivity degree rows (vec refiner).
   swap_delta — all-pairs SA swap deltas (batched mapper's device scorer).
-  link_load  — per-window XY link loads (NoC replay contention screen).
+  link_load  — per-window XY link loads of packet records (NoC replay
+               contention screen).
   hop_eval   — total hop cost of a placement (Algorithm 1).
 """

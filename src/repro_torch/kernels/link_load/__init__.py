@@ -1,4 +1,5 @@
-from .ops import link_loads, window_link_loads
-from .ref import link_loads_ref
+from .ops import link_loads, link_loads_records, record_link_loads, window_link_loads
+from .ref import link_loads_records_ref, link_loads_ref
 
-__all__ = ["link_loads", "link_loads_ref", "window_link_loads"]
+__all__ = ["link_loads", "link_loads_records", "link_loads_records_ref",
+           "link_loads_ref", "record_link_loads", "window_link_loads"]

@@ -8,38 +8,70 @@ import torch
 from repro_torch.nocsim.xy import link_count
 
 from .. import _build
+from .ref import MAX_CORES, dense_to_records
 
-__all__ = ["link_loads_cuda", "launches"]
+__all__ = ["MAX_RECORDS", "link_loads_cuda", "link_loads_records_cuda", "launches"]
 
 # Launches since the last reset (set to 0 by callers that count a run).
 launches = 0
 
-# The per-window link histogram lives in (static-limit) shared memory.
-_MAX_LINKS = 48 * 1024 // 4
+MAX_RECORDS = 2 ** 31 - 1  # the kernel's int32 record offsets
+# The per-window link histogram lives in (static-limit) shared memory
+# beside the kernel's 1 KB of per-warp scratch.
+_MAX_LINKS = (48 * 1024 - 1024) // 4
 
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def link_loads_records_cuda(woff: torch.Tensor, rec: torch.Tensor,
+                            count: torch.Tensor | None, x: torch.Tensor,
+                            y: torch.Tensor, mesh_w: int,
+                            mesh_h: int) -> torch.Tensor:
+    """woff: (n_win + 1,) i32 window offsets into the window-sorted route
+    records ``rec`` (n,) i32 (``pack_routes``); count: (n,) i32 packets a
+    record, or None for one each; x, y: (K,) i32 core coordinates.
+
+    Returns the (n_win, num_links) int32 loads in the ``xy`` link id layout,
+    in one launch.
+    """
+    global launches
+    if link_count(mesh_w, mesh_h) > _MAX_LINKS:
+        raise ValueError(f"a {mesh_w}x{mesh_h} mesh has more than {_MAX_LINKS} "
+                         "links, the kernel's shared-memory histogram")
+    n, k, n_win = rec.shape[0], x.shape[0], woff.shape[0] - 1
+    _build.require(rec, "rec", torch.int32, (n,))
+    dev = rec.device
+    _build.require(woff, "woff", torch.int32, (n_win + 1,), dev)
+    if count is not None:
+        _build.require(count, "count", torch.int32, (n,), dev)
+    _build.require(x, "x", torch.int32, (k,), dev)
+    _build.require(y, "y", torch.int32, (k,), dev)
+    if n > MAX_RECORDS:
+        raise ValueError(f"{n} records exceed the kernel's {MAX_RECORDS}")
+    if k > MAX_CORES:
+        raise ValueError(f"{k} cores exceed the record packing's {MAX_CORES}")
+    out = torch.empty((n_win, link_count(mesh_w, mesh_h)), dtype=torch.int32,
+                      device=dev)
+    rc = _build.bind("link_loads", _ARGTYPES)(
+        rec.data_ptr(), None if count is None else count.data_ptr(),
+        woff.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(), n_win, n,
+        mesh_w, mesh_h, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "link_loads")
+    launches += 1
+    return out
 
 
 def link_loads_cuda(counts: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                     mesh_w: int, mesh_h: int) -> torch.Tensor:
     """counts: (B, K, K) i32; x, y: (K,) i32 core coordinates on the mesh.
 
-    Returns the (B, num_links) int32 loads in the ``xy`` link id layout.
+    The non-zero counts become weighted records on the card, which the
+    record kernel histograms.  Returns the (B, num_links) int32 loads.
     """
-    global launches
-    if link_count(mesh_w, mesh_h) > _MAX_LINKS:
-        raise ValueError(f"a {mesh_w}x{mesh_h} mesh has more than {_MAX_LINKS} "
-                         "links, the kernel's shared-memory histogram")
     b, k = counts.shape[0], counts.shape[1]
     _build.require(counts, "counts", torch.int32, (b, k, k))
     _build.require(x, "x", torch.int32, (k,), counts.device)
     _build.require(y, "y", torch.int32, (k,), counts.device)
-    out = torch.empty((b, link_count(mesh_w, mesh_h)), dtype=torch.int32,
-                      device=counts.device)
-    rc = _build.bind("link_loads", _ARGTYPES)(
-        counts.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(), b, k,
-        mesh_w, mesh_h, torch.cuda.current_stream(counts.device).cuda_stream)
-    _build.check(rc, "link_loads")
-    launches += 1
-    return out
+    woff, rec, cnt = dense_to_records(counts)
+    return link_loads_records_cuda(woff, rec, cnt, x, y, mesh_w, mesh_h)

@@ -1,10 +1,11 @@
 """Public wrappers: per-window link loads for the NoC replay's screen.
 
-``window_link_loads`` is the replay's hot-path entry point: it turns a
-batch of per-window core-to-core count matrices into flat per-link load
-vectors (the ``repro_torch.nocsim.xy`` directed-link id layout), which the
-batched queued engine uses to screen contention-free windows without any
-cycle stepping.
+``record_link_loads`` is the replay's hot-path entry point: it turns the
+replay's window-sorted packets (window, src core, dst core) into flat
+per-link load vectors (the ``repro_torch.nocsim.xy`` directed-link id
+layout), which the batched queued engine uses to screen contention-free
+windows without any cycle stepping.  ``window_link_loads`` computes the
+same from dense per-window (K, K) core-to-core count matrices.
 """
 from __future__ import annotations
 
@@ -14,10 +15,11 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.nocsim.xy import link_count
 
-from .kernel import link_loads_cuda
-from .ref import link_loads_ref
+from .kernel import MAX_RECORDS, link_loads_cuda, link_loads_records_cuda
+from .ref import MAX_CORES, link_loads_records_ref, link_loads_ref
 
-__all__ = ["link_loads", "window_link_loads"]
+__all__ = ["link_loads", "link_loads_records", "record_link_loads",
+           "window_link_loads"]
 
 
 def link_loads(counts: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
@@ -29,6 +31,64 @@ def link_loads(counts: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     if counts.device.type == "cpu":
         return link_loads_ref(counts, x, y, mesh_w, mesh_h)
     raise ValueError(f"link_loads runs on cuda or cpu tensors, not {counts.device}")
+
+
+def link_loads_records(woff: torch.Tensor, rec: torch.Tensor,
+                       count: torch.Tensor | None, x: torch.Tensor,
+                       y: torch.Tensor, mesh_w: int,
+                       mesh_h: int) -> torch.Tensor:
+    """(n_win, num_links) int32 XY loads of window-sorted route records;
+    the kernel on CUDA, the plain version on CPU."""
+    if rec.device.type == "cuda":
+        return link_loads_records_cuda(woff, rec, count, x, y, mesh_w, mesh_h)
+    if rec.device.type == "cpu":
+        return link_loads_records_ref(woff, rec, count, x, y, mesh_w, mesh_h)
+    raise ValueError(f"link_loads_records runs on cuda or cpu tensors, not {rec.device}")
+
+
+def _mesh_coords(mesh_w: int, mesh_h: int, dev: torch.device):
+    cores = torch.arange(mesh_w * mesh_h, dtype=torch.int32, device=dev)
+    return cores % mesh_w, cores // mesh_w
+
+
+def record_link_loads(
+    win: np.ndarray,
+    src_core: np.ndarray,
+    dst_core: np.ndarray,
+    n_win: int,
+    mesh_w: int,
+    mesh_h: int,
+    device: "str | torch.device" = "cuda",
+) -> np.ndarray:
+    """Per-window flat link loads of packets (win, src core, dst core).
+
+    ``win`` must be sorted (ascending window ids below ``n_win``); cores are
+    row-major mesh coordinates.  Returns an int64 (n_win, num_links) array
+    in the ``xy`` link id layout.  On the card the packets go up once, as
+    one pinned buffer of window offsets and 4-byte route records, and one
+    kernel launch histograms every window.
+    """
+    dev = resolve_device(device)
+    n = int(win.shape[0])
+    if n > MAX_RECORDS:
+        raise ValueError(f"{n} packets exceed the kernel's {MAX_RECORDS}")
+    if mesh_w * mesh_h > MAX_CORES:
+        raise ValueError(f"a {mesh_w}x{mesh_h} mesh exceeds {MAX_CORES} cores")
+    if n and (np.any(win[1:] < win[:-1]) or win[0] < 0 or win[-1] >= n_win):
+        raise ValueError(f"packet windows must be sorted ids in [0, {n_win})")
+    # Offsets, then records, in one int32 buffer: a single upload.
+    buf = torch.empty(n_win + 1 + n, dtype=torch.int32,
+                      pin_memory=dev.type == "cuda")
+    host = buf.numpy()
+    host[:n_win + 1] = np.searchsorted(win, np.arange(n_win + 1))
+    rec = host[n_win + 1:]
+    np.left_shift(src_core, 16, out=rec, casting="unsafe")
+    np.bitwise_or(rec, dst_core, out=rec, casting="unsafe")
+    buf = buf.to(dev, non_blocking=True)
+    x, y = _mesh_coords(mesh_w, mesh_h, dev)
+    loads = link_loads_records(buf[:n_win + 1], buf[n_win + 1:], None, x, y,
+                               mesh_w, mesh_h)
+    return loads.cpu().numpy().astype(np.int64)
 
 
 def window_link_loads(
@@ -51,9 +111,7 @@ def window_link_loads(
         raise ValueError(f"traffic must be (B, {k}, {k}), got {traffic.shape}")
     if traffic.size and int(traffic.max()) > np.iinfo(np.int32).max:
         raise OverflowError("per-window counts exceed int32")
-    cores = torch.arange(k, dtype=torch.int32, device=dev)
-    x = cores % mesh_w
-    y = cores // mesh_w
+    x, y = _mesh_coords(mesh_w, mesh_h, dev)
     out = []
     for lo in range(0, traffic.shape[0], chunk):
         batch = torch.from_numpy(

@@ -16,9 +16,9 @@ Tier 1 (contention screens, no cycle stepping):
     analytically: latency = injection stagger + hops.  Loads come from a
     ``bincount`` over the vectorized route expansion, or — with
     ``screen="linkload"`` — from the ``kernels/link_load`` route histogram
-    on the run's device via ``window_link_loads`` (per-window
-    core-to-core traffic matrices), in which case routes are only expanded
-    for windows that have an overloaded pair at all.
+    on the run's device via ``record_link_loads`` (the window-sorted packet
+    records), in which case routes are only expanded for windows that
+    have an overloaded pair at all.
   * Static schedule screen.  Packet ``p`` crosses the ``j``-th link of its
     route at cycle ``inject(p) + j`` when nothing blocks; a window where
     no (cycle, link) bucket exceeds ``link_capacity`` under that schedule
@@ -180,26 +180,17 @@ def _window_loads_linkload(
 ) -> np.ndarray:
     """Per-window (n_win, nl) link loads via the kernels/link_load machinery.
 
-    Builds per-window core-to-core traffic matrices on the host and runs
-    the link-load route histogram batched over windows on ``device`` — the
-    device alternative to histogramming the route expansion.  For multicast this
-    is fed replica packets, whose pairwise loads upper-bound the tree
-    loads — a sound (if looser) overload screen.
+    Runs the link-load route histogram over the replay's window-sorted
+    packet records on ``device`` — the device alternative to histogramming
+    the route expansion; on the card the packets go up once and no dense
+    per-window (K, K) traffic matrix is built.  For multicast this is fed
+    replica packets, whose pairwise loads upper-bound the tree loads — a
+    sound (if looser) overload screen.
     """
-    from repro_torch.kernels.link_load import window_link_loads
+    from repro_torch.kernels.link_load import record_link_loads
 
-    k = w * h
-    nl = link_count(w, h)
-    out = np.empty((n_win, nl), dtype=np.int64)
-    # Chunk windows so the host-side (B, K, K) histogram stays bounded.
-    step = max(1, (1 << 24) // (k * k))
-    for lo in range(0, n_win, step):
-        m = (win >= lo) & (win < lo + step)
-        b = min(step, n_win - lo)
-        key = ((win[m] - lo) * k + src_core[m]) * k + dst_core[m]
-        counts = np.bincount(key, minlength=b * k * k).reshape(b, k, k)
-        out[lo:lo + b] = window_link_loads(counts, w, h, device=device)
-    return out
+    return record_link_loads(win, src_core, dst_core, n_win, w, h,
+                             device=device)
 
 
 # Below this (window * cycle * link) key-space size the demand screen uses a

@@ -1,11 +1,14 @@
 """Leaky integrate-and-fire dynamics, vectorized over neurons, stepped in time.
 
 The event-driven loop of CARLsim becomes a dense time-stepped loop over a
-(T, N) spike raster.  Each step is one f32 synaptic product
-``last_spikes @ weights`` (``torch.matmul``, outside any kernel, as the
-reference leaves it to XLA) followed by the membrane update (decay +
-integrate + threshold + reset) through ``repro_torch.kernels.lif_step``:
-the CUDA kernel for tensors on the card, its plain version on the CPU.
+(T, N) spike raster.  Each step sums, for every neuron, the weights of the
+synapses whose source fired the step before — in ascending source order,
+the order the reference's f32 product ``last_spikes @ weights`` sums in —
+adds the external drive and applies the membrane update (decay +
+integrate + threshold + reset).  The synapses are the non-zeros of the
+weight matrix in the destination-major ELL layout of
+``repro_torch.kernels.lif_step.Synapses``; on the card each step is one
+launch of the fused CUDA kernel, on the CPU its plain version.
 """
 from __future__ import annotations
 
@@ -14,9 +17,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.kernels.lif_step import lif_step
+from repro_torch.kernels.lif_step import Synapses, lif_steps, synapses_from_dense
 
-__all__ = ["LIFParams", "lif_run"]
+__all__ = ["LIFParams", "lif_run", "lif_run_synapses"]
 
 
 @dataclass(frozen=True)
@@ -43,24 +46,20 @@ def lif_run(
       params: LIF constants.
 
     Returns:
-      (T, N) uint8 spike raster (host numpy).  The raster stays on the
-      device during the run and is copied to the host once at the end.
+      (T, N) uint8 spike raster (host numpy).
     """
-    n = weights.shape[0]
-    dev = weights.device
-    steps = input_drive.shape[0]
-    v = torch.zeros(n, dtype=torch.float32, device=dev)
-    refr = torch.zeros(n, dtype=torch.int32, device=dev)
-    spikes = torch.zeros(n, dtype=torch.float32, device=dev)
-    raster = torch.empty((steps, n), dtype=torch.uint8, device=dev)
-    for t in range(steps):
-        # Spikes from step t-1 arrive as current at step t (1-step synapse delay).
-        syn_current = spikes @ weights
-        v, refr, fired = lif_step(
-            v, refr, syn_current + input_drive[t],
-            decay=params.decay, threshold=params.threshold,
-            v_reset=params.v_reset, refractory=params.refractory,
-        )
-        raster[t] = fired
-        spikes = fired.to(torch.float32)
+    return lif_run_synapses(synapses_from_dense(weights), input_drive, params)
+
+
+def lif_run_synapses(
+    syn: Synapses,
+    input_drive: torch.Tensor,
+    params: LIFParams,
+) -> np.ndarray:
+    """``lif_run`` on the population's synapse list, on the device of
+    ``input_drive`` (where ``syn`` must lie too).  The raster stays on the
+    device during the run and is copied to the host once at the end."""
+    raster, _, _ = lif_steps(
+        syn, input_drive, decay=params.decay, threshold=params.threshold,
+        v_reset=params.v_reset, refractory=params.refractory)
     return raster.cpu().numpy()

@@ -27,11 +27,12 @@ import torch
 
 from repro_torch.core.graph import Graph, Hypergraph, build_graph, build_hypergraph
 from repro_torch.device import resolve_device
+from repro_torch.kernels.lif_step import synapses_from_dense
 
-from .lif import LIFParams, lif_run
+from .lif import LIFParams, lif_run_synapses
 from .topology import SNNTopology
 
-__all__ = ["ProfileResult", "profile_snn"]
+__all__ = ["ProfileResult", "profile_drive", "profile_snn"]
 
 
 @dataclass
@@ -82,24 +83,33 @@ def _synapse_csr(n: int, src: np.ndarray, dst: np.ndarray) -> tuple[np.ndarray, 
     return np.cumsum(xadj), dst.astype(np.int64)
 
 
-def _cache_key(topo: SNNTopology, num_steps: int, seed: int, params: LIFParams,
-               device_type: str) -> str:
+def profile_drive(topo: SNNTopology, num_steps: int, seed: int) -> np.ndarray:
+    """The (T, N) f32 external drive ``profile_snn`` feeds the network:
+    Poisson events of ``input_amp`` on the input layer, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    drive = np.zeros((num_steps, topo.num_neurons), dtype=np.float32)
+    events = rng.random((num_steps, topo.input_size)) < topo.input_rate
+    drive[:, : topo.input_size] = events * topo.input_amp
+    return drive
+
+
+def _cache_key(topo: SNNTopology, num_steps: int, seed: int,
+               params: LIFParams) -> str:
     """Content hash of everything that shapes the profiled trace.
 
     The key covers the synapse lists and weights plus every trace-shaping
     scalar (``input_size``/``input_rate``/``input_amp``/``target_spikes``),
     not just the topology's name and size — rebuilding a same-name,
     same-size topology with different connectivity must *miss* the cache,
-    never return another topology's stale profile.  "torch-cc" tags the
-    port's cache layout, apart from the reference's files, and the device
-    type is part of the key: the synaptic product sums in another order on
-    the card than on the host, so a raster is only reused on the device
-    type that produced it.
+    never return another topology's stale profile.  "torch-seq" tags the
+    port's cache layout, apart from the reference's files: both devices
+    sum each neuron's current in the same (ascending source) order, so a
+    raster from either serves both.
     """
     h = hashlib.sha1(
         f"{topo.name}/{num_steps}/{seed}/{params}/{topo.num_neurons}/"
         f"{topo.input_size}/{topo.input_rate}/{topo.input_amp}/"
-        f"{topo.target_spikes}/{device_type}/torch-cc".encode()
+        f"{topo.target_spikes}/torch-seq".encode()
     )
     h.update(np.ascontiguousarray(topo.syn_src, dtype=np.int64).tobytes())
     h.update(np.ascontiguousarray(topo.syn_dst, dtype=np.int64).tobytes())
@@ -124,7 +134,7 @@ def profile_snn(
     dev = resolve_device(device)
     key = None
     if cache_dir is not None:
-        h = _cache_key(topo, num_steps, seed, params, dev.type)
+        h = _cache_key(topo, num_steps, seed, params)
         key = Path(cache_dir) / f"profile_torch_{topo.name}_{h}.npz"
         if key.exists():
             z = np.load(key, allow_pickle=False)
@@ -143,14 +153,15 @@ def profile_snn(
 
     t0 = time.perf_counter()
     n = topo.num_neurons
-    rng = np.random.default_rng(seed)
-    drive = np.zeros((num_steps, n), dtype=np.float32)
-    events = rng.random((num_steps, topo.input_size)) < topo.input_rate
-    drive[:, : topo.input_size] = events * topo.input_amp
-
+    drive = torch.from_numpy(profile_drive(topo, num_steps, seed))
+    # The synapse list is built on the host and only it goes to the card:
+    # the dense (N, N) matrix is never uploaded.
     weights = np.ascontiguousarray(topo.weights, dtype=np.float32)
-    raster = lif_run(torch.from_numpy(weights).to(dev),
-                     torch.from_numpy(drive).to(dev), params)
+    syn = synapses_from_dense(torch.from_numpy(weights))
+    if dev.type == "cuda":
+        drive = drive.pin_memory().to(dev, non_blocking=True)
+        syn = syn.to(dev)
+    raster = lif_run_synapses(syn, drive, params)
 
     xadj, adjncy = _synapse_csr(n, topo.syn_src.astype(np.int64), topo.syn_dst.astype(np.int64))
     trace_t, trace_src, trace_dst = _expand_trace(raster, xadj, adjncy)

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card: bitwise for lif_step, exact for part_degrees, volume_degree_rows
-(the connectivity_degrees kernel) and link_loads, exact for swap_deltas on
+card: bitwise for lif_step (alone and fused with the synaptic product
+over T steps), exact for part_degrees, volume_degree_rows
+(the connectivity_degrees kernel) and link_loads (packet records, weighted
+records and dense counts), exact for swap_deltas on
 integer traffic and rtol 1e-4 / atol 1e-2 on fractional traffic, rtol
 1e-6 (and bitwise repeatable) for hop_cost.  Every test is marked ``cuda`` and skips
 where CUDA is unavailable; this file imports torch and numpy only, so it
@@ -16,9 +18,13 @@ from repro_torch.kernels.gain_eval import volume_degree_rows_ref  # noqa: E402
 from repro_torch.kernels.hop_eval import hop_cost_ref  # noqa: E402
 from repro_torch.kernels.hop_eval import kernel as hop_kernel  # noqa: E402
 from repro_torch.kernels.lif_step import kernel as lif_kernel  # noqa: E402
-from repro_torch.kernels.lif_step import lif_step_ref  # noqa: E402
+from repro_torch.kernels.lif_step import lif_step_ref, lif_steps_ref  # noqa: E402
+from repro_torch.kernels.lif_step import synapses_from_dense  # noqa: E402
 from repro_torch.kernels.link_load import kernel as link_kernel  # noqa: E402
-from repro_torch.kernels.link_load import link_loads_ref  # noqa: E402
+from repro_torch.kernels.link_load import link_loads_records_ref  # noqa: E402
+from repro_torch.kernels.link_load import link_loads_ref, window_link_loads  # noqa: E402
+from repro_torch.kernels.link_load.ref import dense_to_records, pack_routes  # noqa: E402
+from repro_torch.snn import make_snn, profile_drive  # noqa: E402
 from repro_torch.kernels.swap_delta import kernel as swap_kernel  # noqa: E402
 from repro_torch.kernels.swap_delta import swap_deltas_ref  # noqa: E402
 
@@ -44,6 +50,49 @@ def test_lif_step_kernel_matches_plain_bitwise(cuda, n):
     want = lif_step_ref(v, refr, cur, **LIF_KW)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _population(name, steps):
+    """(weights, drive) of edge_5120 as profile_snn drives it, or of a
+    random sparse population whose first columns have no synapses and whose
+    size is not a multiple of the kernel's 64-thread block."""
+    if name == "edge_5120":
+        topo = make_snn(name)
+        return topo.weights.astype(np.float32), profile_drive(topo, steps, 0)
+    n = int(name)
+    w = RNG.standard_normal((n, n)).astype(np.float32)
+    w *= RNG.random((n, n)) < 0.05
+    w[:, : n // 5] = 0.0
+    return w, RNG.uniform(0.3, 1.2, (steps, n)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,steps", [("edge_5120", 60), ("1", 3),
+                                        ("1000", 40), ("333", 1)])
+def test_fused_lif_kernel_matches_plain_bitwise(cuda, name, steps):
+    """T steps from rest (t = 0 reads no previous spikes): raster, v and
+    refr bitwise equal to the plain fused version, one launch a step."""
+    w, drive = _population(name, steps)
+    syn = synapses_from_dense(torch.from_numpy(w)).to(cuda)
+    d = torch.from_numpy(drive).to(cuda)
+    kw = dict(LIF_KW, refractory=1)
+    before = lif_kernel.launches
+    got = lif_kernel.lif_steps_cuda(syn.src, syn.w, syn.deg, d, **kw)
+    assert lif_kernel.launches == before + steps
+    want = lif_steps_ref(syn.src, syn.w, syn.deg, d, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[0].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_fused_lif_kernel_builds_synapses_on_the_card(cuda):
+    w, _ = _population("500", 1)
+    on_card = synapses_from_dense(torch.from_numpy(w).to(cuda))
+    on_host = synapses_from_dense(torch.from_numpy(w))
+    for a, b in ((on_card.src, on_host.src), (on_card.w, on_host.w),
+                 (on_card.deg, on_host.deg)):
+        assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.cuda
@@ -145,3 +194,59 @@ def test_link_loads_kernel_matches_plain_exactly(cuda, b, w, h):
     x, y = cores % w, cores // w
     assert torch.equal(link_kernel.link_loads_cuda(counts, x, y, w, h),
                        link_loads_ref(counts, x, y, w, h))
+
+
+def _mesh(cuda, w, h):
+    cores = torch.arange(w * h, dtype=torch.int32, device=cuda)
+    return cores % w, cores // w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "one_route", "weighted", "empty",
+                                  "many_windows", "slice"])
+def test_link_loads_record_kernel_matches_plain_exactly(cuda, case):
+    """Packet records: at random over windows with empty ones among them;
+    every packet on one route (the warp aggregation's worst case); weighted
+    records; no packets; 600 short windows (segments below the shared
+    histogram's threshold); the check shape of the slice."""
+    w, h = (16, 16) if case in ("one_route", "slice") else (8, 4)
+    k = w * h
+    sizes = {"random": RNG.integers(0, 3000, 9), "one_route": [50_000, 7],
+             "weighted": RNG.integers(0, 500, 5), "empty": [0, 0, 0],
+             "many_windows": RNG.integers(0, 40, 600),
+             "slice": np.full(256, 8000)}[case]
+    n = int(np.sum(sizes))
+    woff = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32),
+                        device=cuda)
+    if case == "one_route":
+        s, d = torch.full((n,), 17, device=cuda), torch.full((n,), 250, device=cuda)
+    else:
+        s = torch.tensor(RNG.integers(0, k, n), device=cuda)
+        d = torch.tensor(RNG.integers(0, k, n), device=cuda)
+    rec = pack_routes(s, d)
+    count = (torch.tensor(RNG.integers(0, 9, n).astype(np.int32), device=cuda)
+             if case == "weighted" else None)
+    x, y = _mesh(cuda, w, h)
+    before = link_kernel.launches
+    got = link_kernel.link_loads_records_cuda(woff, rec, count, x, y, w, h)
+    assert link_kernel.launches == before + 1
+    assert got.shape == (len(sizes), 2 * (w - 1) * h + 2 * w * (h - 1))
+    assert torch.equal(got, link_loads_records_ref(woff, rec, count, x, y, w, h))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,w,h", [(3, 8, 4), (300, 4, 4)])
+def test_dense_counts_through_window_link_loads(cuda, b, w, h):
+    k = w * h
+    counts = RNG.integers(0, 5, (b, k, k)) * (RNG.random((b, k, k)) < 0.1)
+    counts[b // 2] = 0
+    got = window_link_loads(counts, w, h, device="cuda", chunk=128)
+    cores = torch.arange(k, dtype=torch.int32)
+    want = link_loads_ref(torch.tensor(counts.astype(np.int32)), cores % w,
+                          cores // w, w, h)
+    np.testing.assert_array_equal(got, want.numpy().astype(np.int64))
+    c = torch.tensor(counts.astype(np.int32), device=cuda)
+    woff, rec, cnt = dense_to_records(c)
+    x, y = _mesh(cuda, w, h)
+    assert torch.equal(link_kernel.link_loads_records_cuda(woff, rec, cnt, x, y, w, h),
+                       link_loads_ref(c, x, y, w, h))

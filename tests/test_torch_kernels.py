@@ -20,6 +20,7 @@ from repro.kernels import hop_eval as ref_hop  # noqa: E402
 from repro.kernels import lif_step as ref_lif  # noqa: E402
 from repro.kernels import link_load as ref_link  # noqa: E402
 from repro.kernels import swap_delta as ref_swap  # noqa: E402
+from repro.nocsim.replay import _window_loads_linkload as ref_window_loads  # noqa: E402
 from repro.nocsim.xy import link_ids_for_routes  # noqa: E402
 
 from repro_torch.kernels import _build  # noqa: E402
@@ -37,6 +38,13 @@ from repro_torch.kernels.lif_step import kernel as lif_kernel  # noqa: E402
 from repro_torch.kernels.lif_step import lif_step  # noqa: E402
 from repro_torch.kernels.link_load import kernel as link_kernel  # noqa: E402
 from repro_torch.kernels.link_load import link_loads, window_link_loads  # noqa: E402
+from repro_torch.kernels.link_load import (  # noqa: E402
+    link_loads_records,
+    link_loads_records_ref,
+    link_loads_ref,
+    record_link_loads,
+)
+from repro_torch.kernels.link_load.ref import dense_to_records, pack_routes  # noqa: E402
 from repro_torch.kernels.swap_delta import kernel as swap_kernel  # noqa: E402
 from repro_torch.kernels.swap_delta import swap_deltas, swap_deltas_pairs  # noqa: E402
 
@@ -262,6 +270,105 @@ def test_window_link_loads_match_reference_and_route_bincount(w, h, windows):
     np.testing.assert_array_equal(got, expect.reshape(windows, nl))
 
 
+def _packets(kind, w, h, n_win, per_window, seed):
+    """Window-sorted packets (win, src core, dst core): unicast packets at
+    random, or multicast replicas (each firing sends one packet to each of
+    a few distinct cores), in windows 0..n_win-1 some of which stay empty."""
+    rng = np.random.default_rng(seed)
+    k = w * h
+    used = np.sort(rng.choice(n_win, max(1, (n_win * 2) // 3), replace=False))
+    wins, srcs, dsts = [], [], []
+    for win in used:
+        m = int(rng.integers(1, per_window + 1))
+        if kind == "unicast":
+            s, d = rng.integers(0, k, m), rng.integers(0, k, m)
+            # Runs of one route, as consecutive packets of a firing give.
+            s, d = np.repeat(s, 3)[:m], np.repeat(d, 3)[:m]
+        else:
+            fan = rng.integers(1, min(k, 6) + 1, m)
+            s = np.repeat(rng.integers(0, k, m), fan)
+            d = np.concatenate([rng.choice(k, f, replace=False) for f in fan])
+        wins.append(np.full(s.shape[0], win))
+        srcs.append(s)
+        dsts.append(d)
+    return (np.concatenate(wins).astype(np.int64),
+            np.concatenate(srcs).astype(np.int64),
+            np.concatenate(dsts).astype(np.int64))
+
+
+def _dense_counts(win, s, d, n_win, k):
+    counts = np.zeros((n_win, k, k), dtype=np.int64)
+    np.add.at(counts, (win, s, d), 1)
+    return counts
+
+
+@pytest.mark.parametrize("kind,w,h,n_win,per_window", [
+    ("unicast", 4, 4, 5, 40),       # some windows empty
+    ("unicast", 4, 4, 1, 300),      # one window
+    ("unicast", 3, 2, 300, 6),      # more than 256 windows
+    ("multicast", 4, 4, 7, 30),
+    ("multicast", 5, 3, 270, 4),
+    ("unicast", 16, 16, 3, 2000),   # the slice's mesh
+])
+def test_record_link_loads_match_reference_and_dense(kind, w, h, n_win, per_window):
+    """The packet-record plain version equals the reference's
+    ``_window_loads_linkload`` and the port's dense ``window_link_loads``."""
+    win, s, d = _packets(kind, w, h, n_win, per_window, seed=n_win)
+    got = record_link_loads(win, s, d, n_win, w, h, device="cpu")
+    assert got.dtype == np.int64 and got.shape == (n_win, 2 * (w - 1) * h
+                                                   + 2 * w * (h - 1))
+    want = ref_window_loads(win, s, d, n_win, w, h, backend="jnp")
+    np.testing.assert_array_equal(got, want)
+    dense = window_link_loads(_dense_counts(win, s, d, n_win, w * h), w, h,
+                              device="cpu")
+    np.testing.assert_array_equal(got, dense)
+    assert got.sum() == np.abs(s % w - d % w).sum() + np.abs(s // w - d // w).sum()
+
+
+def test_record_link_loads_of_no_packets():
+    empty = np.empty(0, dtype=np.int64)
+    got = record_link_loads(empty, empty, empty, 4, 3, 3, device="cpu")
+    np.testing.assert_array_equal(got, np.zeros((4, 24), dtype=np.int64))
+    assert record_link_loads(empty, empty, empty, 0, 3, 3,
+                             device="cpu").shape == (0, 24)
+
+
+@pytest.mark.parametrize("b,w,h", [(1, 5, 5), (4, 8, 4), (3, 16, 16)])
+def test_weighted_records_match_dense_plain_version(b, w, h):
+    """Dense counts as weighted records (one per non-zero entry) give the
+    dense plain version's loads."""
+    k = w * h
+    counts = RNG.integers(0, 6, (b, k, k)) * (RNG.random((b, k, k)) < 0.2)
+    counts[0] = 0  # an empty window
+    c = t(counts.astype(np.int32))
+    cores = torch.arange(k, dtype=torch.int32)
+    x, y = cores % w, cores // w
+    woff, rec, cnt = dense_to_records(c)
+    assert woff.dtype == rec.dtype == cnt.dtype == torch.int32
+    assert int(woff[-1]) == rec.shape[0] == int((counts != 0).sum())
+    got = link_loads_records(woff, rec, cnt, x, y, w, h)
+    assert torch.equal(got, link_loads_ref(c, x, y, w, h))
+    assert torch.equal(got, link_loads_records_ref(woff, rec, cnt, x, y, w, h))
+
+
+def test_route_records_pack_src_and_dst():
+    s = torch.tensor([0, 5, 32767, 255])
+    d = torch.tensor([0, 65535, 1, 255])
+    rec = pack_routes(s, d)
+    assert rec.dtype == torch.int32
+    assert torch.equal((rec >> 16).long(), s) and torch.equal((rec & 0xFFFF).long(), d)
+
+
+def test_record_link_loads_refuses_bad_windows():
+    s = np.array([0, 1, 2])
+    with pytest.raises(ValueError, match="sorted"):
+        record_link_loads(np.array([0, 2, 1]), s, s, 3, 2, 2, device="cpu")
+    with pytest.raises(ValueError, match="sorted"):
+        record_link_loads(np.array([0, 1, 3]), s, s, 3, 2, 2, device="cpu")
+    with pytest.raises(ValueError, match="cores"):
+        record_link_loads(np.zeros(3, np.int64), s, s, 1, 256, 256, device="cpu")
+
+
 # ------------------------------------------------------ dispatch / guards
 
 def _tiny_csr(device="cpu"):
@@ -311,6 +418,22 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         link_kernel.link_loads_cuda(torch.ones(1, 4, 4, dtype=torch.int32),
                                     torch.zeros(4, dtype=torch.int32),
                                     torch.zeros(4, dtype=torch.int32), 2, 2)
+
+
+def test_record_kernel_wrapper_refuses_cpu_tensors_and_counts_no_cpu_launch():
+    woff = torch.tensor([0, 2], dtype=torch.int32)
+    rec = pack_routes(torch.tensor([0, 1]), torch.tensor([3, 2]))
+    x = torch.tensor([0, 1, 0, 1], dtype=torch.int32)
+    y = torch.tensor([0, 0, 1, 1], dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        link_kernel.link_loads_records_cuda(woff, rec, None, x, y, 2, 2)
+    before = link_kernel.launches
+    got = link_loads_records(woff, rec, None, x, y, 2, 2)
+    assert link_kernel.launches == before
+    assert int(got.sum()) == 4
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        link_loads_records(woff.to("meta"), rec.to("meta"), None, x.to("meta"),
+                           y.to("meta"), 2, 2)
 
 
 def test_ops_refuse_other_devices():

@@ -94,6 +94,26 @@ def test_simulate_noc_matches_reference_exactly(ref_run, cast, screen):
             assert a == b, f.name
 
 
+@pytest.mark.parametrize("cast", ["unicast", "multicast"])
+@pytest.mark.parametrize("link_capacity", [1, 3])
+def test_linkload_screen_stats_equal_numpy_screen(ref_run, cast, link_capacity):
+    """The record-driven link-load screen changes no NoCStats field."""
+    prof, pres, _ = ref_run
+    placement = np.random.default_rng(5).permutation(MESH * MESH)[: pres.k]
+    args = (prof.trace_t, prof.trace_src, prof.trace_dst, pres.part, placement,
+            MESH, MESH)
+    kw = dict(cast=cast, link_capacity=link_capacity, device="cpu")
+    a = simulate_noc(*args, screen="linkload", **kw)
+    b = simulate_noc(*args, screen="numpy", **kw)
+    assert b.num_noc_spikes > 0
+    for f in dataclasses.fields(b):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(y, np.ndarray):
+            np.testing.assert_array_equal(x, y, err_msg=f.name)
+        else:
+            assert x == y, f.name
+
+
 def test_unported_replay_options_raise(ref_run):
     prof, pres, _ = ref_run
     args = (prof.trace_t, prof.trace_src, prof.trace_dst, pres.part,
