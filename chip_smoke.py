@@ -27,14 +27,24 @@
    run's path must have launched, the cut run exactly one lif_step launch
    a profiled step and each run exactly one link_loads launch (counted by
    the wrappers and seen by the profiler).  Each run prints the device
-   time per launch of the four redesigned kernels and the count and device
+   time per launch of the redesigned kernels and the count and device
    time of its host-to-device copies.
-4. Checks both results by the toolchain's own means: a valid partition
-   whose cut (and volume) match a recount, packet conservation in the NoC
-   stats, identical stats from the numpy screen, and an identical
-   partition from a CPU re-run.  Then reruns the 1,200-step profile loop
-   on the card and holds its raster bitwise against the CPU path's
-   (``lif_run(..., device="cpu")``), printing the loop's own seconds.
+4. Runs the device slice run on the same profile: the cut run's
+   configuration with the device searches and stepper — ``mapper="sa_jax"``
+   (population SA, then the greedy polish on swap_deltas) and
+   ``stepper="jax"`` (the torch joint stepper on the card).  It must keep
+   the cut run's partition, place within 1.15x of the cut run's avg_hop,
+   end the polish at a swap-local optimum under the card's own deltas, and
+   give, bitwise, the numpy stepper's NoC stats on its placement; it
+   prints the evaluate seconds of both steppers, the stepper's packets and
+   cycles and the polish's swap_deltas launches.
+5. Checks the results by the toolchain's own means: a valid partition
+   whose cut (and volume) match a recount, the known numbers of the cut
+   and volume runs (``EXPECT``), packet conservation in the NoC stats, identical
+   stats from the numpy screen, and an identical partition from a CPU
+   re-run.  Then reruns the 1,200-step profile loop on the card and holds
+   its raster bitwise against the CPU path's (``lif_run(...,
+   device="cpu")``), printing the loop's own seconds.
 
 Prints one line per kernel, the run's summary, the kernels JSON line, the
 card's name and power limit, and as its last line
@@ -59,6 +69,13 @@ EXACT_F32 = 2 ** 24  # integers below this add exactly in f32
 
 SLICE = dict(snn="edge_5120", num_steps=1200, mesh_w=16, mesh_h=16,
              capacity=40, seed=0)
+# The results the cut and volume runs must reproduce: the reference's CPU
+# run for the cut run, the port's CPU path for the volume run.
+EXPECT = {"cut": dict(k=141, edge_cut=3_061_718, avg_hop=1.9496085318157585),
+          "volume": dict(k=141, comm_volume=655_422,
+                         avg_hop=1.1402133717910659)}
+# Population SA + polish may place worse than the batched SA by this much.
+DEVICE_HOP_BOUND = 1.15
 
 
 def fail(msg: str) -> None:
@@ -484,36 +501,51 @@ def launch_counters():
 PATHS = {
     "cut": ("lif_step", "part_degrees", "swap_deltas", "link_loads", "hop_cost"),
     "volume": ("connectivity_degrees", "link_loads", "hop_cost"),
+    "device": ("part_degrees", "swap_deltas", "link_loads", "hop_cost"),
 }
 
 
-def slice_config(objective: str, device: str, screen: str):
+def slice_config(run: str, device: str, screen: str, stepper: str = "jax"):
+    """The ToolchainConfig of slice run ``run`` ("cut", "volume" or
+    "device"); ``stepper`` is the device run's."""
     from repro_torch.core import ToolchainConfig
 
-    # The tree placement objective (volume's default) has no device scorer:
-    # score_backend="auto" is the pairwise objective's.
-    mapper_kwargs = ({"impl": "vec", "score_backend": "auto"}
-                     if objective == "cut" else {"impl": "vec"})
+    objective = "volume" if run == "volume" else "cut"
+    noc_kwargs = {"screen": screen}
+    mapper, mapper_kwargs = "sa", {"impl": "vec"}
+    if run == "cut":
+        # The tree placement objective (volume's default) has no device
+        # scorer: score_backend="auto" is the pairwise objective's.
+        mapper_kwargs["score_backend"] = "auto"
+    if run == "device":
+        mapper, mapper_kwargs = "sa_jax", {}
+        noc_kwargs["stepper"] = stepper
     return ToolchainConfig(
         method="sneap", mesh_w=SLICE["mesh_w"], mesh_h=SLICE["mesh_h"],
         capacity=SLICE["capacity"], seed=SLICE["seed"],
-        partition_impl="vec", objective=objective, mapper="sa",
+        partition_impl="vec", objective=objective, mapper=mapper,
         mapper_kwargs=mapper_kwargs, noc_mode="queued",
-        noc_kwargs={"screen": screen}, device=device)
+        noc_kwargs=noc_kwargs, device=device)
 
 
-def placement_hop_cost(prof, res, objective: str, device: str = "cuda") -> float:
+def slice_traffic(prof, res, run: str, device: str = "cuda"):
+    """The run's (k, k) traffic matrix (host numpy)."""
+    from repro_torch.core.pipeline import build_traffic
+
+    cfg = slice_config(run, device, "linkload").resolve(prof.graph.hyper)
+    return build_traffic(prof, res.partition, cfg)
+
+
+def placement_hop_cost(prof, res, run: str, device: str = "cuda") -> float:
     """avg_hop of a finished run recomputed on the hop_cost kernel: the
     total hop cost of the run's traffic at the placed coordinates over the
     run's packet count."""
     import numpy as np
     import torch
 
-    from repro_torch.core.pipeline import build_traffic
     from repro_torch.kernels.hop_eval import hop_cost
 
-    cfg = slice_config(objective, device, "linkload").resolve(prof.graph.hyper)
-    traffic = build_traffic(prof, res.partition, cfg)
+    traffic = slice_traffic(prof, res, run, device)
     place = np.asarray(res.mapping.placement, dtype=np.int64)[:res.partition.k]
     x = torch.tensor(place % SLICE["mesh_w"], dtype=torch.float32, device=device)
     y = torch.tensor(place // SLICE["mesh_w"], dtype=torch.float32, device=device)
@@ -522,7 +554,7 @@ def placement_hop_cost(prof, res, objective: str, device: str = "cuda") -> float
     return float(total) / int(traffic.sum())
 
 
-def run_slice(objective: str, prof=None, device: str = "cuda"):
+def run_slice(run: str, prof=None, device: str = "cuda"):
     """One slice run of the main path, through the entry points a user
     calls: the profile (unless given), the toolchain, and the placement's
     total hop cost on the hop_cost kernel."""
@@ -535,8 +567,8 @@ def run_slice(objective: str, prof=None, device: str = "cuda"):
         prof = profile_snn(make_snn(SLICE["snn"]), num_steps=SLICE["num_steps"],
                            seed=SLICE["seed"], device=device)
         profile_s = time.perf_counter() - t0
-    res = run_toolchain(prof, config=slice_config(objective, device, "linkload"))
-    hop = placement_hop_cost(prof, res, objective, device)
+    res = run_toolchain(prof, config=slice_config(run, device, "linkload"))
+    hop = placement_hop_cost(prof, res, run, device)
     return prof, res, profile_s, hop
 
 
@@ -550,6 +582,10 @@ def check_result(prof, res, objective: str, hop: float,
     from repro_torch.core.pipeline import build_traffic
 
     pres = res.partition
+    for key, want in EXPECT[objective].items():
+        got = res.summary()[key]
+        if got != want:
+            fail(f"{objective}: {key} = {got!r}, expected {want!r}")
     validate_partition(prof.graph, pres.part, pres.k, SLICE["capacity"])
     if edge_cut(prof.graph, pres.part) != pres.edge_cut:
         fail(f"{objective}: edge_cut does not match a recount of the partition")
@@ -597,11 +633,15 @@ def check_result(prof, res, objective: str, hop: float,
 DEVICE_SYMBOLS = {"lif_step": "lif_step_kernel",
                   "swap_deltas": "swap_deltas_kernel",
                   "connectivity_degrees": "volume_degree_rows_kernel",
-                  "link_loads": "link_loads_kernel"}
+                  "link_loads": "link_loads_kernel",
+                  "hop_cost": "hop_cost_kernel"}
 # Launches each slice run must make exactly: one fused LIF launch a
-# profiled step, one link_loads launch for the whole replay.
-EXACT_LAUNCHES = {"cut": {"lif_step": SLICE["num_steps"], "link_loads": 1},
-                  "volume": {"lif_step": 0, "link_loads": 1}}
+# profiled step, one link_loads launch for the whole replay, one hop_cost
+# launch for the placement's total.
+EXACT_LAUNCHES = {"cut": {"lif_step": SLICE["num_steps"], "link_loads": 1,
+                          "hop_cost": 1},
+                  "volume": {"lif_step": 0, "link_loads": 1, "hop_cost": 1},
+                  "device": {"lif_step": 0, "link_loads": 1, "hop_cost": 1}}
 
 
 def device_total(busy, key_part: str) -> tuple[float, int]:
@@ -611,7 +651,7 @@ def device_total(busy, key_part: str) -> tuple[float, int]:
     return sum(h[0] for h in hits), sum(h[1] for h in hits)
 
 
-def traced_run(objective: str, counters: dict, prof=None):
+def traced_run(run: str, counters: dict, prof=None):
     """Drive one slice run with every launch count set to 0 just before and
     read just after, under device-only tracing (kernels, copies, fills),
     which gives the card's busy time without timing any host op."""
@@ -622,47 +662,157 @@ def traced_run(objective: str, counters: dict, prof=None):
         setattr(mod, attr, 0)
     with profile(activities=[ProfilerActivity.CUDA]) as trace:
         t0 = time.perf_counter()
-        prof, res, profile_s, hop = run_slice(objective, prof)
+        prof, res, profile_s, hop = run_slice(run, prof)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
     busy = sorted(((getattr(e, "self_device_time_total", 0.0), e.count, e.key)
                    for e in trace.key_averages()), reverse=True)
     busy_s = sum(b[0] for b in busy) / 1e6
-    print(f"{objective} slice device: busy {busy_s:.4f} s of {wall:.3f} s "
+    print(f"{run} slice device: busy {busy_s:.4f} s of {wall:.3f} s "
           f"wall ({100 * busy_s / wall:.2f}% busy)")
     for us, count, key in busy[:8]:
-        print(f"{objective} slice device time {us / 1e3:.3f} ms over {count} "
+        print(f"{run} slice device time {us / 1e3:.3f} ms over {count} "
               f"calls: {key[:90]}")
     seen = {}
     for name, symbol in DEVICE_SYMBOLS.items():
         us, count = device_total(busy, symbol)
         seen[name] = count
         per = f"{us / count:.3f} us a launch" if count else "no launch"
-        print(f"{objective} slice kernel {name}: {count} launches, "
+        print(f"{run} slice kernel {name}: {count} launches, "
               f"{us / 1e3:.3f} ms device, {per}")
     us, count = device_total(busy, "Memcpy HtoD")
-    print(f"{objective} slice host-to-device copies: {count} copies, "
+    print(f"{run} slice host-to-device copies: {count} copies, "
           f"{us / 1e3:.3f} ms device")
     if profile_s:
-        print(f"{objective} slice: profile {profile_s:.2f} s, "
+        print(f"{run} slice: profile {profile_s:.2f} s, "
               f"{prof.num_neurons} neurons, {prof.num_steps} steps kept, "
               f"{prof.num_spikes} transmissions")
-    print(f"{objective} slice summary:", json.dumps(res.summary()))
-    print(f"{objective} slice phase_seconds:", json.dumps(res.phase_seconds))
-    print(f"{objective} slice hop_cost / trace_len: {hop!r} "
+    print(f"{run} slice summary:", json.dumps(res.summary()))
+    print(f"{run} slice phase_seconds:", json.dumps(res.phase_seconds))
+    print(f"{run} slice hop_cost / trace_len: {hop!r} "
           f"(avg_hop {res.mapping.avg_hop!r})")
-    print(f"{objective} slice launches:", json.dumps(launches))
-    for name in PATHS[objective]:
+    print(f"{run} slice launches:", json.dumps(launches))
+    for name in PATHS[run]:
         if launches[name] <= 0:
-            fail(f"kernel {name} was not launched by the {objective} slice run")
-    for name, want in EXACT_LAUNCHES[objective].items():
+            fail(f"kernel {name} was not launched by the {run} slice run")
+    for name, want in EXACT_LAUNCHES[run].items():
         if launches[name] != want:
-            fail(f"{objective}: {name} launched {launches[name]} times, not {want}")
+            fail(f"{run}: {name} launched {launches[name]} times, not {want}")
         if busy_s > 0 and seen[name] != want:
-            fail(f"{objective}: the profiler saw {seen[name]} {name} launches, "
+            fail(f"{run}: the profiler saw {seen[name]} {name} launches, "
                  f"not {want}")
     return prof, res, hop, launches
+
+
+class StepperSpy:
+    """While installed, records the calls, packets, cycles (the last
+    arrival) and host seconds of one joint stepper of the replay
+    (``joint_stepper_device`` or the numpy ``_joint_stepper``); changes
+    nothing else.  Both return host arrays, so the seconds end on the
+    host."""
+
+    def __init__(self, name: str = "joint_stepper_device"):
+        from repro_torch.nocsim import replay
+
+        self.replay, self.name = replay, name
+        self.inner = getattr(replay, name)
+        self.packets = self.cycles = self.calls = 0
+        self.seconds = 0.0
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        lat, congestion = self.inner(*args, **kwargs)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        self.packets += int(lat.shape[0])
+        self.cycles = max(self.cycles, int(lat.max()) if lat.shape[0] else 0)
+        return lat, congestion
+
+    def __enter__(self):
+        setattr(self.replay, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.replay, self.name, self.inner)
+
+
+def same_stats(a, b) -> list[str]:
+    """Names of the NoCStats fields that differ between a and b."""
+    import numpy as np
+
+    out = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if not (np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y):
+            out.append(f.name)
+    return out
+
+
+def check_device_run(prof, cut, res, hop, launches, spy) -> None:
+    """The device run (population SA + polish, torch stepper) against the
+    cut run and the numpy stepper; prints both steppers' evaluate seconds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import evaluate_phase
+    from repro_torch.kernels.swap_delta import swap_deltas
+
+    pres = res.partition
+    if (pres.k, pres.edge_cut) != (EXPECT["cut"]["k"], EXPECT["cut"]["edge_cut"]) \
+            or not np.array_equal(pres.part, cut.partition.part):
+        fail("device: the partition differs from the cut run's")
+    placement = np.asarray(res.mapping.placement, dtype=np.int64)
+    if placement.shape[0] != pres.k or np.unique(placement).shape[0] != pres.k:
+        fail("device: placement is not one distinct core per partition")
+    bound = DEVICE_HOP_BOUND * cut.mapping.avg_hop
+    if not res.mapping.avg_hop <= bound:
+        fail(f"device: avg_hop {res.mapping.avg_hop!r} exceeds "
+             f"{DEVICE_HOP_BOUND} x the cut run's ({bound!r})")
+    if not np.isclose(hop, res.mapping.avg_hop, rtol=1e-6, atol=0.0):
+        fail(f"device: hop_cost / trace_len = {hop!r} differs from avg_hop = "
+             f"{res.mapping.avg_hop!r} beyond rtol 1e-6")
+    # The polish's end: no swap of the padded 256-core permutation (the
+    # placed cores, then the free ones) improves under the card's deltas.
+    cores = SLICE["mesh_w"] * SLICE["mesh_h"]
+    full = np.concatenate([placement, np.setdiff1d(np.arange(cores), placement)])
+    traffic = np.zeros((cores, cores), dtype=np.float32)
+    traffic[:pres.k, :pres.k] = slice_traffic(prof, res, "device")
+    sym = torch.tensor(traffic + traffic.T, device="cuda")
+    x = torch.tensor(full % SLICE["mesh_w"], dtype=torch.float32, device="cuda")
+    y = torch.tensor(full // SLICE["mesh_w"], dtype=torch.float32, device="cuda")
+    deltas = swap_deltas(sym, x, y)
+    deltas.fill_diagonal_(float("inf"))
+    best = float(deltas.min())
+    if best < -1e-6:
+        fail(f"device: the polish did not end at a swap-local optimum "
+             f"(best swap delta {best})")
+    print(f"device slice polish: {launches['swap_deltas']} swap_deltas "
+          f"launches; best swap delta at its end {best}")
+    # The torch stepper against the numpy stepper, same placement, untraced.
+    steppers = {}
+    for stepper, fn in (("jax", "joint_stepper_device"),
+                        ("numpy", "_joint_stepper")):
+        cfg = slice_config("device", "cuda", "linkload", stepper=stepper)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with StepperSpy(fn) as timing:
+            steppers[stepper] = evaluate_phase(prof, pres, res.mapping, cfg)
+        torch.cuda.synchronize()
+        print(f"device slice evaluate with stepper={stepper!r}: "
+              f"{time.perf_counter() - t0:.3f} s, of which the stepper "
+              f"{timing.seconds:.3f} s ({timing.packets} packets, "
+              f"{timing.cycles} cycles)")
+    bad = same_stats(steppers["jax"], steppers["numpy"]) + same_stats(
+        res.noc, steppers["numpy"])
+    if bad:
+        fail(f"device: NoCStats {sorted(set(bad))} differ between the torch "
+             f"and the numpy stepper")
+    if spy.calls < 1 or spy.packets <= 0:
+        fail("device: the torch stepper stepped no packet")
+    print(f"device slice stepper: {spy.packets} packets stepped over "
+          f"{spy.cycles} cycles ({spy.calls} calls); congestion "
+          f"{res.noc.congestion_count}")
 
 
 def check_profile_raster(prof, dev) -> None:
@@ -736,11 +886,14 @@ def main() -> int:
     counters = launch_counters()
     prof, cut_res, cut_hop, cut_launches = traced_run("cut", counters)
     _, vol_res, vol_hop, vol_launches = traced_run("volume", counters, prof)
+    with StepperSpy() as spy:
+        _, dev_res, dev_hop, dev_launches = traced_run("device", counters, prof)
     check_result(prof, cut_res, "cut", cut_hop)
     check_result(prof, vol_res, "volume", vol_hop)
+    check_device_run(prof, cut_res, dev_res, dev_hop, dev_launches, spy)
     check_profile_raster(prof, dev)
     launches = {name: cut_launches[name] + vol_launches[name]
-                for name in counters}
+                + dev_launches[name] for name in counters}
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     if loaded:

@@ -25,10 +25,12 @@ core.  All searches share the same neighborhood (swap two positions).
   and a conflict-free (position-disjoint) accepted subset committed at
   once with an exact cost resync.
 
-The reference's device searches (population SA, kernel-powered greedy
-polish, island SA: ``"sa_jax"``, ``"polish"``, ``"island"``) are not
-ported yet (ROADMAP queue 1, items 6 and 10); ``UNPORTED_MAPPERS`` names
-them so the pipeline can refuse them with NotImplementedError.
+The device searches (population SA and the greedy polish on the
+`kernels/swap_delta` op) live in `repro_torch.core.mapping_device` and are
+registered here under the reference's keys (``"sa_jax"``, ``"polish"``).
+The reference's island SA (``"island"``) is not ported yet (ROADMAP
+queue 1, item 10); ``UNPORTED_MAPPERS`` names it so the pipeline can
+refuse it with NotImplementedError.
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ __all__ = [
     "pso_search",
     "MAPPERS",
     "OBJECTIVE_AWARE_MAPPERS",
+    "DEVICE_MAPPERS",
     "UNPORTED_MAPPERS",
 ]
 
@@ -418,20 +421,27 @@ def pso_search(
                      trace_length, torus, start, history, evals)
 
 
-# One registry for every ported placement search.
+# The device searches import MappingResult and pad_traffic from here.
+from .mapping_device import polish_search, sa_search_jax  # noqa: E402
+
+# One registry for every ported placement search, host and device alike.
 MAPPERS = {
     "sa": sa_search,
     "pso": pso_search,
     "tabu": tabu_search,
+    "sa_jax": sa_search_jax,
+    "polish": polish_search,
 }
 
-# Mappers that accept an `objective=` placement objective.
+# Mappers that accept an `objective=` placement objective.  The device
+# searches run the pairwise Eq. 2 objective only.
 OBJECTIVE_AWARE_MAPPERS = frozenset({"sa", "pso", "tabu"})
 
-# The reference's device searches, not ported yet, with the ROADMAP
-# queue 1 item that ports each.
+# Mappers that take ``device=`` (where their tensor work runs).
+DEVICE_MAPPERS = frozenset({"sa", "sa_jax", "polish"})
+
+# The reference's searches not ported yet, with the ROADMAP queue 1 item
+# that ports each.
 UNPORTED_MAPPERS = {
-    "sa_jax": "item 6: device searches",
-    "polish": "item 6: device searches",
     "island": "item 10: island SA",
 }

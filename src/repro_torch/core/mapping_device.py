@@ -1,0 +1,272 @@
+"""Device-resident mapping searches: population SA and the greedy polish.
+
+The counterpart of the reference's `repro.core.mapping_jax` (without
+``island_sa`` and ``sa_search_jax_batch``), in torch on the run's device:
+
+  * `sa_search_jax` — a population of SA chains advanced in lock-step:
+    each chain proposes a random swap, scores it with the O(K) incremental
+    delta (`_delta_one`, batched over chains) and applies Metropolis
+    acceptance.  A temperature epoch's proposals and uniforms are drawn in
+    one call each from a `torch.Generator` on the device, so the step loop
+    holds no RNG and no host sync; on the card each epoch's steps are
+    captured once in a CUDA graph and replayed.  torch cannot reproduce
+    ``jax.random``'s streams, so this search is held to the reference's
+    quality bound, not to its placements.
+  * `greedy_polish` — full-neighbourhood steepest descent: the
+    `kernels.swap_delta` op scores all O(K^2) swaps a step (the CUDA
+    kernel on the card, the plain version on the CPU) and the single best
+    swap is applied until none improves.  Deterministic: on traffic whose
+    f32 sums are exact it gives the reference's placement and step count.
+  * `polish_search` — the uniform-signature mapper over `greedy_polish`.
+
+The registry keys stay the reference's (``"sa_jax"``, ``"polish"`` in
+`mapping.MAPPERS`), so one `ToolchainConfig` selects the same search in
+both packages.  All of them minimize the paper's Eq. 2 pairwise objective
+and take no `placecost` objective.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.swap_delta import swap_deltas
+
+from .hopcost import hop_distance_matrix
+from .mapping import MappingResult, pad_traffic
+
+__all__ = ["sa_search_jax", "greedy_polish", "polish_search"]
+
+ALPHA = 0.95  # geometric cooling a temperature epoch
+
+
+def _coords(num_cores: int, mesh_w: int,
+            device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    ids = torch.arange(num_cores, device=device)
+    return (ids % mesh_w).to(torch.float32), (ids // mesh_w).to(torch.float32)
+
+
+def _cost(sym: torch.Tensor, placement: torch.Tensor,
+          dist: torch.Tensor) -> torch.Tensor:
+    """Total pairwise hop cost of ``placement`` (0-d f32): sum(S * D) / 2."""
+    d = dist[placement[:, None], placement[None, :]]
+    return (sym * d).sum() / 2.0
+
+
+def _delta_one(sym: torch.Tensor, dist: torch.Tensor, placement: torch.Tensor,
+               a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """O(K) incremental swap deltas of chains ``placement`` (P, NC) for the
+    swaps (a[p], b[p]); the formula of `hopcost.swap_delta`, batched."""
+    ab = torch.stack([a, b], dim=1)
+    return _delta_pair(sym, dist, placement, ab, placement.gather(1, ab))
+
+
+def _delta_pair(sym, dist, placement, ab, cab) -> torch.Tensor:
+    """`_delta_one` of the swaps ``ab`` (P, 2) whose cores are
+    ``cab = placement[ab]``: both rows of each pair in one gather."""
+    d = dist[cab].gather(2, placement[:, None, :].expand(-1, 2, -1))
+    s = sym[ab]
+    diff = (s[:, 0] - s[:, 1]) * (d[:, 1] - d[:, 0])
+    return diff.sum(1) - diff.gather(1, ab).sum(1)
+
+
+class _Population:
+    """SA chains (P, NC) and their costs; one temperature epoch at a time
+    over proposals and uniforms drawn into fixed buffers."""
+
+    def __init__(self, sym, dist, placements, t0, sweeps_per_temp: int,
+                 gen: torch.Generator):
+        self.sym, self.dist, self.gen = sym, dist, gen
+        self.placement = placements
+        p, nc = placements.shape
+        dev = placements.device
+        self.cost = torch.stack([_cost(sym, pl, dist) for pl in placements])
+        self.temp = torch.full((), float(t0), dtype=torch.float32, device=dev)
+        self.best = torch.empty(p, dtype=torch.float32, device=dev)
+        self.a = torch.empty((sweeps_per_temp, p), dtype=torch.int64, device=dev)
+        self.b = torch.empty_like(self.a)
+        self.ab = torch.empty((sweeps_per_temp, p, 2), dtype=torch.int64,
+                              device=dev)
+        self.neg_log_u = torch.empty((sweeps_per_temp, p), dtype=torch.float32,
+                                     device=dev)
+        self.nc = nc
+        self.graph = None
+
+    def draw(self) -> None:
+        """The next epoch's proposals (a, b != a) and -log of its uniforms:
+        ``u < exp(-delta / T)`` is ``delta < -log(u) * T``."""
+        torch.randint(0, self.nc, self.a.shape, generator=self.gen, out=self.a)
+        torch.randint(0, self.nc - 1, self.b.shape, generator=self.gen, out=self.b)
+        self.b += self.b >= self.a
+        torch.stack([self.a, self.b], dim=2, out=self.ab)
+        torch.rand(self.neg_log_u.shape, generator=self.gen, out=self.neg_log_u)
+        self.neg_log_u.log_().neg_()
+
+    def epoch(self) -> None:
+        """sweeps_per_temp Metropolis steps of every chain, then cooling;
+        ``best`` is the epoch's lowest cost of each chain."""
+        self.best.fill_(float("inf"))
+        thresholds = self.neg_log_u * self.temp
+        for ab, threshold in zip(self.ab, thresholds):
+            cab = self.placement.gather(1, ab)
+            delta = _delta_pair(self.sym, self.dist, self.placement, ab, cab)
+            accept = (delta <= 0) | (delta < threshold)
+            self.placement.scatter_(
+                1, ab, torch.where(accept[:, None], cab.flip(1), cab))
+            self.cost += torch.where(accept, delta, 0.0)
+            torch.minimum(self.best, self.cost, out=self.best)
+        self.temp.mul_(ALPHA)
+
+    def run_epoch(self) -> torch.Tensor:
+        """Draw and run one epoch (replaying its CUDA graph on the card);
+        returns a copy of the epoch's per-chain best costs."""
+        self.draw()
+        if self.placement.device.type != "cuda":
+            self.epoch()
+            return self.best.clone()
+        if self.graph is None:
+            side = torch.cuda.Stream(self.placement.device)
+            side.wait_stream(torch.cuda.current_stream())
+            state = [t.clone() for t in (self.placement, self.cost, self.temp)]
+            with torch.cuda.stream(side):
+                self.epoch()  # warm-up outside the capture
+            torch.cuda.current_stream().wait_stream(side)
+            for t, saved in zip((self.placement, self.cost, self.temp), state):
+                t.copy_(saved)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.epoch()
+        self.graph.replay()
+        return self.best.clone()
+
+
+def sa_search_jax(
+    traffic: np.ndarray,
+    num_cores: int,
+    mesh_w: int,
+    trace_length: int,
+    seed: int = 0,
+    iters: int = 20_000,
+    chains: int = 16,
+    sweeps_per_temp: int = 64,
+    t0_frac: float = 0.25,
+    torus: bool = False,
+    polish: bool = True,
+    device: "str | torch.device" = "cuda",
+) -> MappingResult:
+    """Population SA on ``device`` + optional greedy polish (registry:
+    ``"sa_jax"``, the reference's name)."""
+    dev = resolve_device(device)
+    start = time.perf_counter()
+    k = traffic.shape[0]
+    trace_length = max(trace_length, 1)  # zero-traffic profiles normalize by 1
+    padded = pad_traffic(np.asarray(traffic, dtype=np.float64), num_cores)
+    sym = torch.tensor(padded + padded.T, dtype=torch.float32, device=dev)
+    dist = torch.tensor(hop_distance_matrix(num_cores, mesh_w, torus=torus),
+                        dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    placements = torch.rand((chains, num_cores), generator=gen,
+                            device=dev).argsort(dim=1)
+    t0 = t0_frac * float(_cost(sym, placements[0], dist)) / max(k, 1)
+    pop = _Population(sym, dist, placements, t0, sweeps_per_temp, gen)
+    best_hist = torch.stack([pop.run_epoch()
+                             for _ in range(max(iters // sweeps_per_temp, 1))])
+    best = pop.placement[int(torch.argmin(pop.cost))].clone()
+    if polish:
+        x, y = _coords(num_cores, mesh_w, dev)
+        best, _ = greedy_polish(sym, best, x, y)
+    final_cost = float(_cost(sym, best, dist))
+    seconds = time.perf_counter() - start
+    # The steps run on the device, so history is keyed by temperature-epoch
+    # index (see MappingResult.history), as in the reference.
+    best_by_epoch = np.minimum.accumulate(
+        best_hist.min(dim=1).values.double().cpu().numpy())
+    hist = [(float(i), c / trace_length) for i, c in enumerate(best_by_epoch)]
+    return MappingResult(
+        placement=best[:k].cpu().numpy().astype(np.int64),
+        avg_hop=final_cost / trace_length,
+        seconds=seconds,
+        history=hist,
+        evaluations=int(iters) * int(chains),
+    )
+
+
+def greedy_polish(
+    sym: torch.Tensor,
+    placement: torch.Tensor,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    max_steps: int = 256,
+) -> tuple[torch.Tensor, int]:
+    """Steepest descent over the full swap neighbourhood.
+
+    Each step scores all O(K^2) swaps in one `swap_deltas` call on the
+    tensors' device, masks the diagonal, and applies the first-index
+    minimum when it improves by more than 1e-6; ``steps`` counts every
+    step run, the last non-improving one included.  ``sym`` must be the
+    symmetric padded traffic C + C^T.  Returns a new placement.
+    """
+    placement = placement.clone()
+    nc = placement.shape[0]
+    eye = torch.eye(nc, dtype=torch.bool, device=placement.device)
+    steps = 0
+    improved = True
+    while improved and steps < max_steps:
+        deltas = swap_deltas(sym, x[placement], y[placement])
+        deltas.masked_fill_(eye, float("inf"))
+        best, flat = torch.min(deltas.view(-1), 0)
+        best, flat = torch.stack([best.double(), flat.double()]).tolist()
+        improved = best < -1e-6
+        if improved:
+            a, b = divmod(int(flat), nc)
+            placement[[a, b]] = placement[[b, a]]
+        steps += 1
+    return placement, steps
+
+
+def polish_search(
+    traffic: np.ndarray,
+    num_cores: int,
+    mesh_w: int,
+    trace_length: int,
+    seed: int = 0,
+    init: np.ndarray | None = None,
+    max_steps: int = 256,
+    torus: bool = False,
+    device: "str | torch.device" = "cuda",
+) -> MappingResult:
+    """Uniform-signature mapper over `greedy_polish` (registry: "polish").
+
+    Starts from ``init`` (or a seeded random permutation) and runs
+    full-neighbourhood steepest descent to a swap-local optimum.  The
+    swap deltas rebuild plain Manhattan distances from coordinates, so
+    torus meshes are not supported.
+    """
+    if torus:
+        raise ValueError("polish_search is mesh-only (kernel distance is Manhattan)")
+    dev = resolve_device(device)
+    start = time.perf_counter()
+    k = traffic.shape[0]
+    trace_length = max(trace_length, 1)  # zero-traffic profiles normalize by 1
+    padded = pad_traffic(np.asarray(traffic, dtype=np.float64), num_cores)
+    sym = torch.tensor(padded + padded.T, dtype=torch.float32, device=dev)
+    dist = torch.tensor(hop_distance_matrix(num_cores, mesh_w),
+                        dtype=torch.float32, device=dev)
+    placement = (np.asarray(init, dtype=np.int64).copy() if init is not None
+                 else np.random.default_rng(seed).permutation(num_cores))
+    x, y = _coords(num_cores, mesh_w, dev)
+    best, steps = greedy_polish(sym, torch.tensor(placement, device=dev), x, y,
+                                max_steps=max_steps)
+    final_cost = float(_cost(sym, best, dist))
+    seconds = time.perf_counter() - start
+    # One swap_deltas call scores the whole O(K^2) neighbourhood a step.
+    return MappingResult(
+        placement=best[:k].cpu().numpy().astype(np.int64),
+        avg_hop=final_cost / trace_length,
+        seconds=seconds,
+        history=[(float(steps), final_cost / trace_length)],
+        evaluations=int(steps) * num_cores * num_cores,
+    )

@@ -37,7 +37,13 @@ if TYPE_CHECKING:  # avoid core <-> snn circular import; only a type hint
     from repro_torch.snn.simulate import ProfileResult
 
 from .hopcost import traffic_matrix
-from .mapping import MAPPERS, UNPORTED_MAPPERS, MappingResult
+from .mapping import (
+    DEVICE_MAPPERS,
+    MAPPERS,
+    OBJECTIVE_AWARE_MAPPERS,
+    UNPORTED_MAPPERS,
+    MappingResult,
+)
 from .partition import PartitionResult, sneap_partition
 from .placecost import evaluate_placement, make_objective, validate_objective
 
@@ -75,7 +81,10 @@ class ToolchainConfig:
 
     Mirrors `run_toolchain`'s keyword surface one-for-one.  ``resolve()``
     fills the ``cast``/``place_objective`` defaults and validates the
-    enums.
+    enums; ``requested_place`` preserves whether the caller *explicitly*
+    asked for a placement objective (explicit tree requests must error
+    loudly on searches that cannot honor them, while defaulted ones
+    silently fall back).
     """
 
     method: str = "sneap"
@@ -99,7 +108,8 @@ class ToolchainConfig:
     knobs: dict = field(default_factory=dict)
     # Where the device hot spots run: "cuda" (default) or "cpu".
     device: str = "cuda"
-    # Set by resolve(); callers normally never set it directly.
+    # Filled by resolve(); callers normally never set these directly.
+    requested_place: str | None = None
     resolved: bool = False
 
     @property
@@ -133,6 +143,7 @@ class ToolchainConfig:
             raise ValueError(f"unknown method {self.method!r}")
         return dataclasses.replace(
             self, cast=cast, place_objective=place,
+            requested_place=self.place_objective,
             mapper_kwargs=dict(self.mapper_kwargs),
             partition_kwargs=dict(self.partition_kwargs),
             noc_kwargs=dict(self.noc_kwargs),
@@ -266,11 +277,14 @@ def mapping_phase(
     built (both are deterministic functions of the partition and config,
     so sharing cannot change any stat; a shared objective instance is safe
     because every search re-``attach``es it).  Returns
-    ``(mres, place_objective, traffic, trace_len)``.
+    ``(mres, place_objective, traffic, trace_len)`` — the final
+    place_objective may differ from the configured one where a search
+    cannot honor it (the device mappers).
     """
     cfg = cfg.resolve(profile.graph.hyper)
     hyper = profile.graph.hyper
     num_cores = cfg.num_cores
+    place_objective = cfg.place_objective
     map_seed = phase_seeds(cfg.seed)[1]
     if cfg.mapper in UNPORTED_MAPPERS:
         raise NotImplementedError(
@@ -285,25 +299,35 @@ def mapping_phase(
     # (== num_spikes for unicast; deduplicated multicast packets otherwise).
     trace_len = int(traffic.sum())
     mapper_kwargs = dict(cfg.mapper_kwargs)
-    if cfg.mapper == "sa":
+    if cfg.mapper in DEVICE_MAPPERS:
         mapper_kwargs.setdefault("device", cfg.device)
-    if "objective" in mapper_kwargs:
-        # A caller-supplied objective is stateful (attached placement,
-        # aggregate tables) and construction-bound to one (traffic,
-        # partition, mesh); reusing it across runs whose partition differs
-        # would silently score the wrong trees — reject loudly instead.
-        validate_objective(mapper_kwargs["objective"], traffic,
-                           num_cores, mesh_w=cfg.mesh_w,
-                           mesh_h=cfg.mesh_h, part=pres.part,
-                           hyper=hyper,
-                           torus=mapper_kwargs.get("torus", False))
-    else:
-        mapper_kwargs["objective"] = objective if objective is not None \
-            else make_objective(
-                cfg.place_objective, traffic, num_cores, cfg.mesh_w,
-                mesh_h=cfg.mesh_h, hyper=hyper, part=pres.part,
+    if cfg.mapper in OBJECTIVE_AWARE_MAPPERS:
+        if "objective" in mapper_kwargs:
+            # A caller-supplied objective is stateful (attached placement,
+            # aggregate tables) and construction-bound to one (traffic,
+            # partition, mesh); reusing it across runs whose partition
+            # differs would silently score the wrong trees — reject loudly
+            # instead.
+            validate_objective(mapper_kwargs["objective"], traffic,
+                               num_cores, mesh_w=cfg.mesh_w,
+                               mesh_h=cfg.mesh_h, part=pres.part,
+                               hyper=hyper,
+                               torus=mapper_kwargs.get("torus", False))
+        else:
+            mapper_kwargs["objective"] = objective if objective is not None \
+                else make_objective(
+                    place_objective, traffic, num_cores, cfg.mesh_w,
+                    mesh_h=cfg.mesh_h, hyper=hyper, part=pres.part,
+                )
+        place_objective = mapper_kwargs["objective"].name
+    elif place_objective == "tree":
+        # Device mappers run the pairwise Eq. 2 reformulation only.
+        if cfg.requested_place == "tree":
+            raise ValueError(
+                f"mapper {cfg.mapper!r} cannot run the tree objective; "
+                f"pick one of {sorted(OBJECTIVE_AWARE_MAPPERS)}"
             )
-    place_objective = mapper_kwargs["objective"].name
+        place_objective = "pairwise"
     mres = MAPPERS[cfg.mapper](traffic, num_cores, cfg.mesh_w, trace_len,
                                seed=map_seed, **mapper_kwargs)
     # One reporting path: avg_hop (pairwise Eq. 2) and tree_hop both come
@@ -363,10 +387,11 @@ def run_toolchain(
 
     ``device`` (default ``"cuda"``) is where the device hot spots run —
     the vec refiner's degree kernel, the SA's ``score_backend="auto"``
-    swap deltas, the replay's ``screen="linkload"`` window loads; it
-    raises where CUDA is absent unless ``device="cpu"``.  Everything else
-    is host numpy copied from the reference, so every deterministic phase
-    matches it bitwise.
+    swap deltas, the device mappers ``"sa_jax"`` and ``"polish"``, the
+    replay's ``screen="linkload"`` window loads and ``stepper="jax"``
+    cycle loop; it raises where CUDA is absent unless ``device="cpu"``.
+    Everything else is host numpy copied from the reference, so every
+    deterministic phase matches it bitwise.
 
     ``partition_impl`` selects the sneap partitioning engine ("scalar" or
     "vec" — see `repro_torch.core.partition`).  ``objective`` selects the
@@ -389,9 +414,8 @@ def run_toolchain(
 
     Not ported yet, and refused with NotImplementedError rather than run
     some other way: ``method="spinemap"``/``"sco"`` (ROADMAP queue 1,
-    item 4), the device mappers ``"sa_jax"``/``"polish"`` (item 6) and
-    ``"island"`` (item 10), ``fault_schedule`` (item 7) and ``shards=``
-    (item 9).
+    item 4), the ``"island"`` mapper (item 10), ``fault_schedule``
+    (item 7) and ``shards=`` (item 9).
     """
     if fault_schedule is not None:
         raise NotImplementedError(

@@ -54,8 +54,9 @@ congestion are those of a real multicast router, and the engine simulates
 faithful model is also the faster one.  Link loads and dynamic energy keep
 the exact tree accounting both engines already shared.
 
-The reference's optional device stepper (``stepper="jax"``) is not ported
-yet (ROADMAP queue 1, item 6); the numpy stepper is the only one.
+An optional device stepper (``stepper="jax"``, `replay_device`) runs the
+joint cycle loop in torch ops on the run's device; its grant decisions are
+the numpy stepper's, so the stats do not change.
 """
 from __future__ import annotations
 
@@ -63,6 +64,7 @@ import numpy as np
 import torch
 
 from .energy import EnergyModel
+from .replay_device import joint_stepper_device
 from .stats import NoCStats, edge_stats
 from .xy import (
     link_count,
@@ -251,19 +253,16 @@ def queued_unicast(
     carries the core-local delivery count for energy accounting.
     ``order`` flags records routed YX (fault-escape detours; numpy screen
     and stepper only) — ``None`` is the pure XY replay.  ``device`` is
-    where ``screen="linkload"`` computes the window loads.
+    where ``screen="linkload"`` computes the window loads and
+    ``stepper="jax"`` steps the congested windows.
     """
-    if stepper != "numpy":
-        raise NotImplementedError(
-            f"stepper={stepper!r} is not ported yet (ROADMAP queue 1, item 6: "
-            "device stepper); use stepper='numpy'")
     nl = link_count(w, h)
     ncores = w * h
     n = int(trace_t.shape[0])
     if n == 0:
         return _stats(np.empty(0, np.int64), 0, 0, np.zeros(nl, np.int64),
                       np.zeros(nl, np.int64), 0, n_local, energy, "unicast", 0)
-    if order is not None and screen == "linkload":
+    if order is not None and (stepper != "numpy" or screen == "linkload"):
         raise ValueError("fault-escape routes require numpy stepper/screen")
     win, n_win = _window_ids(trace_t)
     inject = _inject_cycles(win, src_core, ncores, inject_capacity)
@@ -365,9 +364,14 @@ def queued_unicast(
         if sidx.shape[0]:
             uwin = np.unique(win[sidx])
             cwin = np.searchsorted(uwin, win[sidx])
-            lat_s, congestion = _joint_stepper(
-                sids, spkt, sstep, hops[sidx], inject[sidx], cwin,
-                nl, link_capacity, max_cycles_per_window)
+            if stepper == "jax":
+                lat_s, congestion = joint_stepper_device(
+                    src_core[sidx], dst_core[sidx], inject[sidx], cwin,
+                    w, h, nl, link_capacity, max_cycles_per_window, device)
+            else:
+                lat_s, congestion = _joint_stepper(
+                    sids, spkt, sstep, hops[sidx], inject[sidx], cwin,
+                    nl, link_capacity, max_cycles_per_window)
             lat[sidx] = lat_s
 
     cycles_total = int(_per_window_max(lat, win, n_win).sum())

@@ -286,10 +286,13 @@ def simulate_noc(
       engine: "batched" (two-tier vectorized replay; tree-fork flits under
         multicast) or "ref" (scalar reference loop; replica-based
         multicast upper bound).  Queued mode only.
-      stepper: "numpy" — substrate for the batched engine's joint
-        congested-window cycle loop.  The reference's "jax" device stepper
-        is not ported yet (ROADMAP queue 1, item 6) and raises
-        NotImplementedError.
+      stepper: "numpy" or "jax" — substrate for the batched engine's joint
+        congested-window cycle loop: the host numpy stepper, or torch ops
+        on ``device`` (`repro_torch.nocsim.replay_device`; the reference's
+        name for its device stepper).  Both make the same grant decisions,
+        so the stats are bitwise equal.  Unicast only: the multicast
+        tree-fork stepper is numpy-only, so "jax" is accepted but has no
+        effect under cast="multicast".
       screen: "numpy" (bincount over route expansion) or "linkload"
         (per-window loads from the ``kernels/link_load`` route histogram
         on ``device``) — backend for the batched engine's whole-window
@@ -306,18 +309,15 @@ def simulate_noc(
         bit-identical to the fault-free engines.  Fault-aware replay is
         host-only: it requires the default ``stepper="numpy"`` and
         ``screen="numpy"`` backends.
-      device: where ``screen="linkload"`` runs (the card by default;
-        raises where CUDA is absent unless ``device="cpu"``).
+      device: where ``screen="linkload"`` and ``stepper="jax"`` run (the
+        card by default; raises where CUDA is absent unless
+        ``device="cpu"``).
     """
     if mode not in ("queued", "analytic"):
         raise ValueError(f"unknown mode {mode!r}")
     if engine not in ("batched", "ref"):
         raise ValueError(f"unknown engine {engine!r}")
-    if stepper == "jax":
-        raise NotImplementedError(
-            "stepper='jax' is not ported yet (ROADMAP queue 1, item 6: "
-            "device stepper); use stepper='numpy'")
-    if stepper != "numpy":
+    if stepper not in ("numpy", "jax"):
         raise ValueError(f"unknown stepper {stepper!r}")
     if screen not in ("numpy", "linkload"):
         raise ValueError(f"unknown screen {screen!r}")

@@ -4,7 +4,10 @@ over T steps), exact for part_degrees, volume_degree_rows
 (the connectivity_degrees kernel) and link_loads (packet records, weighted
 records and dense counts), exact for swap_deltas on
 integer traffic and rtol 1e-4 / atol 1e-2 on fractional traffic, rtol
-1e-6 (and bitwise repeatable) for hop_cost.  Every test is marked ``cuda`` and skips
+1e-6 (and bitwise repeatable, one launch) for hop_cost; and the device
+searches and stepper on the card: the torch stepper against the numpy
+stepper, the greedy polish on swap_deltas, the population SA's CUDA graph
+against its eager epochs.  Every test is marked ``cuda`` and skips
 where CUDA is unavailable; this file imports torch and numpy only, so it
 runs where the reference's JAX is not installed."""
 import numpy as np
@@ -132,12 +135,25 @@ def test_connectivity_degrees_kernel_matches_plain_exactly(cuda, n, e, k, longes
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 141, 256, 513, 4096])
-def test_hop_cost_kernel_matches_plain_and_repeats(cuda, k):
-    c = torch.tensor(RNG.integers(0, 100, (k, k)).astype(np.float32), device=cuda)
-    x = torch.tensor(RNG.integers(0, 16, k).astype(np.float32), device=cuda)
-    y = torch.tensor(RNG.integers(0, 16, k).astype(np.float32), device=cuda)
+@pytest.mark.parametrize("k", [1, 3, 141, 256, 513, 1000, 4096])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_hop_cost_kernel_matches_plain_and_repeats(cuda, k, offset):
+    """One launch a call, rtol 1e-6 to the plain version, bitwise
+    repeatable; ``offset`` = 1 starts the traffic and the coordinates 4
+    bytes past a 16-byte boundary (the kernel's scalar head and its
+    row-wrapping vector path)."""
+    def placed(a):
+        buf = torch.tensor(np.concatenate([np.zeros(offset, np.float32),
+                                           a.astype(np.float32).ravel()]),
+                           device=cuda)
+        return buf[offset:].view(a.shape)
+
+    c = placed(RNG.integers(0, 100, (k, k)))
+    x = placed(RNG.integers(0, 16, k))
+    y = placed(RNG.integers(0, 16, k))
+    before = hop_kernel.launches
     got = hop_kernel.hop_cost_cuda(c, x, y)
+    assert hop_kernel.launches == before + 1
     assert got.dim() == 0 and got.dtype == torch.float32
     torch.testing.assert_close(got, hop_cost_ref(c, x, y), rtol=1e-6, atol=0.0)
     for _ in range(3):
@@ -250,3 +266,95 @@ def test_dense_counts_through_window_link_loads(cuda, b, w, h):
     x, y = _mesh(cuda, w, h)
     assert torch.equal(link_kernel.link_loads_records_cuda(woff, rec, cnt, x, y, w, h),
                        link_loads_ref(c, x, y, w, h))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("link_capacity", [1, 2, 4])
+def test_device_stepper_on_the_card_equals_numpy_stepper(cuda, link_capacity):
+    """A few thousand random packets over 12 windows of a 16 x 16 mesh: the
+    torch stepper on the card gives the numpy joint stepper's latencies
+    and blocked count."""
+    from repro_torch.nocsim.replay import _joint_stepper
+    from repro_torch.nocsim.replay_device import joint_stepper_device
+    from repro_torch.nocsim.xy import link_count, link_ids_for_routes
+
+    w = h = 16
+    n = 6000
+    src = RNG.integers(0, w * h, n)
+    dst = (src + RNG.integers(1, w * h, n)) % (w * h)
+    win = np.sort(RNG.integers(0, 12, n))
+    inject = RNG.integers(0, 8, n)
+    nl = link_count(w, h)
+    ids, pkt, step = link_ids_for_routes(src, dst, w, h, with_steps=True)
+    want = _joint_stepper(ids, pkt, step, np.bincount(pkt, minlength=n), inject,
+                          win, nl, link_capacity, 100_000)
+    got = joint_stepper_device(src, dst, inject, win, w, h, nl, link_capacity,
+                               100_000, device=cuda)
+    assert want[1] > 0
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1]
+
+
+@pytest.mark.cuda
+def test_greedy_polish_on_the_card_reaches_a_swap_local_optimum(cuda):
+    """The polish on the swap_deltas kernel: every step one launch, the
+    result a swap-local optimum under the card's own deltas, and equal to
+    the CPU polish on integer traffic."""
+    from repro_torch.core import mapping_device as md
+
+    rng = np.random.default_rng(7)  # a start that converges in < 256 steps
+    k, cores, w = 141, 256, 16
+    c = np.zeros((cores, cores), np.float32)
+    c[:k, :k] = rng.integers(0, 300, (k, k)) * (rng.random((k, k)) < 0.1)
+    np.fill_diagonal(c, 0.0)
+    sym = torch.tensor(c + c.T, device=cuda)
+    x, y = md._coords(cores, w, cuda)
+    start = torch.tensor(rng.permutation(cores), device=cuda)
+    before = swap_kernel.launches
+    got, steps = md.greedy_polish(sym, start, x, y)
+    assert swap_kernel.launches == before + steps and 1 < steps < 256
+    deltas = swap_kernel.swap_deltas_cuda(sym, x[got], y[got])
+    deltas.fill_diagonal_(float("inf"))
+    assert float(deltas.min()) >= -1e-6
+    cpu, cpu_steps = md.greedy_polish(sym.cpu(), start.cpu(), x.cpu(), y.cpu())
+    assert torch.equal(got.cpu(), cpu) and steps == cpu_steps
+
+
+@pytest.mark.cuda
+def test_population_sa_graph_replay_equals_eager_epochs(cuda):
+    """The CUDA graph of an SA epoch gives, on the same draws, the eager
+    epoch's placements and costs; sa_search_jax on the card is injective,
+    repeatable and within 1.15x of the serial SA."""
+    from repro_torch.core import mapping_device as md
+    from repro_torch.core.hopcost import hop_distance_matrix
+    from repro_torch.core.mapping import pad_traffic, sa_search
+
+    c = RNG.integers(0, 100, (15, 15)).astype(np.float64)
+    np.fill_diagonal(c, 0)
+    padded = pad_traffic(c, 25)
+    sym = torch.tensor(padded + padded.T, dtype=torch.float32, device=cuda)
+    dist = torch.tensor(hop_distance_matrix(25, 5), dtype=torch.float32,
+                        device=cuda)
+    pops = []
+    for _ in range(2):
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(5)
+        start = torch.rand((4, 25), generator=gen, device=cuda).argsort(dim=1)
+        pops.append(md._Population(sym, dist, start, 50.0, 64, gen))
+    graphed, eager = pops
+    for _ in range(3):
+        best = graphed.run_epoch()
+        eager.draw()
+        eager.epoch()
+        assert torch.equal(graphed.placement, eager.placement)
+        assert torch.equal(graphed.cost, eager.cost)
+        assert torch.equal(best, eager.best)
+    trace_len = int(c.sum())
+    a = md.sa_search_jax(c, 25, 5, trace_len, seed=0, iters=2_000, chains=4,
+                         device=cuda)
+    b = md.sa_search_jax(c, 25, 5, trace_len, seed=0, iters=2_000, chains=4,
+                         device=cuda)
+    np.testing.assert_array_equal(a.placement, b.placement)
+    assert len(set(a.placement.tolist())) == 15
+    r_np = sa_search(c, 25, 5, trace_len, seed=0, iters=15_000, device="cpu")
+    assert a.avg_hop <= 1.15 * r_np.avg_hop

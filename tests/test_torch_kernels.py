@@ -379,6 +379,15 @@ def _tiny_csr(device="cpu"):
             torch.tensor([[2, 0, 1]], dtype=torch.int32, device=device))
 
 
+@pytest.mark.parametrize("k,sms,blocks", [(1, 132, 1), (3, 132, 1),
+                                           (141, 132, 20), (1000, 132, 528),
+                                           (4096, 132, 528), (4096, 114, 456)])
+def test_hop_cost_grid_fills_the_card_or_the_work(k, sms, blocks):
+    """One launch's grid: a float4 vector a thread at small K, capped at
+    BLOCKS_PER_SM blocks an SM."""
+    assert hop_kernel.grid_blocks(k, sms) == blocks
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     def counts():
         return (lif_kernel.launches, gain_kernel.launches,

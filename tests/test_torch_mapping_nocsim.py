@@ -118,7 +118,7 @@ def test_unported_replay_options_raise(ref_run):
     prof, pres, _ = ref_run
     args = (prof.trace_t, prof.trace_src, prof.trace_dst, pres.part,
             np.arange(pres.k), MESH, MESH)
-    with pytest.raises(NotImplementedError, match="stepper"):
-        simulate_noc(*args, stepper="jax", device="cpu")
+    with pytest.raises(ValueError, match="stepper"):
+        simulate_noc(*args, stepper="pallas", device="cpu")
     with pytest.raises(ValueError, match="screen"):
         simulate_noc(*args, screen="pallas", device="cpu")

@@ -105,11 +105,9 @@ def test_run_toolchain_defaults_to_the_card(smooth_320):
 @pytest.mark.parametrize("kwargs,match", [
     ({"method": "spinemap"}, "baselines"),
     ({"method": "sco"}, "baselines"),
-    ({"mapper": "sa_jax"}, "device searches"),
     ({"mapper": "island"}, "island SA"),
     ({"fault_schedule": object()}, "fault"),
     ({"partition_kwargs": {"shards": 2}}, "shards"),
-    ({"noc_kwargs": {"stepper": "jax"}}, "stepper"),
 ])
 def test_unported_features_raise(smooth_320, kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
