@@ -38,7 +38,26 @@
    give, bitwise, the numpy stepper's NoC stats on its placement; it
    prints the evaluate seconds of both steppers, the stepper's packets and
    cycles and the polish's swap_deltas launches.
-5. Checks the results by the toolchain's own means: a valid partition
+5. Runs the baselines on the same profile and platform: SpiNeMap
+   (greedy-KL partition + PSO) and SCO (sequential packing and
+   placement) with the cut run's replay, held to the reference's numbers
+   and the paper's orderings (cut: sneap <= spinemap <= sco; avg_hop:
+   sneap < sco), printing each run's phase seconds beside SNEAP's.
+6. Runs the cut run's configuration under four fault schedules (numpy
+   screen and stepper, which a replay under faults requires): none (every
+   NoCStats field must equal the fault-free run's), a core failure of the
+   live placement's first four cores at the trace's middle re-mapped
+   incrementally and from scratch, and eight random link failures
+   (re-routed, never re-mapped); held to the reference's numbers, no
+   re-map may leave a real partition on a dead core, and the scratch
+   re-map must launch part_degrees.
+7. Runs a sweep of seeds {0, 1} x mappers {sa_jax, sa} (`run_sweep`):
+   two partition runs for four configs, the sa row of seed 0 equal to
+   the cut run, and each sa_jax row's placement bitwise a single
+   `sa_search_jax` call's; times the batched search of the two sa_jax
+   configs against the two single calls.  Each of runs 5-7 ends with
+   hop_cost over its final placement and has its launches counted.
+8. Checks the results by the toolchain's own means: a valid partition
    whose cut (and volume) match a recount, the known numbers of the cut
    and volume runs (``EXPECT``), packet conservation in the NoC stats, identical
    stats from the numpy screen, and an identical partition from a CPU
@@ -69,11 +88,35 @@ EXACT_F32 = 2 ** 24  # integers below this add exactly in f32
 
 SLICE = dict(snn="edge_5120", num_steps=1200, mesh_w=16, mesh_h=16,
              capacity=40, seed=0)
-# The results the cut and volume runs must reproduce: the reference's CPU
-# run for the cut run, the port's CPU path for the volume run.
+# The results the runs must reproduce: the reference's CPU run for the
+# cut, baseline and fault runs, the port's CPU path for the volume run.
 EXPECT = {"cut": dict(k=141, edge_cut=3_061_718, avg_hop=1.9496085318157585),
           "volume": dict(k=141, comm_volume=655_422,
-                         avg_hop=1.1402133717910659)}
+                         avg_hop=1.1402133717910659),
+          "spinemap": dict(k=141, edge_cut=4_511_401,
+                           avg_hop=8.341370478273282,
+                           avg_latency=32.56972922602092,
+                           energy_pj=50419150.00000001,
+                           congestion=108_743_667),
+          "sco": dict(k=128, edge_cut=4_578_533, avg_hop=7.67443676828364,
+                      avg_latency=73.37911051421929, energy_pj=46381713.84,
+                      congestion=300_789_945),
+          "fault_zero": dict(spikes_dropped=0, detour_hops=0,
+                             neurons_migrated=0, remap_events=0, final_k=141,
+                             avg_latency=11.159744627036194),
+          "fault_incremental": dict(spikes_dropped=20_503, detour_hops=143_702,
+                                    neurons_migrated=120, remap_events=1,
+                                    final_k=141,
+                                    avg_latency=11.165912783183066),
+          "fault_scratch": dict(spikes_dropped=9_175, detour_hops=203_203,
+                                neurons_migrated=5_097, remap_events=1,
+                                final_k=141, avg_latency=11.880215646159172),
+          "fault_link": dict(spikes_dropped=16_115, detour_hops=167_907,
+                             neurons_migrated=0, remap_events=0, final_k=141,
+                             avg_latency=11.038407829254174)}
+# The fault runs' core failure: the first cores of the live placement at
+# the middle of the trace (as benchmarks/bench_faults.py picks them).
+FAULT_VICTIMS = 4
 # Population SA + polish may place worse than the batched SA by this much.
 DEVICE_HOP_BOUND = 1.15
 
@@ -502,26 +545,45 @@ PATHS = {
     "cut": ("lif_step", "part_degrees", "swap_deltas", "link_loads", "hop_cost"),
     "volume": ("connectivity_degrees", "link_loads", "hop_cost"),
     "device": ("part_degrees", "swap_deltas", "link_loads", "hop_cost"),
+    # The baselines partition and place on the host; the replay's screen
+    # and the final hop cost are on the card.
+    "spinemap": ("link_loads", "hop_cost"),
+    "sco": ("link_loads", "hop_cost"),
+    # A replay under a live fault state is host-only (the reference's rule).
+    "fault_zero": ("part_degrees", "swap_deltas", "hop_cost"),
+    "fault_incremental": ("part_degrees", "swap_deltas", "hop_cost"),
+    "fault_scratch": ("part_degrees", "swap_deltas", "hop_cost"),
+    "fault_link": ("part_degrees", "swap_deltas", "hop_cost"),
+    "sweep": ("part_degrees", "swap_deltas", "link_loads", "hop_cost"),
 }
+FAULT_RUNS = ("fault_zero", "fault_incremental", "fault_scratch", "fault_link")
 
 
 def slice_config(run: str, device: str, screen: str, stepper: str = "jax"):
-    """The ToolchainConfig of slice run ``run`` ("cut", "volume" or
-    "device"); ``stepper`` is the device run's."""
+    """The ToolchainConfig of slice run ``run``: "cut", "volume",
+    "device" (``stepper`` is its stepper), a baseline ("spinemap", "sco":
+    the cut run's platform and replay, each method's own searches) or a
+    fault run (the cut run's configuration on the numpy screen and
+    stepper, which a replay under faults requires)."""
     from repro_torch.core import ToolchainConfig
 
     objective = "volume" if run == "volume" else "cut"
     noc_kwargs = {"screen": screen}
     mapper, mapper_kwargs = "sa", {"impl": "vec"}
-    if run == "cut":
+    if run == "cut" or run in FAULT_RUNS:
         # The tree placement objective (volume's default) has no device
         # scorer: score_backend="auto" is the pairwise objective's.
         mapper_kwargs["score_backend"] = "auto"
     if run == "device":
         mapper, mapper_kwargs = "sa_jax", {}
         noc_kwargs["stepper"] = stepper
+    if run in ("spinemap", "sco"):
+        mapper_kwargs = {}  # PSO's own defaults; SCO runs no search
+    if run in FAULT_RUNS:
+        noc_kwargs = {"screen": "numpy", "stepper": "numpy"}
     return ToolchainConfig(
-        method="sneap", mesh_w=SLICE["mesh_w"], mesh_h=SLICE["mesh_h"],
+        method=run if run in ("spinemap", "sco") else "sneap",
+        mesh_w=SLICE["mesh_w"], mesh_h=SLICE["mesh_h"],
         capacity=SLICE["capacity"], seed=SLICE["seed"],
         partition_impl="vec", objective=objective, mapper=mapper,
         mapper_kwargs=mapper_kwargs, noc_mode="queued",
@@ -536,28 +598,39 @@ def slice_traffic(prof, res, run: str, device: str = "cuda"):
     return build_traffic(prof, res.partition, cfg)
 
 
-def placement_hop_cost(prof, res, run: str, device: str = "cuda") -> float:
-    """avg_hop of a finished run recomputed on the hop_cost kernel: the
-    total hop cost of the run's traffic at the placed coordinates over the
-    run's packet count."""
+def hop_cost_of(prof, part, k: int, placement, cast: str = "unicast",
+                device: str = "cuda") -> float:
+    """avg_hop of a mapping recomputed on the hop_cost kernel: the total
+    hop cost of its traffic at the placed coordinates over its packet
+    count."""
     import numpy as np
     import torch
 
+    from repro_torch.core import traffic_matrix
     from repro_torch.kernels.hop_eval import hop_cost
 
-    traffic = slice_traffic(prof, res, run, device)
-    place = np.asarray(res.mapping.placement, dtype=np.int64)[:res.partition.k]
+    traffic = traffic_matrix(part, prof.trace_src, prof.trace_dst, k,
+                             trace_t=prof.trace_t, cast=cast)
+    place = np.asarray(placement, dtype=np.int64)[:k]
     x = torch.tensor(place % SLICE["mesh_w"], dtype=torch.float32, device=device)
     y = torch.tensor(place // SLICE["mesh_w"], dtype=torch.float32, device=device)
     total = hop_cost(torch.tensor(traffic, dtype=torch.float32, device=device),
                      x, y)
-    return float(total) / int(traffic.sum())
+    return float(total) / max(int(traffic.sum()), 1)
 
 
-def run_slice(run: str, prof=None, device: str = "cuda"):
+def placement_hop_cost(prof, res, device: str = "cuda") -> float:
+    """avg_hop of a finished run recomputed on the hop_cost kernel."""
+    return hop_cost_of(prof, res.partition.part, res.partition.k,
+                       res.mapping.placement, res.cast, device)
+
+
+def run_slice(run: str, prof=None, device: str = "cuda", remaps=None,
+              **toolchain_kw):
     """One slice run of the main path, through the entry points a user
-    calls: the profile (unless given), the toolchain, and the placement's
-    total hop cost on the hop_cost kernel."""
+    calls: the profile (unless given), the toolchain, and the final
+    placement's total hop cost on the hop_cost kernel — a fault run's last
+    re-map's (``remaps``, filled by a `RemapSpy`) where it re-mapped."""
     from repro_torch.core import run_toolchain
     from repro_torch.snn import make_snn, profile_snn
 
@@ -567,8 +640,14 @@ def run_slice(run: str, prof=None, device: str = "cuda"):
         prof = profile_snn(make_snn(SLICE["snn"]), num_steps=SLICE["num_steps"],
                            seed=SLICE["seed"], device=device)
         profile_s = time.perf_counter() - t0
-    res = run_toolchain(prof, config=slice_config(run, device, "linkload"))
-    hop = placement_hop_cost(prof, res, run, device)
+    res = run_toolchain(prof, config=slice_config(run, device, "linkload"),
+                        **toolchain_kw)
+    if remaps:
+        last = remaps[-1]
+        hop = hop_cost_of(prof, last.part, last.k, last.placement, res.cast,
+                          device)
+    else:
+        hop = placement_hop_cost(prof, res, device)
     return prof, res, profile_s, hop
 
 
@@ -636,12 +715,20 @@ DEVICE_SYMBOLS = {"lif_step": "lif_step_kernel",
                   "link_loads": "link_loads_kernel",
                   "hop_cost": "hop_cost_kernel"}
 # Launches each slice run must make exactly: one fused LIF launch a
-# profiled step, one link_loads launch for the whole replay, one hop_cost
-# launch for the placement's total.
+# profiled step, one link_loads launch for a replay on the link-load
+# screen (none under faults: the numpy screen), one hop_cost launch for the
+# final placement's total; the sweep's four rows one each.
 EXACT_LAUNCHES = {"cut": {"lif_step": SLICE["num_steps"], "link_loads": 1,
                           "hop_cost": 1},
                   "volume": {"lif_step": 0, "link_loads": 1, "hop_cost": 1},
-                  "device": {"lif_step": 0, "link_loads": 1, "hop_cost": 1}}
+                  "device": {"lif_step": 0, "link_loads": 1, "hop_cost": 1},
+                  "spinemap": {"lif_step": 0, "part_degrees": 0,
+                               "link_loads": 1, "hop_cost": 1},
+                  "sco": {"lif_step": 0, "part_degrees": 0, "link_loads": 1,
+                          "hop_cost": 1},
+                  **{run: {"lif_step": 0, "link_loads": 0, "hop_cost": 1}
+                     for run in FAULT_RUNS},
+                  "sweep": {"lif_step": 0, "link_loads": 4, "hop_cost": 4}}
 
 
 def device_total(busy, key_part: str) -> tuple[float, int]:
@@ -651,10 +738,14 @@ def device_total(busy, key_part: str) -> tuple[float, int]:
     return sum(h[0] for h in hits), sum(h[1] for h in hits)
 
 
-def traced_run(run: str, counters: dict, prof=None):
-    """Drive one slice run with every launch count set to 0 just before and
+def traced(run: str, counters: dict, drive, report=None):
+    """Call ``drive()`` with every launch count set to 0 just before and
     read just after, under device-only tracing (kernels, copies, fills),
-    which gives the card's busy time without timing any host op."""
+    which gives the card's busy time without timing any host op.  Prints
+    the busy share and the kernels' device times, then ``report(out)``;
+    fails where a kernel of the run's path did not launch or a count
+    differs from ``EXACT_LAUNCHES``.  Returns drive's result and the
+    launch counts."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -662,7 +753,7 @@ def traced_run(run: str, counters: dict, prof=None):
         setattr(mod, attr, 0)
     with profile(activities=[ProfilerActivity.CUDA]) as trace:
         t0 = time.perf_counter()
-        prof, res, profile_s, hop = run_slice(run, prof)
+        out = drive()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
@@ -684,14 +775,8 @@ def traced_run(run: str, counters: dict, prof=None):
     us, count = device_total(busy, "Memcpy HtoD")
     print(f"{run} slice host-to-device copies: {count} copies, "
           f"{us / 1e3:.3f} ms device")
-    if profile_s:
-        print(f"{run} slice: profile {profile_s:.2f} s, "
-              f"{prof.num_neurons} neurons, {prof.num_steps} steps kept, "
-              f"{prof.num_spikes} transmissions")
-    print(f"{run} slice summary:", json.dumps(res.summary()))
-    print(f"{run} slice phase_seconds:", json.dumps(res.phase_seconds))
-    print(f"{run} slice hop_cost / trace_len: {hop!r} "
-          f"(avg_hop {res.mapping.avg_hop!r})")
+    if report is not None:
+        report(out)
     print(f"{run} slice launches:", json.dumps(launches))
     for name in PATHS[run]:
         if launches[name] <= 0:
@@ -699,9 +784,28 @@ def traced_run(run: str, counters: dict, prof=None):
     for name, want in EXACT_LAUNCHES[run].items():
         if launches[name] != want:
             fail(f"{run}: {name} launched {launches[name]} times, not {want}")
-        if busy_s > 0 and seen[name] != want:
+        if busy_s > 0 and name in seen and seen[name] != want:
             fail(f"{run}: the profiler saw {seen[name]} {name} launches, "
                  f"not {want}")
+    return out, launches
+
+
+def traced_run(run: str, counters: dict, prof=None, **run_kw):
+    """One slice run (`run_slice`) under `traced`, printing its summary."""
+
+    def report(out):
+        prof, res, profile_s, hop = out
+        if profile_s:
+            print(f"{run} slice: profile {profile_s:.2f} s, "
+                  f"{prof.num_neurons} neurons, {prof.num_steps} steps kept, "
+                  f"{prof.num_spikes} transmissions")
+        print(f"{run} slice summary:", json.dumps(res.summary()))
+        print(f"{run} slice phase_seconds:", json.dumps(res.phase_seconds))
+        print(f"{run} slice hop_cost / trace_len: {hop!r} "
+              f"(avg_hop {res.mapping.avg_hop!r})")
+
+    (prof, res, _, hop), launches = traced(
+        run, counters, lambda: run_slice(run, prof, **run_kw), report)
     return prof, res, hop, launches
 
 
@@ -815,6 +919,239 @@ def check_device_run(prof, cut, res, hop, launches, spy) -> None:
           f"{res.noc.congestion_count}")
 
 
+def check_expect(run: str, values: dict) -> None:
+    for key, want in EXPECT[run].items():
+        if values[key] != want:
+            fail(f"{run}: {key} = {values[key]!r}, expected {want!r}")
+
+
+def seconds_line(name: str, res) -> str:
+    ph = res.phase_seconds
+    return (f"{name}: partition {ph['partition']:.3f} s, mapping "
+            f"{ph['mapping']:.3f} s, evaluate {ph['evaluate']:.3f} s, total "
+            f"{res.total_seconds:.3f} s")
+
+
+def baseline_runs(prof, cut, counters) -> dict:
+    """SpiNeMap and SCO through `run_toolchain` on the cut run's profile,
+    platform and replay, held to the reference's numbers and to the
+    paper's orderings; prints each run's phase seconds beside SNEAP's."""
+    import numpy as np
+
+    from repro_torch.core.graph import validate_partition
+
+    launches, runs = {}, {}
+    for run in ("spinemap", "sco"):
+        _, res, hop, launches[run] = traced_run(run, counters, prof)
+        check_expect(run, res.summary())
+        pres = res.partition
+        validate_partition(prof.graph, pres.part, pres.k, SLICE["capacity"])
+        placement = np.asarray(res.mapping.placement)
+        if np.unique(placement).shape[0] != pres.k:
+            fail(f"{run}: placement is not one distinct core per partition")
+        if not np.isclose(hop, res.mapping.avg_hop, rtol=1e-6, atol=0.0):
+            fail(f"{run}: hop_cost / trace_len = {hop!r} differs from "
+                 f"avg_hop = {res.mapping.avg_hop!r} beyond rtol 1e-6")
+        if res.noc.num_noc_spikes + res.noc.num_local_spikes != prof.num_spikes:
+            fail(f"{run}: NoC stats lose packets")
+        runs[run] = res
+    cuts = [r.partition.edge_cut for r in (cut, runs["spinemap"], runs["sco"])]
+    if not cuts[0] <= cuts[1] <= cuts[2]:
+        fail(f"the cut ordering sneap <= spinemap <= sco fails: {cuts}")
+    if not cut.mapping.avg_hop < runs["sco"].mapping.avg_hop:
+        fail("sneap's avg_hop is not below sco's")
+    print("toolchain seconds on the card, " + "; ".join(
+        seconds_line(n, r) for n, r in
+        (("sneap", cut), ("spinemap", runs["spinemap"]), ("sco", runs["sco"]))))
+    return launches
+
+
+class RemapSpy:
+    """While installed, records each re-map's result, seconds and the
+    part_degrees launches it made (the fault scenario driver calls the
+    re-mappers through `repro_torch.core.pipeline`); changes nothing
+    else."""
+
+    NAMES = ("incremental_remap", "scratch_remap")
+
+    def __init__(self):
+        from repro_torch.core import pipeline
+        from repro_torch.kernels.gain_eval import kernel as gain_eval
+
+        self.pipeline, self.gain_eval = pipeline, gain_eval
+        self.inner = {n: getattr(pipeline, n) for n in self.NAMES}
+        self.results = []
+        self.part_degrees = 0
+
+    def _wrap(self, fn):
+        def remap(*args, **kwargs):
+            before = self.gain_eval.launches
+            res = fn(*args, **kwargs)
+            self.part_degrees += self.gain_eval.launches - before
+            self.results.append(res)
+            return res
+        return remap
+
+    def __enter__(self):
+        for name, fn in self.inner.items():
+            setattr(self.pipeline, name, self._wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.inner.items():
+            setattr(self.pipeline, name, fn)
+
+
+def fault_runs(prof, cut, counters) -> dict:
+    """The cut run's configuration under four fault schedules: none (must
+    equal the fault-free run), a mid-trace core failure re-mapped both
+    ways, and random link failures (re-routed, never re-mapped); held to
+    the reference's numbers.  No re-map may leave a real partition on a
+    dead core."""
+    import numpy as np
+
+    from repro_torch.core import partition_weights
+    from repro_torch.runtime import FaultEvent, FaultSchedule
+
+    t_end = prof.num_steps
+    victims = tuple(int(c) for c in cut.mapping.placement[:FAULT_VICTIMS])
+    core = FaultSchedule([FaultEvent(t_end // 2, "core", victims)])
+    schedules = {
+        "fault_zero": (FaultSchedule([]), "incremental"),
+        "fault_incremental": (core, "incremental"),
+        "fault_scratch": (core, "scratch"),
+        "fault_link": (FaultSchedule.random(
+            SLICE["mesh_w"], SLICE["mesh_h"], 0, t_end, n_link_faults=8,
+            seed=2), "incremental"),
+    }
+    print(f"fault runs: core failure of {victims} at window {t_end // 2}; "
+          f"link schedule {[(e.t, e.ids[0]) for e in schedules['fault_link'][0].events]}")
+    launches = {}
+    for run, (sched, strategy) in schedules.items():
+        with RemapSpy() as spy:
+            _, res, hop, launches[run] = traced_run(
+                run, counters, prof, remaps=spy.results,
+                fault_schedule=sched, remap_strategy=strategy)
+        deg = res.degradation
+        check_expect(run, {**res.summary(), "final_k": deg["final_k"]})
+        if len(spy.results) != deg["remap_events"]:
+            fail(f"{run}: {len(spy.results)} re-maps seen, "
+                 f"{deg['remap_events']} reported")
+        noc = res.noc
+        if (noc.num_noc_spikes + noc.num_local_spikes + noc.spikes_dropped
+                != prof.num_spikes):
+            fail(f"{run}: the segmented replay loses spikes")
+        dead = sched.state_at(t_end, SLICE["mesh_w"], SLICE["mesh_h"]).dead_cores
+        for r in spy.results:
+            w = partition_weights(prof.graph, r.part, r.k)
+            if dead[r.placement[:r.k][w > 0]].any():
+                fail(f"{run}: a re-map left a real partition on a dead core")
+        final = spy.results[-1].mapping if spy.results else res.mapping
+        if not np.isclose(hop, final.avg_hop, rtol=1e-6, atol=0.0):
+            fail(f"{run}: hop_cost / trace_len = {hop!r} differs from the "
+                 f"final mapping's avg_hop = {final.avg_hop!r}")
+        if run == "fault_zero":
+            bad = same_stats(res.noc, cut.noc)
+            if bad:
+                fail(f"fault_zero: NoCStats {bad} differ from the fault-free run")
+        if run == "fault_scratch" and spy.part_degrees <= 0:
+            fail("fault_scratch: the scratch re-map launched no part_degrees")
+        ph = res.phase_seconds
+        print(f"{run}: remap_s {ph['remap']:.4f}, evaluate "
+              f"{ph['evaluate']:.3f} s, scenario {ph['scenario']:.4f} s; "
+              f"{deg['remap_events']} re-maps ({deg['remap_strategy']}), "
+              f"part_degrees launches in the re-map {spy.part_degrees}; "
+              f"degradation {json.dumps(deg)}")
+    return launches
+
+
+def sweep_run(prof, cut, counters) -> dict:
+    """`run_sweep` over seeds {0, 1} x mappers {sa_jax, sa} on the cut
+    run's platform with the torch stepper: partitions shared, the two
+    sa_jax searches one batched device program.  The sa row of seed 0
+    must equal the cut run; each sa_jax row's placement must equal a
+    single `sa_search_jax` on the card, bitwise."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import phase_seeds
+    from repro_torch.core.mapping_device import sa_search_jax, sa_search_jax_batch
+    from repro_torch.core.pipeline import build_traffic
+    from repro_torch.launch import config_grid, run_sweep
+
+    common = dict(seed=[0, 1], mesh=[(SLICE["mesh_w"], SLICE["mesh_h"])],
+                  capacity=SLICE["capacity"], partition_impl="vec",
+                  objective="cut", screen="linkload", stepper="jax",
+                  device="cuda")
+    # The cut run's SA settings are the batched SA's; sa_jax takes its own.
+    grid = (config_grid(mapper="sa_jax", **common)
+            + config_grid(mapper="sa", mapper_kwargs={"impl": "vec",
+                                                      "score_backend": "auto"},
+                          **common))
+    msgs = []
+
+    def drive():
+        sweep = run_sweep(prof, grid, progress=msgs.append)
+        return sweep, [placement_hop_cost(prof, r) for r in sweep.results]
+
+    def report(out):
+        sweep, _ = out
+        for m in msgs:
+            print(f"sweep: {m}")
+        for row in sweep.rows:
+            print("sweep row:", json.dumps(row))
+        print(f"sweep: {sweep.seconds:.3f} s for {len(sweep.rows)} configs")
+
+    (sweep, hops), launches = traced("sweep", counters, drive, report)
+    if f"{prof.name}: 2 partition runs for 4 configs" not in msgs:
+        fail(f"sweep: partition dedup did not give 2 runs for 4 configs: {msgs}")
+    for row, res, hop in zip(sweep.rows, sweep.results, hops):
+        if not np.isclose(hop, row["avg_hop"], rtol=1e-6, atol=0.0):
+            fail(f"sweep: hop_cost / trace_len = {hop!r} differs from the "
+                 f"row's avg_hop = {row['avg_hop']!r}")
+    sa0 = [r for r in sweep.rows if r["mapper"] == "sa" and r["seed"] == 0][0]
+    for key, want in cut.summary().items():
+        if not key.endswith("_s") and sa0[key] != want:
+            fail(f"sweep: the sa row of seed 0 has {key} = {sa0[key]!r}, the "
+                 f"cut run {want!r}")
+    # The bucket again, alone, and the two single searches it replaces, on
+    # the same traffic: the placements must be the sweep's, bitwise.
+    jax_rows = [(cfg, res) for cfg, res in zip(grid, sweep.results)
+                if cfg.mapper == "sa_jax"]
+    traffics = [build_traffic(prof, res.partition, cfg.resolve(prof.graph.hyper))
+                for cfg, res in jax_rows]
+    seeds = [phase_seeds(cfg.seed)[1] for cfg, _ in jax_rows]
+    lengths = [int(t.sum()) for t in traffics]
+    cores = SLICE["mesh_w"] * SLICE["mesh_h"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = sa_search_jax_batch(traffics, cores, SLICE["mesh_w"], lengths,
+                                seeds, device="cuda")
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    single_s = 0.0
+    for (cfg, res), traffic, length, seed, b in zip(jax_rows, traffics, lengths,
+                                                    seeds, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single = sa_search_jax(traffic, cores, SLICE["mesh_w"], length,
+                               seed=seed, device="cuda")
+        torch.cuda.synchronize()
+        single_s += time.perf_counter() - t0
+        for name, got in (("sweep", res.mapping), ("batch", b)):
+            if not np.array_equal(single.placement, got.placement):
+                fail(f"sweep: the {name} sa_jax placement of seed {cfg.seed} "
+                     f"differs from the single search's")
+        if res.mapping.avg_hop > DEVICE_HOP_BOUND * cut.mapping.avg_hop:
+            fail(f"sweep: sa_jax avg_hop {res.mapping.avg_hop!r} exceeds "
+                 f"{DEVICE_HOP_BOUND} x the cut run's")
+    in_sweep = sum(res.mapping.seconds for _, res in jax_rows)
+    print(f"sweep: the sa_jax bucket of 2 configs {batch_s:.3f} s "
+          f"({in_sweep:.3f} s inside the sweep) against {single_s:.3f} s for "
+          f"two single sa_search_jax calls; placements bitwise equal")
+    return launches
+
+
 def check_profile_raster(prof, dev) -> None:
     """The card's whole profile raster against the CPU path's, bitwise, on
     the inputs ``profile_snn`` builds; its first kept steps must give the
@@ -891,9 +1228,12 @@ def main() -> int:
     check_result(prof, cut_res, "cut", cut_hop)
     check_result(prof, vol_res, "volume", vol_hop)
     check_device_run(prof, cut_res, dev_res, dev_hop, dev_launches, spy)
+    runs = [cut_launches, vol_launches, dev_launches]
+    runs += baseline_runs(prof, cut_res, counters).values()
+    runs += fault_runs(prof, cut_res, counters).values()
+    runs.append(sweep_run(prof, cut_res, counters))
     check_profile_raster(prof, dev)
-    launches = {name: cut_launches[name] + vol_launches[name]
-                + dev_launches[name] for name in counters}
+    launches = {name: sum(run[name] for run in runs) for name in counters}
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     if loaded:

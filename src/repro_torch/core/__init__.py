@@ -3,8 +3,10 @@
 Partitioning (multilevel graph/hypergraph partitioning minimizing either
 inter-partition spikes or multicast communication volume), mapping
 (SA/PSO/Tabu placement minimizing average hop under XY routing), analytic
-hop evaluation (Algorithm 1), and the end-to-end toolchain pipeline.
+hop evaluation (Algorithm 1), baselines (SpiNeMap, SCO), re-mapping
+around failed cores, and the end-to-end toolchain pipeline.
 """
+from .baselines import greedy_kl_partition, sco_partition, sco_place
 from .graph import (
     Graph,
     Hypergraph,
@@ -52,6 +54,13 @@ from .placecost import (
     make_objective,
     validate_objective,
 )
+from .remap import (
+    RemapResult,
+    check_degraded_capacity,
+    evict_dead_partitions,
+    incremental_remap,
+    scratch_remap,
+)
 
 __all__ = [
     "Graph", "Hypergraph", "build_graph", "build_hypergraph",
@@ -64,7 +73,10 @@ __all__ = [
     "PLACE_OBJECTIVES", "PairwiseObjective", "TreeHopObjective",
     "MigrationAwareObjective", "evaluate_placement", "make_objective",
     "validate_objective",
+    "RemapResult", "check_degraded_capacity", "evict_dead_partitions",
+    "incremental_remap", "scratch_remap",
     "PartitionResult", "sneap_partition",
+    "greedy_kl_partition", "sco_partition", "sco_place",
     "ToolchainConfig", "ToolchainResult", "run_toolchain",
     "phase_seeds", "partition_phase", "mapping_phase", "evaluate_phase",
 ]

@@ -42,7 +42,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-from .placecost import PairwiseObjective
+from .placecost import MigrationAwareObjective, PairwiseObjective
 
 __all__ = [
     "MappingResult",
@@ -165,7 +165,8 @@ def sa_search(
     ``batch`` proposals per step in one vectorized delta call and commits
     a conflict-free accepted subset (see the module docstring).  ``iters``
     counts *proposals* under both engines, so equal budgets do equal
-    search work.  ``score_backend="auto"`` (vec + pairwise only) routes the
+    search work.  ``score_backend="auto"`` (vec + pairwise, bare or under
+    the re-mapper's migration pricing) routes the
     batch scoring through the `kernels/swap_delta` all-pairs op on
     ``device`` — the CUDA kernel on the card, its plain PyTorch version on
     the CPU — instead of the numpy batch delta (``"numpy"``).  ``objective`` is a `repro.core.placecost` objective instance;
@@ -277,13 +278,20 @@ def _make_batch_scorer(obj, num_cores: int, mesh_w: int, score_backend: str,
     deltas).  The symmetrized traffic stays resident on the device; per
     call only the placed coordinates and the candidate ids go up, and only
     the B gathered deltas come back.
+
+    A `placecost.MigrationAwareObjective` over the pairwise objective (the
+    re-mapper's) is scored the same way, its O(1) host penalty deltas
+    added in f64 — a port extension: the reference refuses it.  On integer
+    traffic whose f32 sums are exact, the kernel's deltas are the host's,
+    so "auto" commits the same swaps as "numpy".
     """
     if score_backend == "numpy":
         return lambda placement, aa, bb: obj.swap_delta_batch(aa, bb)
     if score_backend != "auto":
         raise ValueError(
             f"unknown score_backend {score_backend!r}; use 'numpy' or 'auto'")
-    if obj.name != "pairwise":
+    base = obj.base if isinstance(obj, MigrationAwareObjective) else obj
+    if base.name != "pairwise":
         raise ValueError(
             f"score_backend={score_backend!r} supports only the pairwise "
             f"objective, not {obj.name!r}"
@@ -292,7 +300,7 @@ def _make_batch_scorer(obj, num_cores: int, mesh_w: int, score_backend: str,
 
     from .hopcost import core_coords
 
-    sym_d = torch.from_numpy(np.asarray(obj.sym, dtype=np.float32)).to(device)
+    sym_d = torch.from_numpy(np.asarray(base.sym, dtype=np.float32)).to(device)
     coords = core_coords(num_cores, mesh_w).astype(np.float32)
     x, y = coords[:, 0], coords[:, 1]
 
@@ -304,7 +312,11 @@ def _make_batch_scorer(obj, num_cores: int, mesh_w: int, score_backend: str,
             torch.from_numpy(np.asarray(aa, dtype=np.int64)).to(device),
             torch.from_numpy(np.asarray(bb, dtype=np.int64)).to(device),
         )
-        return deltas.cpu().numpy().astype(np.float64)
+        deltas = deltas.cpu().numpy().astype(np.float64)
+        if base is not obj:
+            deltas = deltas + obj._swap_pen_delta(np.asarray(aa, dtype=np.int64),
+                                                  np.asarray(bb, dtype=np.int64))
+        return deltas
 
     return scorer
 

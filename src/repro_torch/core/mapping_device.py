@@ -1,7 +1,7 @@
 """Device-resident mapping searches: population SA and the greedy polish.
 
 The counterpart of the reference's `repro.core.mapping_jax` (without
-``island_sa`` and ``sa_search_jax_batch``), in torch on the run's device:
+``island_sa``), in torch on the run's device:
 
   * `sa_search_jax` — a population of SA chains advanced in lock-step:
     each chain proposes a random swap, scores it with the O(K) incremental
@@ -12,6 +12,15 @@ The counterpart of the reference's `repro.core.mapping_jax` (without
     captured once in a CUDA graph and replayed.  torch cannot reproduce
     ``jax.random``'s streams, so this search is held to the reference's
     quality bound, not to its placements.
+  * `sa_search_jax_batch` — C configs' populations stacked into one
+    ``(C, P, NC)`` state and advanced by the same graphed epochs (the
+    sweep driver's device bucket).  `sa_search_jax` is a batch of one
+    through the same code, each config draws from its own generator in
+    the single call's order and shapes, and the deltas and costs are f64
+    sums of integer products (exact below 2^53 on the toolchain's integer
+    traffic, so independent of the reduction order the batch size picks):
+    element i of a batch is bitwise ``sa_search_jax(seed=seeds[i])`` on the
+    same device.
   * `greedy_polish` — full-neighbourhood steepest descent: the
     `kernels.swap_delta` op scores all O(K^2) swaps a step (the CUDA
     kernel on the card, the plain version on the CPU) and the single best
@@ -37,7 +46,8 @@ from repro_torch.kernels.swap_delta import swap_deltas
 from .hopcost import hop_distance_matrix
 from .mapping import MappingResult, pad_traffic
 
-__all__ = ["sa_search_jax", "greedy_polish", "polish_search"]
+__all__ = ["sa_search_jax", "sa_search_jax_batch", "greedy_polish",
+           "polish_search"]
 
 ALPHA = 0.95  # geometric cooling a temperature epoch
 
@@ -50,7 +60,8 @@ def _coords(num_cores: int, mesh_w: int,
 
 def _cost(sym: torch.Tensor, placement: torch.Tensor,
           dist: torch.Tensor) -> torch.Tensor:
-    """Total pairwise hop cost of ``placement`` (0-d f32): sum(S * D) / 2."""
+    """Total pairwise hop cost of ``placement`` (0-d, ``sym``'s dtype):
+    sum(S * D) / 2."""
     d = dist[placement[:, None], placement[None, :]]
     return (sym * d).sum() / 2.0
 
@@ -59,69 +70,85 @@ def _delta_one(sym: torch.Tensor, dist: torch.Tensor, placement: torch.Tensor,
                a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """O(K) incremental swap deltas of chains ``placement`` (P, NC) for the
     swaps (a[p], b[p]); the formula of `hopcost.swap_delta`, batched."""
-    ab = torch.stack([a, b], dim=1)
-    return _delta_pair(sym, dist, placement, ab, placement.gather(1, ab))
+    ab = torch.stack([a, b], dim=1)[None]
+    pl = placement[None]
+    return _delta_pair(sym[None], dist, pl, ab, pl.gather(2, ab))[0]
 
 
-def _delta_pair(sym, dist, placement, ab, cab) -> torch.Tensor:
-    """`_delta_one` of the swaps ``ab`` (P, 2) whose cores are
-    ``cab = placement[ab]``: both rows of each pair in one gather."""
-    d = dist[cab].gather(2, placement[:, None, :].expand(-1, 2, -1))
-    s = sym[ab]
-    diff = (s[:, 0] - s[:, 1]) * (d[:, 1] - d[:, 0])
-    return diff.sum(1) - diff.gather(1, ab).sum(1)
+def _delta_pair(syms, dist, placement, ab, cab) -> torch.Tensor:
+    """`_delta_one` of C configs at once: the swaps ``ab`` (C, P, 2) of
+    chains ``placement`` (C, P, NC) over traffic ``syms`` (C, NC, NC),
+    whose cores are ``cab = placement[ab]``; both rows of each pair in
+    one gather.  Returns (C, P) deltas."""
+    d = dist[cab].gather(3, placement[:, :, None, :].expand(-1, -1, 2, -1))
+    cfg = torch.arange(syms.shape[0], device=syms.device)[:, None, None]
+    s = syms[cfg, ab]
+    diff = (s[:, :, 0] - s[:, :, 1]) * (d[:, :, 1] - d[:, :, 0])
+    return diff.sum(2) - diff.gather(2, ab).sum(2)
 
 
 class _Population:
-    """SA chains (P, NC) and their costs; one temperature epoch at a time
-    over proposals and uniforms drawn into fixed buffers."""
+    """SA chains of C configs (C, P, NC) and their costs; one temperature
+    epoch at a time over proposals and uniforms drawn into fixed buffers,
+    each config's from its own generator."""
 
-    def __init__(self, sym, dist, placements, t0, sweeps_per_temp: int,
-                 gen: torch.Generator):
-        self.sym, self.dist, self.gen = sym, dist, gen
+    def __init__(self, syms, dist, placements, t0s, sweeps_per_temp: int,
+                 gens: list):
+        self.syms, self.dist, self.gens = syms, dist, gens
         self.placement = placements
-        p, nc = placements.shape
+        c, p, nc = placements.shape
         dev = placements.device
-        self.cost = torch.stack([_cost(sym, pl, dist) for pl in placements])
-        self.temp = torch.full((), float(t0), dtype=torch.float32, device=dev)
-        self.best = torch.empty(p, dtype=torch.float32, device=dev)
-        self.a = torch.empty((sweeps_per_temp, p), dtype=torch.int64, device=dev)
+        self.cost = torch.stack([
+            torch.stack([_cost(syms[i], pl, dist) for pl in placements[i]])
+            for i in range(c)])
+        self.temp = torch.tensor([float(t) for t in t0s], dtype=torch.float32,
+                                 device=dev)
+        self.best = torch.empty((c, p), dtype=self.cost.dtype, device=dev)
+        # Config-major draws: slot i is one contiguous (steps, P) block,
+        # filled exactly as a single call's generator fills its buffer.
+        self.a = torch.empty((c, sweeps_per_temp, p), dtype=torch.int64,
+                             device=dev)
         self.b = torch.empty_like(self.a)
-        self.ab = torch.empty((sweeps_per_temp, p, 2), dtype=torch.int64,
+        self.ab = torch.empty((sweeps_per_temp, c, p, 2), dtype=torch.int64,
                               device=dev)
-        self.neg_log_u = torch.empty((sweeps_per_temp, p), dtype=torch.float32,
-                                     device=dev)
+        self.neg_log_u = torch.empty((c, sweeps_per_temp, p),
+                                     dtype=torch.float32, device=dev)
         self.nc = nc
         self.graph = None
 
     def draw(self) -> None:
         """The next epoch's proposals (a, b != a) and -log of its uniforms:
         ``u < exp(-delta / T)`` is ``delta < -log(u) * T``."""
-        torch.randint(0, self.nc, self.a.shape, generator=self.gen, out=self.a)
-        torch.randint(0, self.nc - 1, self.b.shape, generator=self.gen, out=self.b)
+        for i, gen in enumerate(self.gens):
+            torch.randint(0, self.nc, self.a[i].shape, generator=gen,
+                          out=self.a[i])
+            torch.randint(0, self.nc - 1, self.b[i].shape, generator=gen,
+                          out=self.b[i])
+            torch.rand(self.neg_log_u[i].shape, generator=gen,
+                       out=self.neg_log_u[i])
         self.b += self.b >= self.a
-        torch.stack([self.a, self.b], dim=2, out=self.ab)
-        torch.rand(self.neg_log_u.shape, generator=self.gen, out=self.neg_log_u)
+        torch.stack([self.a.transpose(0, 1), self.b.transpose(0, 1)], dim=3,
+                    out=self.ab)
         self.neg_log_u.log_().neg_()
 
     def epoch(self) -> None:
         """sweeps_per_temp Metropolis steps of every chain, then cooling;
         ``best`` is the epoch's lowest cost of each chain."""
         self.best.fill_(float("inf"))
-        thresholds = self.neg_log_u * self.temp
+        thresholds = (self.neg_log_u * self.temp[:, None, None]).transpose(0, 1)
         for ab, threshold in zip(self.ab, thresholds):
-            cab = self.placement.gather(1, ab)
-            delta = _delta_pair(self.sym, self.dist, self.placement, ab, cab)
+            cab = self.placement.gather(2, ab)
+            delta = _delta_pair(self.syms, self.dist, self.placement, ab, cab)
             accept = (delta <= 0) | (delta < threshold)
             self.placement.scatter_(
-                1, ab, torch.where(accept[:, None], cab.flip(1), cab))
+                2, ab, torch.where(accept[..., None], cab.flip(2), cab))
             self.cost += torch.where(accept, delta, 0.0)
             torch.minimum(self.best, self.cost, out=self.best)
         self.temp.mul_(ALPHA)
 
     def run_epoch(self) -> torch.Tensor:
         """Draw and run one epoch (replaying its CUDA graph on the card);
-        returns a copy of the epoch's per-chain best costs."""
+        returns a copy of the epoch's per-chain best costs (C, P)."""
         self.draw()
         if self.placement.device.type != "cuda":
             self.epoch()
@@ -157,41 +184,98 @@ def sa_search_jax(
     device: "str | torch.device" = "cuda",
 ) -> MappingResult:
     """Population SA on ``device`` + optional greedy polish (registry:
-    ``"sa_jax"``, the reference's name)."""
+    ``"sa_jax"``, the reference's name): `sa_search_jax_batch` of one."""
+    return sa_search_jax_batch(
+        [traffic], num_cores, mesh_w, [trace_length], [seed], iters=iters,
+        chains=chains, sweeps_per_temp=sweeps_per_temp, t0_frac=t0_frac,
+        torus=torus, polish=polish, device=device)[0]
+
+
+def sa_search_jax_batch(
+    traffics: list[np.ndarray],
+    num_cores: int,
+    mesh_w: int,
+    trace_lengths: list[int],
+    seeds: list[int],
+    iters: int = 20_000,
+    chains: int = 16,
+    sweeps_per_temp: int = 64,
+    t0_frac: float = 0.25,
+    torus: bool = False,
+    polish: bool = True,
+    device: "str | torch.device" = "cuda",
+) -> list[MappingResult]:
+    """Batched `sa_search_jax`: one device program for a whole config bucket.
+
+    All configs share ``(num_cores, mesh_w, iters, chains,
+    sweeps_per_temp, torus)`` — what makes their populations stackable
+    into one ``(C, P, NC)`` state (the sweep driver's bucketing key).
+    Traffic matrices may have different ``k`` (each is zero-padded to
+    ``num_cores``).  Each config's generator, initial placements and
+    temperature schedule are those of ``sa_search_jax(seed=s)``, and each
+    epoch's steps for the whole bucket are one CUDA graph on the card, so
+    element ``i`` of the returned list is bitwise the single call's
+    result on the same device; the polish tail runs per config on
+    `swap_deltas`.  Reported ``seconds`` are the bucket's wall clock
+    amortized per config.
+    """
     dev = resolve_device(device)
     start = time.perf_counter()
-    k = traffic.shape[0]
-    trace_length = max(trace_length, 1)  # zero-traffic profiles normalize by 1
-    padded = pad_traffic(np.asarray(traffic, dtype=np.float64), num_cores)
-    sym = torch.tensor(padded + padded.T, dtype=torch.float32, device=dev)
+    c = len(traffics)
+    if not (len(trace_lengths) == len(seeds) == c):
+        raise ValueError("traffics, trace_lengths, seeds must align")
+    if c == 0:
+        return []
+    ks = [int(t.shape[0]) for t in traffics]
+    syms_np = np.empty((c, num_cores, num_cores), dtype=np.float64)
+    for i, t in enumerate(traffics):
+        padded = pad_traffic(np.asarray(t, dtype=np.float64), num_cores)
+        syms_np[i] = padded + padded.T
+    # The chains score in f64 (exact on integer traffic); the polish's
+    # swap_deltas takes the f32 copy.
+    syms = torch.tensor(syms_np, dtype=torch.float64, device=dev)
     dist = torch.tensor(hop_distance_matrix(num_cores, mesh_w, torus=torus),
-                        dtype=torch.float32, device=dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    placements = torch.rand((chains, num_cores), generator=gen,
-                            device=dev).argsort(dim=1)
-    t0 = t0_frac * float(_cost(sym, placements[0], dist)) / max(k, 1)
-    pop = _Population(sym, dist, placements, t0, sweeps_per_temp, gen)
+                        dtype=torch.float64, device=dev)
+    gens, placements, t0s = [], [], []
+    for i, s in enumerate(seeds):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(s))
+        pl = torch.rand((chains, num_cores), generator=gen,
+                        device=dev).argsort(dim=1)
+        gens.append(gen)
+        placements.append(pl)
+        t0s.append(t0_frac * float(_cost(syms[i], pl[0], dist)) / max(ks[i], 1))
+    pop = _Population(syms, dist, torch.stack(placements), t0s,
+                      sweeps_per_temp, gens)
     best_hist = torch.stack([pop.run_epoch()
                              for _ in range(max(iters // sweeps_per_temp, 1))])
-    best = pop.placement[int(torch.argmin(pop.cost))].clone()
+    best_hist = best_hist.min(dim=2).values.cpu().numpy()  # (epochs, C)
     if polish:
         x, y = _coords(num_cores, mesh_w, dev)
-        best, _ = greedy_polish(sym, best, x, y)
-    final_cost = float(_cost(sym, best, dist))
-    seconds = time.perf_counter() - start
-    # The steps run on the device, so history is keyed by temperature-epoch
-    # index (see MappingResult.history), as in the reference.
-    best_by_epoch = np.minimum.accumulate(
-        best_hist.min(dim=1).values.double().cpu().numpy())
-    hist = [(float(i), c / trace_length) for i, c in enumerate(best_by_epoch)]
-    return MappingResult(
-        placement=best[:k].cpu().numpy().astype(np.int64),
-        avg_hop=final_cost / trace_length,
-        seconds=seconds,
-        history=hist,
-        evaluations=int(iters) * int(chains),
-    )
+        syms32 = syms.to(torch.float32)
+    results = []
+    for i in range(c):
+        best = pop.placement[i, int(torch.argmin(pop.cost[i]))].clone()
+        if polish:
+            best, _ = greedy_polish(syms32[i], best, x, y)
+        denom = max(int(trace_lengths[i]), 1)  # zero traffic normalizes by 1
+        final_cost = float(_cost(syms[i], best, dist))
+        # The steps run on the device, so history is keyed by
+        # temperature-epoch index (see MappingResult.history), as in the
+        # reference.
+        best_by_epoch = np.minimum.accumulate(best_hist[:, i])
+        hist = [(float(j), cst / denom) for j, cst in enumerate(best_by_epoch)]
+        results.append(MappingResult(
+            placement=best[:ks[i]].cpu().numpy().astype(np.int64),
+            avg_hop=final_cost / denom,
+            seconds=0.0,
+            history=hist,
+            evaluations=int(iters) * int(chains),
+        ))
+    seconds = (time.perf_counter() - start) / c
+    for r in results:
+        r.seconds = seconds
+    return results
 
 
 def greedy_polish(

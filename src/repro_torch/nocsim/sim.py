@@ -298,7 +298,7 @@ def simulate_noc(
         on ``device``) — backend for the batched engine's whole-window
         contention screen.  The choice never changes results, only where
         the screening work runs.
-      faults: optional `repro.runtime.faults.FaultState` of dead cores and
+      faults: optional `repro_torch.runtime.faults.FaultState` of dead cores and
         links.  Packets with a dead endpoint are dropped; packets whose XY
         route crosses a dead link/core detour via the YX escape order when
         that route is clean, and are dropped otherwise.  Drops and detours

@@ -30,7 +30,7 @@ class NoCStats:
     per_link_hops: np.ndarray | None = field(repr=False, default=None)
     cast: str = "unicast"
     link_traversals: int = 0  # == total_hops for unicast; tree links for multicast
-    # Fault accounting (repro.runtime.faults); both stay 0 on healthy
+    # Fault accounting (repro_torch.runtime.faults); both stay 0 on healthy
     # meshes so zero-fault records compare bit-identical to pre-fault ones.
     spikes_dropped: int = 0  # packets lost to dead endpoints / unroutable faults
     detour_hops: int = 0  # hops traversed on YX fault-escape routes

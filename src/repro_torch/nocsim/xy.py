@@ -12,7 +12,7 @@ vectorized route expansion) possible.
 
 The route expanders also accept a per-packet ``order`` flag selecting YX
 (Y first, then X) instead: the fault-escape routes of the degradation
-model (`repro.runtime.faults`) are dimension-ordered too, just along the
+model (`repro_torch.runtime.faults`) are dimension-ordered too, just along the
 other axis, so every structural fact the engines rely on — static routes,
 at most two consecutive link-id runs, minimal hop count — holds for both
 orders and the same expansion code serves faulty and fault-free meshes.

@@ -7,7 +7,8 @@ integer traffic and rtol 1e-4 / atol 1e-2 on fractional traffic, rtol
 1e-6 (and bitwise repeatable, one launch) for hop_cost; and the device
 searches and stepper on the card: the torch stepper against the numpy
 stepper, the greedy polish on swap_deltas, the population SA's CUDA graph
-against its eager epochs.  Every test is marked ``cuda`` and skips
+against its eager epochs, and the batched population SA's elements
+against single searches, bitwise.  Every test is marked ``cuda`` and skips
 where CUDA is unavailable; this file imports torch and numpy only, so it
 runs where the reference's JAX is not installed."""
 import numpy as np
@@ -332,15 +333,16 @@ def test_population_sa_graph_replay_equals_eager_epochs(cuda):
     c = RNG.integers(0, 100, (15, 15)).astype(np.float64)
     np.fill_diagonal(c, 0)
     padded = pad_traffic(c, 25)
-    sym = torch.tensor(padded + padded.T, dtype=torch.float32, device=cuda)
-    dist = torch.tensor(hop_distance_matrix(25, 5), dtype=torch.float32,
+    sym = torch.tensor(padded + padded.T, dtype=torch.float64, device=cuda)
+    dist = torch.tensor(hop_distance_matrix(25, 5), dtype=torch.float64,
                         device=cuda)
     pops = []
     for _ in range(2):
         gen = torch.Generator(device=cuda)
         gen.manual_seed(5)
         start = torch.rand((4, 25), generator=gen, device=cuda).argsort(dim=1)
-        pops.append(md._Population(sym, dist, start, 50.0, 64, gen))
+        pops.append(md._Population(sym[None], dist, start[None], [50.0], 64,
+                                   [gen]))
     graphed, eager = pops
     for _ in range(3):
         best = graphed.run_epoch()
@@ -358,3 +360,28 @@ def test_population_sa_graph_replay_equals_eager_epochs(cuda):
     assert len(set(a.placement.tolist())) == 15
     r_np = sa_search(c, 25, 5, trace_len, seed=0, iters=15_000, device="cpu")
     assert a.avg_hop <= 1.15 * r_np.avg_hop
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,cores,w,top", [(12, 16, 4, 50), (141, 256, 16, 60_000)])
+def test_population_sa_batch_equals_single_on_the_card(cuda, k, cores, w, top):
+    """Element i of sa_search_jax_batch is bitwise the single call on the
+    card, also where the traffic's f32 sums would round (the second
+    case's row sums exceed 2^24 once multiplied by hop distances)."""
+    from repro_torch.core import mapping_device as md
+
+    rng = np.random.default_rng(k)
+    traffics = []
+    for kk in (k, k - 2, k):
+        t = rng.integers(0, top, (kk, kk)).astype(np.float64)
+        np.fill_diagonal(t, 0)
+        traffics.append(t)
+    tls = [int(t.sum()) for t in traffics]
+    seeds = [5, 9, 5]
+    kw = dict(iters=1_280, chains=8, device=cuda)
+    batch = md.sa_search_jax_batch(traffics, cores, w, tls, seeds, **kw)
+    for t, tl, s, b in zip(traffics, tls, seeds, batch):
+        single = md.sa_search_jax(t, cores, w, tl, seed=s, **kw)
+        np.testing.assert_array_equal(single.placement, b.placement)
+        assert single.avg_hop == b.avg_hop and single.history == b.history
+        assert len(set(b.placement.tolist())) == t.shape[0]

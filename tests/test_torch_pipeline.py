@@ -103,10 +103,7 @@ def test_run_toolchain_defaults_to_the_card(smooth_320):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"method": "spinemap"}, "baselines"),
-    ({"method": "sco"}, "baselines"),
     ({"mapper": "island"}, "island SA"),
-    ({"fault_schedule": object()}, "fault"),
     ({"partition_kwargs": {"shards": 2}}, "shards"),
 ])
 def test_unported_features_raise(smooth_320, kwargs, match):
