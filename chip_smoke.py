@@ -57,7 +57,25 @@
    `sa_search_jax` call's; times the batched search of the two sa_jax
    configs against the two single calls.  Each of runs 5-7 ends with
    hop_cost over its final placement and has its launches counted.
-8. Checks the results by the toolchain's own means: a valid partition
+8. Runs the partition phase of the cut and volume configurations with
+   the sharded engine (``partition_kwargs={"shards": 4}``, the cut one
+   also with ``stream_levels``): each must equal the reference's CPU
+   partition (``EXPECT``) and, bitwise, a ``shards=1`` partition on the
+   card (whose levels take the degree kernels; a sharded level takes
+   none, so the sharded runs launch no part_degrees or
+   connectivity_degrees), within 5% of the unsharded run's cut or
+   volume (``shards=None`` keeps the single-host matching, a different
+   partition); prints the shard plan's notes.
+9. Runs the island SA (``mapper="island"``: 4 islands x 4 chains, 4
+   rounds x 4,000 steps, graphed epochs and an on-device exchange) with
+   the torch stepper on the cut run's partition: an injective placement
+   within 1.3x the cut run's avg_hop, repeated bitwise by the same seed.
+10. Runs the SNEAP device-layout search (``sneap_device_layout``) of a
+   16 x 16 logical mesh with all-to-all model-axis traffic, and of a
+   14 x 18 mesh on a torus with four dead chips: both equal the
+   reference's CPU run (``EXPECT``), and the all-to-all layout is 5%
+   below the row-major one.  Runs 8-10 are traced like the others.
+11. Checks the results by the toolchain's own means: a valid partition
    whose cut (and volume) match a recount, the known numbers of the cut
    and volume runs (``EXPECT``), packet conservation in the NoC stats, identical
    stats from the numpy screen, and an identical partition from a CPU
@@ -113,12 +131,40 @@ EXPECT = {"cut": dict(k=141, edge_cut=3_061_718, avg_hop=1.9496085318157585),
                                 final_k=141, avg_latency=11.880215646159172),
           "fault_link": dict(spikes_dropped=16_115, detour_hops=167_907,
                              neurons_migrated=0, remap_events=0, final_k=141,
-                             avg_latency=11.038407829254174)}
+                             avg_latency=11.038407829254174),
+          # The reference's CPU run; "part" and "order" are `digest`s.
+          "sharded_cut": dict(k=141, edge_cut=2_930_559, comm_volume=887_205,
+                              part="ec3af148b1d99b3f"),
+          "sharded_stream": dict(k=141, edge_cut=2_930_559,
+                                 comm_volume=887_205, part="ec3af148b1d99b3f"),
+          "sharded_volume": dict(k=141, edge_cut=3_317_397,
+                                 comm_volume=661_465, part="cdbc13eb6cf7cf4f"),
+          "layout_alltoall": dict(order="a693ae5b2fb882a5",
+                                  base=3.722222222222222,
+                                  optimized=3.2009548611111107),
+          "layout_dead": dict(order="ed7a2444347d545e",
+                              base=1.3578643578643579,
+                              optimized=1.3578643578643579)}
 # The fault runs' core failure: the first cores of the live placement at
 # the middle of the trace (as benchmarks/bench_faults.py picks them).
 FAULT_VICTIMS = 4
 # Population SA + polish may place worse than the batched SA by this much.
 DEVICE_HOP_BOUND = 1.15
+# The island SA's bound over the serial SA (tests/test_island_sa.py).
+ISLAND_HOP_BOUND = 1.3
+SHARDS = 4
+# A sharded partition's cut (volume) may differ from the single-host one
+# by this share (tests/test_sharded_partition.py's bound).
+SHARDED_DRIFT = 0.05
+# The device-layout runs: (mesh shape, bytes per axis, keyword arguments).
+LAYOUTS = {
+    "layout_alltoall": ({"data": 16, "model": 16}, {"data": 5e8, "model": 5e9},
+                        dict(phys_w=16, iters=120_000, seed=0,
+                             patterns={"model": "alltoall"})),
+    "layout_dead": ({"data": 14, "model": 18}, {"data": 5e8, "model": 5e9},
+                    dict(phys_w=16, iters=120_000, seed=0,
+                         dead_chips=[17, 90, 91, 200])),
+}
 
 
 def fail(msg: str) -> None:
@@ -178,6 +224,16 @@ def bound(nbytes: float, ops: float,
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def digest(a) -> str:
+    """A short hash of an integer array's values (as little-endian int64)."""
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(
+        np.ascontiguousarray(a, dtype="<i8").tobytes()).hexdigest()[:16]
 
 
 # --------------------------------------------------------- kernel checks
@@ -555,7 +611,16 @@ PATHS = {
     "fault_scratch": ("part_degrees", "swap_deltas", "hop_cost"),
     "fault_link": ("part_degrees", "swap_deltas", "hop_cost"),
     "sweep": ("part_degrees", "swap_deltas", "link_loads", "hop_cost"),
+    # A sharded level refines on the host: no degree kernel.
+    "sharded_cut": (),
+    "sharded_stream": (),
+    "sharded_volume": (),
+    # The island SA is torch ops (graphed epochs), with no polish.
+    "island": ("part_degrees", "link_loads", "hop_cost"),
+    # The layout search is host numpy (torus distances).
+    "layout": (),
 }
+SHARDED_RUNS = ("sharded_cut", "sharded_stream", "sharded_volume")
 FAULT_RUNS = ("fault_zero", "fault_incremental", "fault_scratch", "fault_link")
 
 
@@ -577,6 +642,9 @@ def slice_config(run: str, device: str, screen: str, stepper: str = "jax"):
     if run == "device":
         mapper, mapper_kwargs = "sa_jax", {}
         noc_kwargs["stepper"] = stepper
+    if run == "island":
+        mapper, mapper_kwargs = "island", {}  # the reference's defaults
+        noc_kwargs["stepper"] = "jax"
     if run in ("spinemap", "sco"):
         mapper_kwargs = {}  # PSO's own defaults; SCO runs no search
     if run in FAULT_RUNS:
@@ -728,7 +796,13 @@ EXACT_LAUNCHES = {"cut": {"lif_step": SLICE["num_steps"], "link_loads": 1,
                           "hop_cost": 1},
                   **{run: {"lif_step": 0, "link_loads": 0, "hop_cost": 1}
                      for run in FAULT_RUNS},
-                  "sweep": {"lif_step": 0, "link_loads": 4, "hop_cost": 4}}
+                  "sweep": {"lif_step": 0, "link_loads": 4, "hop_cost": 4},
+                  **{run: {name: 0 for name in
+                           ("lif_step", "part_degrees", "connectivity_degrees",
+                            "swap_deltas", "link_loads", "hop_cost")}
+                     for run in SHARDED_RUNS + ("layout",)},
+                  "island": {"lif_step": 0, "swap_deltas": 0, "link_loads": 1,
+                             "hop_cost": 1}}
 
 
 def device_total(busy, key_part: str) -> tuple[float, int]:
@@ -1152,6 +1226,149 @@ def sweep_run(prof, cut, counters) -> dict:
     return launches
 
 
+def sharded_runs(prof, cut, vol, counters) -> dict:
+    """The partition phase of the cut and volume configurations on the
+    sharded engine (the cut one also streaming its levels to disk), each
+    traced: the reference's partition, bitwise a ``shards=1`` partition on
+    the card (kernel path on its levels), and within ``SHARDED_DRIFT`` of
+    the unsharded run."""
+    import numpy as np
+
+    from repro_torch.core import edge_cut, partition_phase
+    from repro_torch.core.graph import validate_partition
+    from repro_torch.sharding import plan_vertex_shards
+
+    plan = plan_vertex_shards(prof.graph.num_vertices, SHARDS, device="cuda")
+    print(f"sharded runs: {SHARDS} shards of {plan.n} vertices, bounds "
+          f"{plan.bounds.tolist()}, devices {plan.devices}; notes {plan.notes}")
+    launches, parts = {}, {}
+    for run, base, kw in (
+            ("sharded_cut", cut, {"shards": SHARDS}),
+            ("sharded_stream", cut, {"shards": SHARDS, "stream_levels": True}),
+            ("sharded_volume", vol, {"shards": SHARDS})):
+        objective = base.partition.objective
+        cfg = dataclasses.replace(slice_config(objective, "cuda", "linkload"),
+                                  partition_kwargs=kw)
+
+        def report(pres, run=run, base=base):
+            print(f"{run} slice partition: {pres.seconds:.3f} s (unsharded "
+                  f"{base.phase_seconds['partition']:.3f} s), k {pres.k}, "
+                  f"edge_cut {pres.edge_cut}, comm_volume {pres.comm_volume}, "
+                  f"{pres.num_levels} levels")
+
+        pres, launches[run] = traced(run, counters,
+                                     lambda cfg=cfg: partition_phase(prof, cfg),
+                                     report)
+        check_expect(run, dict(k=pres.k, edge_cut=pres.edge_cut,
+                               comm_volume=pres.comm_volume,
+                               part=digest(pres.part)))
+        validate_partition(prof.graph, pres.part, pres.k, SLICE["capacity"])
+        if edge_cut(prof.graph, pres.part) != pres.edge_cut:
+            fail(f"{run}: edge_cut does not match a recount of the partition")
+        metric = "edge_cut" if objective == "cut" else "comm_volume"
+        ref = getattr(base.partition, metric)
+        drift = abs(getattr(pres, metric) - ref) / ref
+        if drift > SHARDED_DRIFT:
+            fail(f"{run}: {metric} drifts {drift:.2%} from the unsharded run's")
+        parts[run] = pres
+        print(f"{run}: {metric} {getattr(pres, metric)} against the unsharded "
+              f"{ref} ({100 * drift:.2f}% apart)")
+    if not np.array_equal(parts["sharded_cut"].part, parts["sharded_stream"].part):
+        fail("sharded: the streamed levels' partition differs from in-memory")
+    # One shard: the same matching, every level refined on the card's
+    # kernel path where its gates hold.  Untraced, not counted.
+    for run in ("sharded_cut", "sharded_volume"):
+        objective = parts[run].objective
+        cfg = dataclasses.replace(slice_config(objective, "cuda", "linkload"),
+                                  partition_kwargs={"shards": 1})
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        one = partition_phase(prof, cfg)
+        kernel = "part_degrees" if objective == "cut" else "connectivity_degrees"
+        mod, attr = counters[kernel]
+        if not np.array_equal(one.part, parts[run].part):
+            fail(f"{run}: the sharded partition differs from shards=1's")
+        if getattr(mod, attr) <= 0:
+            fail(f"{run}: the shards=1 partition launched no {kernel}")
+        print(f"{run}: bitwise the shards=1 partition on the card "
+              f"({one.seconds:.3f} s, {getattr(mod, attr)} {kernel} launches)")
+    return launches
+
+
+def island_run(prof, cut, counters) -> dict:
+    """``run_toolchain(mapper="island")`` with the reference's defaults and
+    the torch stepper, traced: the cut run's partition, an injective
+    placement within ``ISLAND_HOP_BOUND`` of the cut run's avg_hop, and
+    the same placement from the same seed again."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import phase_seeds
+    from repro_torch.core.mapping import MAPPERS
+
+    _, res, hop, launches = traced_run("island", counters, prof)
+    pres = res.partition
+    if not np.array_equal(pres.part, cut.partition.part):
+        fail("island: the partition differs from the cut run's")
+    placement = np.asarray(res.mapping.placement, dtype=np.int64)
+    if placement.shape[0] != pres.k or np.unique(placement).shape[0] != pres.k:
+        fail("island: placement is not one distinct core per partition")
+    if not np.isclose(hop, res.mapping.avg_hop, rtol=1e-6, atol=0.0):
+        fail(f"island: hop_cost / trace_len = {hop!r} differs from avg_hop = "
+             f"{res.mapping.avg_hop!r} beyond rtol 1e-6")
+    bound = ISLAND_HOP_BOUND * cut.mapping.avg_hop
+    if not res.mapping.avg_hop <= bound:
+        fail(f"island: avg_hop {res.mapping.avg_hop!r} exceeds "
+             f"{ISLAND_HOP_BOUND} x the cut run's ({bound!r})")
+    traffic = slice_traffic(prof, res, "island")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = MAPPERS["island"](traffic, SLICE["mesh_w"] * SLICE["mesh_h"],
+                              SLICE["mesh_w"], int(traffic.sum()),
+                              seed=phase_seeds(SLICE["seed"])[1], device="cuda")
+    again_s = time.perf_counter() - t0
+    if not np.array_equal(again.placement, placement):
+        fail("island: the same seed gave another placement")
+    print(f"island slice: avg_hop {res.mapping.avg_hop!r} (cut run "
+          f"{cut.mapping.avg_hop!r}); {res.mapping.evaluations} evaluations, "
+          f"search {res.mapping.seconds:.3f} s traced, {again_s:.3f} s "
+          f"untraced with the same placement")
+    return launches
+
+
+def layout_runs(counters) -> dict:
+    """`sneap_device_layout` of ``LAYOUTS``, traced: the reference's
+    results, each order a permutation of the live chips, and the
+    all-to-all layout 5% below the row-major one."""
+    from repro_torch.sharding import sneap_device_layout
+
+    def drive():
+        out = {}
+        for name, (shape, axis_bytes, kw) in LAYOUTS.items():
+            t0 = time.perf_counter()
+            out[name] = (*sneap_device_layout(shape, axis_bytes, device="cuda",
+                                               **kw),
+                         time.perf_counter() - t0)
+        return out
+
+    def report(out):
+        for name, (order, base, opt, secs) in out.items():
+            print(f"{name}: {secs:.3f} s, row-major avg_hop {base!r}, "
+                  f"optimized {opt!r} ({100 * (1 - opt / base):.2f}% lower)")
+
+    out, launches = traced("layout", counters, drive, report)
+    for name, (order, base, opt, _) in out.items():
+        check_expect(name, dict(order=digest(order), base=base, optimized=opt))
+        dead = LAYOUTS[name][2].get("dead_chips", [])
+        alive = [c for c in range(order.shape[0] + len(dead)) if c not in dead]
+        if sorted(order.tolist()) != alive:
+            fail(f"{name}: the order is not a permutation of the live chips")
+    base, opt = out["layout_alltoall"][1:3]
+    if not opt < 0.95 * base:
+        fail(f"layout_alltoall: optimized {opt!r} is not 5% below {base!r}")
+    return {"layout": launches}
+
+
 def check_profile_raster(prof, dev) -> None:
     """The card's whole profile raster against the CPU path's, bitwise, on
     the inputs ``profile_snn`` builds; its first kept steps must give the
@@ -1232,6 +1449,9 @@ def main() -> int:
     runs += baseline_runs(prof, cut_res, counters).values()
     runs += fault_runs(prof, cut_res, counters).values()
     runs.append(sweep_run(prof, cut_res, counters))
+    runs += sharded_runs(prof, cut_res, vol_res, counters).values()
+    runs.append(island_run(prof, cut_res, counters))
+    runs += layout_runs(counters).values()
     check_profile_raster(prof, dev)
     launches = {name: sum(run[name] for run in runs) for name in counters}
     loaded = [m for m in sys.modules

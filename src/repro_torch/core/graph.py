@@ -554,9 +554,9 @@ def comm_volume(hyper: Hypergraph, part: np.ndarray) -> int:
 class ShardedGraphView:
     """Vertex-block sharded view of a :class:`Graph` (and its hypergraph).
 
-    Built from a ``VertexShardPlan`` (``repro.sharding.planner``) — here the
-    plan is duck-typed (``bounds``/``num_shards``/``block``) so the numpy
-    core never imports jax.  Each shard owns a contiguous vertex block;
+    Built from a ``VertexShardPlan`` (``repro_torch.sharding.planner``) —
+    here the plan is duck-typed (``bounds``/``num_shards``/``block``) so
+    the numpy core never imports the planner.  Each shard owns a contiguous vertex block;
     because CSR rows are contiguous, a shard's adjacency slice
     ``adjncy[xadj[lo]:xadj[hi]]`` is a zero-copy view.  The view's job is
     the *halo* bookkeeping: for each shard, the set of non-local vertices

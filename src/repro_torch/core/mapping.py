@@ -25,12 +25,11 @@ core.  All searches share the same neighborhood (swap two positions).
   and a conflict-free (position-disjoint) accepted subset committed at
   once with an exact cost resync.
 
-The device searches (population SA and the greedy polish on the
-`kernels/swap_delta` op) live in `repro_torch.core.mapping_device` and are
-registered here under the reference's keys (``"sa_jax"``, ``"polish"``).
-The reference's island SA (``"island"``) is not ported yet (ROADMAP
-queue 1, item 10); ``UNPORTED_MAPPERS`` names it so the pipeline can
-refuse it with NotImplementedError.
+The device searches (population SA, the greedy polish on the
+`kernels/swap_delta` op, island SA) live in `repro_torch.core.mapping_device`
+and are registered here under the reference's keys (``"sa_jax"``,
+``"polish"``, ``"island"``) so every consumer selects a mapper through one
+registry.
 """
 from __future__ import annotations
 
@@ -53,7 +52,6 @@ __all__ = [
     "MAPPERS",
     "OBJECTIVE_AWARE_MAPPERS",
     "DEVICE_MAPPERS",
-    "UNPORTED_MAPPERS",
 ]
 
 
@@ -434,7 +432,7 @@ def pso_search(
 
 
 # The device searches import MappingResult and pad_traffic from here.
-from .mapping_device import polish_search, sa_search_jax  # noqa: E402
+from .mapping_device import island_sa, polish_search, sa_search_jax  # noqa: E402
 
 # One registry for every ported placement search, host and device alike.
 MAPPERS = {
@@ -443,6 +441,7 @@ MAPPERS = {
     "tabu": tabu_search,
     "sa_jax": sa_search_jax,
     "polish": polish_search,
+    "island": island_sa,
 }
 
 # Mappers that accept an `objective=` placement objective.  The device
@@ -450,10 +449,4 @@ MAPPERS = {
 OBJECTIVE_AWARE_MAPPERS = frozenset({"sa", "pso", "tabu"})
 
 # Mappers that take ``device=`` (where their tensor work runs).
-DEVICE_MAPPERS = frozenset({"sa", "sa_jax", "polish"})
-
-# The reference's searches not ported yet, with the ROADMAP queue 1 item
-# that ports each.
-UNPORTED_MAPPERS = {
-    "island": "item 10: island SA",
-}
+DEVICE_MAPPERS = frozenset({"sa", "sa_jax", "polish", "island"})

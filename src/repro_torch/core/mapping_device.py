@@ -1,7 +1,7 @@
-"""Device-resident mapping searches: population SA and the greedy polish.
+"""Device-resident mapping searches: population SA, greedy polish, islands.
 
-The counterpart of the reference's `repro.core.mapping_jax` (without
-``island_sa``), in torch on the run's device:
+The counterpart of the reference's `repro.core.mapping_jax`, in torch on
+the run's device:
 
   * `sa_search_jax` — a population of SA chains advanced in lock-step:
     each chain proposes a random swap, scores it with the O(K) incremental
@@ -27,11 +27,16 @@ The counterpart of the reference's `repro.core.mapping_jax` (without
     swap is applied until none improves.  Deterministic: on traffic whose
     f32 sums are exact it gives the reference's placement and step count.
   * `polish_search` — the uniform-signature mapper over `greedy_polish`.
+  * `island_sa` — the island model: ``n_dev`` independent populations
+    (the reference's shard_map islands, one a device) as the config slots
+    of one `_Population` over a shared traffic matrix, with a periodic
+    exchange on the device that copies the global best chain into each
+    island's worst.
 
-The registry keys stay the reference's (``"sa_jax"``, ``"polish"`` in
-`mapping.MAPPERS`), so one `ToolchainConfig` selects the same search in
-both packages.  All of them minimize the paper's Eq. 2 pairwise objective
-and take no `placecost` objective.
+The registry keys stay the reference's (``"sa_jax"``, ``"polish"``,
+``"island"`` in `mapping.MAPPERS`), so one `ToolchainConfig` selects the
+same search in both packages.  All of them minimize the paper's Eq. 2
+pairwise objective and take no `placecost` objective.
 """
 from __future__ import annotations
 
@@ -47,9 +52,10 @@ from .hopcost import hop_distance_matrix
 from .mapping import MappingResult, pad_traffic
 
 __all__ = ["sa_search_jax", "sa_search_jax_batch", "greedy_polish",
-           "polish_search"]
+           "polish_search", "island_sa"]
 
 ALPHA = 0.95  # geometric cooling a temperature epoch
+ISLAND_SWEEPS = 64  # the island search's steps a temperature epoch
 
 
 def _coords(num_cores: int, mesh_w: int,
@@ -64,6 +70,16 @@ def _cost(sym: torch.Tensor, placement: torch.Tensor,
     sum(S * D) / 2."""
     d = dist[placement[:, None], placement[None, :]]
     return (sym * d).sum() / 2.0
+
+
+def _chains(seed: int, chains: int, num_cores: int,
+            device: torch.device) -> tuple[torch.Generator, torch.Tensor]:
+    """A generator on ``device`` seeded with ``seed``, and its first draw:
+    ``chains`` random permutations of the cores (chains, NC)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return gen, torch.rand((chains, num_cores), generator=gen,
+                           device=device).argsort(dim=1)
 
 
 def _delta_one(sym: torch.Tensor, dist: torch.Tensor, placement: torch.Tensor,
@@ -238,10 +254,7 @@ def sa_search_jax_batch(
                         dtype=torch.float64, device=dev)
     gens, placements, t0s = [], [], []
     for i, s in enumerate(seeds):
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(s))
-        pl = torch.rand((chains, num_cores), generator=gen,
-                        device=dev).argsort(dim=1)
+        gen, pl = _chains(s, chains, num_cores, dev)
         gens.append(gen)
         placements.append(pl)
         t0s.append(t0_frac * float(_cost(syms[i], pl[0], dist)) / max(ks[i], 1))
@@ -353,4 +366,92 @@ def polish_search(
         seconds=seconds,
         history=[(float(steps), final_cost / trace_length)],
         evaluations=int(steps) * num_cores * num_cores,
+    )
+
+
+def _exchange(placement: torch.Tensor, cost: torch.Tensor) -> None:
+    """The islands' exchange, in place and on the device (no host sync):
+    the lowest-cost chain of all I * P (first index on ties) is copied,
+    with its cost, into each island's highest-cost chain.  ``placement``
+    is (I, P, NC), ``cost`` (I, P)."""
+    islands, _, nc = placement.shape
+    flat = cost.view(-1).argmin().view(1)
+    best_place = placement.view(-1, nc).index_select(0, flat)
+    best_cost = cost.view(-1).index_select(0, flat)
+    rows = torch.arange(islands, device=cost.device)
+    worst = cost.argmax(dim=1)
+    placement[rows, worst] = best_place.expand(islands, nc)
+    cost[rows, worst] = best_cost.expand(islands)
+
+
+def island_sa(
+    traffic: np.ndarray,
+    num_cores: int,
+    mesh_w: int,
+    trace_length: int,
+    n_dev: int = 4,
+    seed: int = 0,
+    rounds: int = 4,
+    iters_per_round: int = 4_000,
+    chains_per_device: int = 4,
+    torus: bool = False,
+    device: "str | torch.device" = "cuda",
+) -> MappingResult:
+    """Island-model SA (registry: ``"island"``): ``n_dev`` independent
+    populations of ``chains_per_device`` chains, with a periodic exchange
+    of the global best into each island's worst chain.
+
+    ``n_dev`` is the island count, the reference's ``n_dev =
+    mesh.shape[axis]`` (one island a device of a jax mesh axis).  Here the
+    islands are the config slots of one `_Population` on ``device``, over
+    one traffic matrix expanded (not copied) to (n_dev, NC, NC), so each
+    temperature epoch of all islands is one CUDA graph on the card.
+    Island ``i`` draws its initial chains and every proposal from its own
+    `torch.Generator` on ``device``, seeded with the i-th child of
+    ``np.random.SeedSequence(seed).spawn(n_dev)`` (its first 32-bit
+    state word), so a seed repeats its result on the same device.
+
+    Each of ``rounds`` rounds runs ``iters_per_round // 64`` epochs of 64
+    steps, cooling by 0.95 an epoch from ``t0 = 0.25 * cost(first chain)
+    / k``, the temperature continuing across rounds; then `_exchange`.
+    The best chain of all islands, by a recount of each chain's cost, is
+    the result.  torch cannot reproduce ``jax.random``'s streams, so this
+    search is held to the reference test's quality bound, not to its
+    placements.
+    """
+    dev = resolve_device(device)
+    start = time.perf_counter()
+    k = traffic.shape[0]
+    trace_length = max(trace_length, 1)  # zero-traffic profiles normalize by 1
+    padded = pad_traffic(np.asarray(traffic, dtype=np.float64), num_cores)
+    sym = torch.tensor(padded + padded.T, dtype=torch.float64, device=dev)
+    dist = torch.tensor(hop_distance_matrix(num_cores, mesh_w, torus=torus),
+                        dtype=torch.float64, device=dev)
+    gens, placements = [], []
+    for child in np.random.SeedSequence(seed).spawn(n_dev):
+        gen, pl = _chains(int(child.generate_state(1)[0]), chains_per_device,
+                          num_cores, dev)
+        gens.append(gen)
+        placements.append(pl)
+    t0 = 0.25 * float(_cost(sym, placements[0][0], dist)) / max(k, 1)
+    pop = _Population(sym.expand(n_dev, num_cores, num_cores), dist,
+                      torch.stack(placements), [t0] * n_dev, ISLAND_SWEEPS,
+                      gens)
+    epochs = iters_per_round // ISLAND_SWEEPS
+    for r in range(rounds):
+        pop.temp.fill_(t0 * ALPHA ** (r * epochs))
+        for _ in range(max(epochs, 1)):
+            pop.run_epoch()
+        _exchange(pop.placement, pop.cost)
+    chains = pop.placement.view(-1, num_cores)
+    costs = torch.stack([_cost(sym, pl, dist) for pl in chains])
+    best = chains[int(torch.argmin(costs))]
+    final_cost = float(_cost(sym, best, dist))
+    seconds = time.perf_counter() - start
+    return MappingResult(
+        placement=best[:k].cpu().numpy().astype(np.int64),
+        avg_hop=final_cost / trace_length,
+        seconds=seconds,
+        history=[(seconds, final_cost / trace_length)],
+        evaluations=rounds * iters_per_round * n_dev * chains_per_device,
     )

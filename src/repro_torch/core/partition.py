@@ -121,9 +121,14 @@ def sneap_partition(
       plateau_rounds: stall budget of the vec refiner's Jet-style
          zero/negative-gain plateau walk (quality <-> time knob; None =
          per-objective default, 0 disables).  Ignored by ``impl="scalar"``.
-      shards: the reference's device-sharded vec engine; not ported yet
-         (ROADMAP queue 1, item 9), so anything but ``None`` raises
-         NotImplementedError.
+      shards: shard count (or ``sharding.planner.VertexShardPlan``) for the
+         sharded vec engine: matching proposes per vertex-block edge slice
+         with hash tie keys on global edge ids, so its result does not
+         depend on the shard count, and refinement is the single-host one,
+         so any two shard counts >= 1 produce the same partition.  A level
+         with more than one shard refines on the host (no degree kernel,
+         as in the reference).  ``None`` keeps the original single-host
+         rng paths byte-for-byte.  Ignored by ``impl="scalar"``.
       stream_levels: spill each coarsening level to a temporary on-disk
          ``coarsen.LevelStore`` and uncoarsen out-of-core, holding at most
          two levels resident (vec impl only).  Same result as in-memory
@@ -137,10 +142,6 @@ def sneap_partition(
         raise ValueError(f"unknown partitioning impl {impl!r}")
     if objective not in ("cut", "volume"):
         raise ValueError(f"unknown objective {objective!r}")
-    if shards is not None:
-        raise NotImplementedError(
-            "shards= is not ported yet (ROADMAP queue 1, item 9: sharded "
-            "partitioning)")
     dev = resolve_device(device)
     if hyper is not None:
         # An explicit hypergraph wins over the attached one; rebind on a

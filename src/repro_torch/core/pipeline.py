@@ -52,7 +52,6 @@ from .mapping import (
     DEVICE_MAPPERS,
     MAPPERS,
     OBJECTIVE_AWARE_MAPPERS,
-    UNPORTED_MAPPERS,
     MappingResult,
 )
 from .partition import PartitionResult, sneap_partition
@@ -329,14 +328,9 @@ def mapping_phase(
     map_seed = phase_seeds(cfg.seed)[1]
     # SpiNeMap always places with PSO; SCO runs no search at all.
     mapper_name = "pso" if cfg.method == "spinemap" else cfg.mapper
-    if cfg.method != "sco":
-        if mapper_name in UNPORTED_MAPPERS:
-            raise NotImplementedError(
-                f"mapper {mapper_name!r} is not ported yet (ROADMAP queue 1, "
-                f"{UNPORTED_MAPPERS[mapper_name]})")
-        if mapper_name not in MAPPERS:
-            raise ValueError(f"unknown mapper {mapper_name!r}; "
-                             f"pick one of {sorted(MAPPERS)}")
+    if cfg.method != "sco" and mapper_name not in MAPPERS:
+        raise ValueError(f"unknown mapper {mapper_name!r}; "
+                         f"pick one of {sorted(MAPPERS)}")
     if traffic is None:
         traffic = build_traffic(profile, pres, cfg)
     # Normalize average hop by the packet count of the chosen traffic model
@@ -446,8 +440,8 @@ def run_toolchain(
 
     ``device`` (default ``"cuda"``) is where the device hot spots run —
     the vec refiner's degree kernel, the SA's ``score_backend="auto"``
-    swap deltas, the device mappers ``"sa_jax"`` and ``"polish"``, the
-    replay's ``screen="linkload"`` window loads and ``stepper="jax"``
+    swap deltas, the device mappers ``"sa_jax"``, ``"polish"`` and
+    ``"island"``, the replay's ``screen="linkload"`` window loads and ``stepper="jax"``
     cycle loop; it raises where CUDA is absent unless ``device="cpu"``.
     Everything else is host numpy copied from the reference (the
     baselines are host algorithms throughout), so every deterministic
@@ -461,7 +455,9 @@ def run_toolchain(
     the quantity the placement search minimizes ("pairwise" or "tree") the
     same way: by default it follows ``cast`` for sneap, while the
     baselines keep the pairwise Eq. 2 (see `repro_torch.core.placecost`).
-    ``partition_kwargs`` are forwarded to ``sneap_partition``;
+    ``partition_kwargs`` are forwarded to ``sneap_partition`` (e.g.
+    ``{"shards": 4, "stream_levels": True}``: the sharded engine, whose
+    levels refine on the host);
     ``mapper_kwargs`` to the search (e.g. ``{"impl": "vec",
     "score_backend": "auto"}``; SpiNeMap's PSO takes its own, e.g.
     ``{"iters": 40}``); ``noc_kwargs`` to ``simulate_noc`` (e.g.
@@ -502,10 +498,6 @@ def run_toolchain(
     failures re-route but never re-map.  A replay under a live fault
     state is host-only, as in the reference: it needs
     ``noc_kwargs={"screen": "numpy", "stepper": "numpy"}`` (the defaults).
-
-    Not ported yet, and refused with NotImplementedError rather than run
-    some other way: the ``"island"`` mapper (ROADMAP queue 1, item 10) and
-    ``shards=`` (item 9).
     """
     if config is not None:
         cfg = config

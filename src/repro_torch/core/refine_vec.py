@@ -53,8 +53,15 @@ Both objectives run through the same loop (selected by ``objective``):
   same critical-edge filter: only hyperedges where a move crossed a
   presence threshold re-activate their members.
 
-The reference's sharded execution (``shards=``) is not ported yet
-(ROADMAP queue 1, item 9); ``shards`` other than None raises.
+**Sharded levels** (``shards=``): a level refined with more than one
+vertex shard keeps the reference's rule and runs on the host — no degree
+kernel and no dense incidence product, so it builds and uploads none of
+the kernels' state (the dense adjacency, the incidence CSR, Φ).  It runs
+the same flat loop as an unsharded level and gives the same movers and
+score.  The reference's per-block schedule (each shard's rows evaluated
+against its halo view, a row cache per block) gives them too, and is not
+kept: on one host it bounds no memory.  What the shard count changes is
+the coarsening's matching (``coarsen._matching_vec_sharded``).
 
 When the positive-gain fixed point is reached the engine does not stop:
 a bounded Jet-style **plateau walk** runs zero- and bounded-negative-gain
@@ -187,11 +194,14 @@ _DENSE_EVAL_ENTRIES = 8_000_000
 # row chunks.
 
 
-def _refuse_shards(shards) -> None:
-    if shards is not None:
-        raise NotImplementedError(
-            "shards= is not ported yet (ROADMAP queue 1, item 9: sharded "
-            "partitioning)")
+def _num_shards(shards) -> int:
+    """Shard count of a ``shards=`` argument (None, an int, or a plan)."""
+    if shards is None:
+        return 1
+    count = int(getattr(shards, "num_shards", shards))
+    if count < 1:
+        raise ValueError(f"shards must be >= 1, got {count}")
+    return count
 
 
 def _row_edges(graph: Graph, rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -367,8 +377,10 @@ def refine_level_vec(
 ) -> tuple[np.ndarray, int]:
     """Refine ``part`` by batched moves; returns (part, score).
 
-    ``shards`` is the reference's sharded execution mode, not ported yet:
-    anything but None raises NotImplementedError.
+    ``shards`` (int, ``VertexShardPlan``, or None): more than one shard
+    turns the degree kernels and the dense incidence product off, as the
+    reference's sharded mode does; the result is the unsharded one (see
+    the module docstring).
 
     ``forbid`` is an optional (k,) boolean mask of partitions that may not
     *receive* movers (their effective capacity is zero); vertices already
@@ -397,7 +409,6 @@ def refine_level_vec(
     """
     if objective not in ("cut", "volume"):
         raise ValueError(f"unknown objective {objective!r}")
-    _refuse_shards(shards)
     dev = resolve_device(device)
     hyper = graph.hyper
     if objective == "volume" and hyper is None:
@@ -416,6 +427,9 @@ def refine_level_vec(
         plateau_rounds = _PLATEAU_ROUNDS[objective]
     if max_iters is None:
         max_iters = _MAX_ITERS[objective]
+    sharded = _num_shards(shards) > 1
+    if sharded:
+        use_kernel = False  # a sharded level refines on the host
     src = graph.edge_src
     nbr = adjncy.astype(np.int64)
     if use_kernel is None:
@@ -435,7 +449,8 @@ def refine_level_vec(
             # Dense only where it wins: the sparse epilogue costs ~avg_inc
             # gather-bound entries per (row, column), the matmul ne
             # BLAS-rate flops — crossover around a 16x flop discount.
-            if (not use_kernel and n * ne <= _DENSE_EVAL_ENTRIES
+            if (not sharded and not use_kernel
+                    and n * ne <= _DENSE_EVAL_ENTRIES
                     and avg_inc * 16 >= ne):
                 # Exact in float64: entries are hfire-weighted 0/1 sums.
                 dense_inc = _dense_incidence(hyper).astype(np.float64)
@@ -990,7 +1005,7 @@ def uncoarsen_vec(
     quality at a fraction of the time (the λ-gain queue's per-move cost is
     worst exactly where delegation used to send it).  ``max_nonimproving``
     applies to the scalar-delegated levels; ``plateau_rounds`` threads
-    through to ``refine_level_vec``; ``shards`` is not ported (raises).
+    and ``shards`` thread through to ``refine_level_vec``.
 
     ``levels`` is any integer-indexable sequence of Graphs — a plain list
     or ``coarsen.LevelStore``; levels are accessed one index at a time,
@@ -998,7 +1013,6 @@ def uncoarsen_vec(
     resident.  ``device`` is where the vec levels' kernel path runs (see
     ``refine_level_vec``).
     """
-    _refuse_shards(shards)
     dev = resolve_device(device)
 
     def refine(g: Graph, p: np.ndarray) -> tuple[np.ndarray, int]:
@@ -1008,7 +1022,8 @@ def uncoarsen_vec(
                                 objective=objective)
         return refine_level_vec(g, p, k, capacity, use_kernel=use_kernel,
                                 objective=objective,
-                                plateau_rounds=plateau_rounds, device=dev)
+                                plateau_rounds=plateau_rounds,
+                                shards=shards, device=dev)
 
     nlev = len(levels)
     part, cut = refine(levels[nlev - 1], coarse_part)

@@ -7,8 +7,9 @@ integer traffic and rtol 1e-4 / atol 1e-2 on fractional traffic, rtol
 1e-6 (and bitwise repeatable, one launch) for hop_cost; and the device
 searches and stepper on the card: the torch stepper against the numpy
 stepper, the greedy polish on swap_deltas, the population SA's CUDA graph
-against its eager epochs, and the batched population SA's elements
-against single searches, bitwise.  Every test is marked ``cuda`` and skips
+against its eager epochs, the batched population SA's elements
+against single searches, bitwise, and the island SA's repeatability,
+quality bound and exchange.  Every test is marked ``cuda`` and skips
 where CUDA is unavailable; this file imports torch and numpy only, so it
 runs where the reference's JAX is not installed."""
 import numpy as np
@@ -385,3 +386,74 @@ def test_population_sa_batch_equals_single_on_the_card(cuda, k, cores, w, top):
         np.testing.assert_array_equal(single.placement, b.placement)
         assert single.avg_hop == b.avg_hop and single.history == b.history
         assert len(set(b.placement.tolist())) == t.shape[0]
+
+
+@pytest.mark.cuda
+def test_island_sa_on_the_card_repeats_and_meets_the_bound(cuda):
+    """tests/test_island_sa.py's inputs on the card: the islands' graphed
+    epochs and on-device exchange give an injective placement within 1.3x
+    the serial SA, the same for the same seed."""
+    from repro_torch.core.mapping import sa_search
+    from repro_torch.core.mapping_device import island_sa
+
+    rng = np.random.default_rng(0)
+    k, cores, w = 12, 16, 4
+    c = rng.integers(0, 100, (k, k)).astype(np.float64)
+    np.fill_diagonal(c, 0)
+    tl = int(c.sum())
+    kw = dict(n_dev=4, rounds=2, iters_per_round=1500, chains_per_device=2,
+              seed=0, device=cuda)
+    a = island_sa(c, cores, w, tl, **kw)
+    b = island_sa(c, cores, w, tl, **kw)
+    np.testing.assert_array_equal(a.placement, b.placement)
+    assert a.avg_hop == b.avg_hop
+    assert len(set(a.placement.tolist())) == k
+    serial = sa_search(c, cores, w, tl, seed=0, iters=6000, device=cuda)
+    assert a.avg_hop <= 1.3 * serial.avg_hop
+
+
+@pytest.mark.cuda
+def test_island_exchange_on_the_card_matches_a_recount(cuda):
+    """After graphed epochs on the card, the exchange puts the lowest-cost
+    chain of all islands, and its cost, into each island's highest-cost
+    chain and leaves every other chain alone; every cost equals an f64
+    recount of its chain on the host."""
+    from repro_torch.core import mapping_device as md
+    from repro_torch.core.hopcost import hop_distance_matrix
+    from repro_torch.core.mapping import pad_traffic
+
+    rng = np.random.default_rng(0)
+    k, cores, w = 12, 16, 4
+    c = rng.integers(0, 100, (k, k)).astype(np.float64)
+    np.fill_diagonal(c, 0)
+    padded = pad_traffic(c, cores)
+    sym_np = padded + padded.T
+    dist_np = hop_distance_matrix(cores, w).astype(np.float64)
+    sym = torch.tensor(sym_np, dtype=torch.float64, device=cuda)
+    dist = torch.tensor(dist_np, dtype=torch.float64, device=cuda)
+    islands, chains = 4, 3
+    gens, starts = zip(*(md._chains(s, chains, cores, cuda)
+                         for s in range(islands)))
+    pop = md._Population(sym.expand(islands, cores, cores), dist,
+                         torch.stack(starts), [40.0] * islands, 64, list(gens))
+    for _ in range(3):
+        pop.run_epoch()
+    before_place = pop.placement.cpu().numpy()
+    before_cost = pop.cost.cpu().numpy()
+    g = int(before_cost.reshape(-1).argmin())
+    best_place = before_place.reshape(-1, cores)[g]
+    worst = before_cost.argmax(axis=1)
+    md._exchange(pop.placement, pop.cost)
+    after_place = pop.placement.cpu().numpy()
+    after_cost = pop.cost.cpu().numpy()
+    for i in range(islands):
+        for p in range(chains):
+            pl = after_place[i, p]
+            recount = (sym_np * dist_np[pl[:, None], pl[None, :]]).sum() / 2.0
+            assert after_cost[i, p] == recount
+            if p == int(worst[i]):
+                np.testing.assert_array_equal(pl, best_place)
+                assert after_cost[i, p] == before_cost.reshape(-1)[g]
+            else:
+                np.testing.assert_array_equal(pl, before_place[i, p])
+                assert after_cost[i, p] == before_cost[i, p]

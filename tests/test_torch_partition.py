@@ -108,12 +108,6 @@ def test_sneap_partition_matches_reference(ref_profile, impl, objective):
         want.k, want.edge_cut, want.comm_volume, want.num_levels)
 
 
-def test_unported_partition_features_raise(ref_profile):
-    g = interop.graph_from(ref_profile.graph)
-    with pytest.raises(NotImplementedError, match="shards"):
-        sneap_partition(g, capacity=CAPACITY, impl="vec", shards=2, device="cpu")
-
-
 def test_kernel_auto_rule_keys_on_the_card(ref_profile, monkeypatch):
     """use_kernel=None takes the kernel path only on CUDA, for cut levels
     that pass the reference's three gates; the CPU keeps numpy."""

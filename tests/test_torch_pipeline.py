@@ -102,11 +102,16 @@ def test_run_toolchain_defaults_to_the_card(smooth_320):
         run_toolchain(interop.profile_from(smooth_320))
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    ({"mapper": "island"}, "island SA"),
-    ({"partition_kwargs": {"shards": 2}}, "shards"),
-])
-def test_unported_features_raise(smooth_320, kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        run_toolchain(interop.profile_from(smooth_320), mesh_w=5, mesh_h=5,
-                      device="cpu", mapper_kwargs={"iters": 100}, **kwargs)
+@pytest.mark.parametrize("partition_kwargs", [
+    {"shards": 2}, {"shards": 4, "stream_levels": True}])
+def test_run_toolchain_sharded_partition_matches_reference(smooth_1280,
+                                                           partition_kwargs):
+    """``partition_kwargs`` reach the sharded engine in both packages: the
+    summaries (seconds aside) and placements are the reference's."""
+    kw = dict(mapper_kwargs={"impl": "vec"}, partition_kwargs=partition_kwargs,
+              **SLICE_KW)
+    want = ref_run_toolchain(smooth_1280, **kw)
+    got = run_toolchain(interop.profile_from(smooth_1280), device="cpu", **kw)
+    assert _no_seconds(got.summary()) == _no_seconds(want.summary())
+    np.testing.assert_array_equal(got.partition.part, want.partition.part)
+    np.testing.assert_array_equal(got.mapping.placement, want.mapping.placement)
