@@ -4,18 +4,23 @@ The tests feed each stage of the port the reference's own upstream output,
 so that a fault shows up in the stage that caused it.  Every function here
 takes plain numpy fields — a dict, or any object with the attributes — and
 never a type of the reference package, which this package does not import.
+Model weights travel as the reference's parameter tree of numpy arrays
+(`model_params_from`) and back (`reference_tree`, `reference_path`).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.graph import Graph, Hypergraph
 from repro_torch.core.partition import PartitionResult
+from repro_torch.models.model import Model, reference_path
 from repro_torch.snn.simulate import ProfileResult
 from repro_torch.snn.topology import SNNTopology
 
 __all__ = ["graph_from", "hypergraph_from", "partition_from", "profile_from",
-           "topology_from"]
+           "topology_from", "model_params_from", "reference_path",
+           "reference_tree"]
 
 
 def _get(obj, name: str, default=None):
@@ -101,3 +106,66 @@ def partition_from(obj) -> PartitionResult:
         objective=str(_get(obj, "objective", "cut")),
         comm_volume=None if vol is None else int(vol),
     )
+
+
+# ------------------------------------------------------------ model weights
+
+
+def _flatten(tree, prefix=()) -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, prefix + (str(k),)))
+        return out
+    return {prefix: tree}
+
+
+def _as_tensor(leaf) -> torch.Tensor:
+    """A numpy array (bfloat16 included, as jax's ``np.asarray`` gives it)
+    or a tensor, as a CPU tensor of the same dtype."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu()
+    arr = np.array(leaf)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def model_params_from(cfg, tree, device: "str | torch.device" = "cuda") -> Model:
+    """The port's `Model` for ``cfg`` on ``device``, loaded with the
+    reference's ``init_params`` tree given as nested dicts of numpy arrays
+    (``jax.tree.map(np.asarray, params)``) or tensors.  The stacked
+    leading (L,) dims — (groups, per) for the VLM's self layers — are
+    unstacked; dtypes are kept, bfloat16 included.  Raises ValueError on a
+    missing or extra leaf, or a leaf of another shape or dtype."""
+    model = Model(cfg, device)
+    flat = {k: _as_tensor(v) for k, v in _flatten(tree).items()}
+    leaves = model.reference_leaves()
+    missing, extra = sorted(set(leaves) - set(flat)), sorted(set(flat) - set(leaves))
+    if missing or extra:
+        raise ValueError(f"parameter tree mismatch: missing {missing}, extra {extra}")
+    with torch.no_grad():
+        for keys, (shape, items) in leaves.items():
+            got, dtype = flat[keys], items[0][1].dtype
+            if tuple(got.shape) != shape or got.dtype != dtype:
+                raise ValueError(f"{'/'.join(keys)}: {tuple(got.shape)} {got.dtype}, "
+                                 f"expected {shape} {dtype}")
+            for index, param in items:
+                param.copy_(got[index])
+    return model
+
+
+def reference_tree(model: Model) -> dict:
+    """The reverse of `model_params_from`: the reference's parameter tree
+    as nested dicts of CPU tensors, each layer stack stacked again (names
+    mapped by `reference_path`)."""
+    tree: dict = {}
+    for keys, (shape, items) in model.reference_leaves().items():
+        leaf = torch.empty(shape, dtype=items[0][1].dtype)
+        for index, param in items:
+            leaf[index] = param.detach().cpu()
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf
+    return tree

@@ -1,0 +1,96 @@
+"""Prefill and serve steps for any (arch, mesh).
+
+`make_*_step` returns a `StepBundle`: the sharding plan and the parameter
+specs the planner gives the mesh, and ``jit_for``, which returns the step
+as an eager callable under ``torch.inference_mode()`` (the reference
+returns a jitted, sharded function; the port's counterpart of that program
+is the eager step, with no ``torch.compile`` and no CUDA graphs).  A step
+takes the model first, where the reference takes its params: the model
+holds its weights on its device, and the step runs there.
+
+On one card the specs are trivial and nothing applies them.  A model axis
+> 1 with a MoE config raises: the expert-parallel ``moe_ffn_sharded`` is
+not ported (ROADMAP queue 1, item 12a's leftover), and the single-shard
+MoE must not run in its place.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.model import Model
+from repro_torch.sharding import ShardingPlan, plan_params
+
+from .mesh import Mesh, batch_axes_of
+
+__all__ = ["StepBundle", "make_prefill_step", "make_serve_step", "make_plan"]
+
+
+@dataclass
+class StepBundle:
+    jit_for: Callable  # shape -> the eager step
+    plan: ShardingPlan
+    param_specs: dict
+
+
+def make_plan(mesh: Mesh, **kw) -> ShardingPlan:
+    return ShardingPlan(mesh_shape=mesh.shape, batch_axes=batch_axes_of(mesh), **kw)
+
+
+def _mesh_info(cfg: ArchConfig, mesh: Mesh | None):
+    """None: the step runs unsharded.  Raises where the reference would
+    run the expert-parallel MoE (a model axis > 1)."""
+    if cfg.is_moe and mesh is not None and mesh.shape.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: a model axis of {mesh.shape['model']} needs the "
+            "expert-parallel moe_ffn_sharded, which is not ported (ROADMAP "
+            "queue 1, item 12a's leftover); the single-shard MoE does not "
+            "run in its place")
+    return None
+
+
+def _bundle(cfg, mesh, step, **plan_kw) -> StepBundle:
+    _mesh_info(cfg, mesh)
+    plan = make_plan(mesh, **plan_kw)
+    pspecs = plan_params(plan, Model(cfg, "meta").param_shapes())
+    return StepBundle(jit_for=lambda _shape: step, plan=plan, param_specs=pspecs)
+
+
+def make_prefill_step(cfg: ArchConfig, mesh: Mesh, cache_len: int,
+                      kv_chunk: int = 1024,
+                      seq_parallel_decode: bool = True) -> StepBundle:
+    """prefill_step(model, batch) -> (last-position logits (B, 1, V),
+    caches of ``cache_len``); ``jit_for(batch)``."""
+
+    @torch.inference_mode()
+    def prefill_step(model: Model, batch: dict):
+        tokens = batch["tokens"]
+        caches = model.init_caches(tokens.shape[0], cache_len)
+        logits, caches, _ = model(tokens, mode="prefill", caches=caches,
+                                  frontend=batch.get("frontend"),
+                                  kv_chunk=kv_chunk)
+        return logits[:, -1:], caches
+
+    return _bundle(cfg, mesh, prefill_step,
+                   seq_parallel_decode=seq_parallel_decode)
+
+
+def make_serve_step(cfg: ArchConfig, mesh: Mesh, cache_len: int,
+                    kv_chunk: int = 1024,
+                    seq_parallel_decode: bool = True,
+                    shard_head_dim_fallback: bool = False) -> StepBundle:
+    """serve_step(model, caches, tokens, positions): one new token per
+    sequence against the decode cache, written in place;
+    ``jit_for(batch_size)``."""
+
+    @torch.inference_mode()
+    def serve_step(model: Model, caches, tokens, positions):
+        logits, caches, _ = model(tokens, mode="decode", caches=caches,
+                                  positions=positions, kv_chunk=kv_chunk)
+        return logits, caches
+
+    return _bundle(cfg, mesh, serve_step, seq_parallel_decode=seq_parallel_decode,
+                   shard_head_dim_fallback=shard_head_dim_fallback)

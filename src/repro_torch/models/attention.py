@@ -1,0 +1,153 @@
+"""Attention: GQA / sliding-window / cross / decode, flash-style blockwise.
+
+One position-mask-driven implementation covers every flavor the
+architectures need:
+  * causal full attention (train / prefill),
+  * grouped-query attention (no KV head repeat is materialized — the query
+    is reshaped to (B, S, KVH, G, hd) and contractions keep the group dim),
+  * sliding-window attention with an exact ring-buffer KV cache,
+  * bidirectional encoder and cross attention (causal=False),
+  * single-token decode against a KV cache.
+
+Softmax runs in fp32 with the online (running max / denominator) update,
+looping over KV chunks so the score tensor never exceeds one
+(B, Sq, KVH, G, chunk) block.  Invalid cache slots carry position -1 and
+are masked out, so ragged lengths need no special casing.
+
+The score and P·V products take bf16 operands to an f32 result, as the
+reference asks with ``preferred_element_type=float32``: the operands are
+upcast (bf16 products are exact in f32), and ``p`` is rounded to the value
+dtype first, where the reference rounds it.  A fully masked chunk scores
+``NEG_INF = -1e30`` (not ``-inf``): its weights are exp(0) = 1 until the
+next chunk's correction exp(m - m_new) takes them to 0.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["mha", "decode_attend", "init_kv_cache", "update_kv_cache"]
+
+NEG_INF = -1e30
+
+
+def _mask(q_pos, k_pos, causal: bool, window: int | None):
+    """(B, Sq, C) boolean validity from absolute positions.
+
+    q_pos: (B, Sq); k_pos: (B, C).  k_pos == -1 marks empty cache slots.
+    """
+    valid = (k_pos >= 0)[:, None, :]  # (B, 1, C)
+    if causal:
+        valid = valid & (k_pos[:, None, :] <= q_pos[:, :, None])
+    if window is not None:
+        valid = valid & (k_pos[:, None, :] > q_pos[:, :, None] - window)
+    return valid
+
+
+def mha(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Skv, KVH, hd)
+    v: torch.Tensor,  # (B, Skv, KVH, hd)
+    q_pos: torch.Tensor,  # (B, Sq) int32
+    k_pos: torch.Tensor,  # (B, Skv) int32; -1 = invalid slot
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    kv_chunk: int = 1024,
+    softmax_scale: float | None = None,
+) -> torch.Tensor:
+    b, sq, h, hd = q.shape
+    _, skv, kvh, _ = k.shape
+    g = h // kvh
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+
+    chunk = min(kv_chunk, skv)
+    if skv % chunk:
+        pad = chunk - skv % chunk
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=-1)
+        skv += pad
+    nc = skv // chunk
+
+    qg = q.reshape(b, sq, kvh, g, hd).float()
+    m = torch.full((b, sq, kvh, g), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, sq, kvh, g), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, sq, kvh, g, hd), dtype=torch.float32, device=q.device)
+    for c in range(nc):
+        k_i = k[:, c * chunk:(c + 1) * chunk]
+        v_i = v[:, c * chunk:(c + 1) * chunk]
+        p_i = k_pos[:, c * chunk:(c + 1) * chunk]
+        s = torch.einsum("bqkgd,bckd->bqkgc", qg, k_i.float()) * scale
+        ok = _mask(q_pos, p_i, causal, window)  # (B,Sq,C)
+        s = torch.where(ok[:, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bqkgc,bckd->bqkgd", p.to(v_i.dtype).float(), v_i.float())
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def decode_attend(
+    q: torch.Tensor,  # (B, 1, H, hd)
+    k_cache: torch.Tensor,  # (B, S, KVH, hd)
+    v_cache: torch.Tensor,
+    cache_pos: torch.Tensor,  # (B, S) int32 absolute positions, -1 = empty
+    q_pos: torch.Tensor,  # (B, 1)
+    *,
+    window: int | None = None,
+    softmax_scale: float | None = None,
+) -> torch.Tensor:
+    """Single-token decode: one fused pass (no chunk loop needed at Sq=1)."""
+    b, _, h, hd = q.shape
+    kvh = k_cache.shape[2]
+    g = h // kvh
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    qg = q.reshape(b, 1, kvh, g, hd).float()
+    s = torch.einsum("bqkgd,bckd->bqkgc", qg, k_cache.float()) * scale
+    ok = _mask(q_pos, cache_pos, True, window)
+    s = torch.where(ok[:, :, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bqkgc,bckd->bqkgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def init_kv_cache(batch: int, length: int, kvh: int, hd: int, dtype,
+                  device, lead: tuple[int, ...] = ()) -> dict:
+    """A {k, v, pos} cache; ``lead`` prepends stack dims (layers)."""
+    return {
+        "k": torch.zeros(lead + (batch, length, kvh, hd), dtype=dtype, device=device),
+        "v": torch.zeros(lead + (batch, length, kvh, hd), dtype=dtype, device=device),
+        "pos": torch.full(lead + (batch, length), -1, dtype=torch.int32, device=device),
+    }
+
+
+def update_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                    positions: torch.Tensor) -> dict:
+    """Write new K/V at their positions, modulo the cache length, in place.
+
+    Full caches (length >= max position) see the identity mapping; shorter
+    (sliding-window) caches behave as ring buffers.  If more tokens arrive
+    than the cache holds (SWA prefill), only the trailing `length` tokens
+    are written, so every (b, slot) pair is written once and the newest
+    entries deterministically win.
+
+    k_new/v_new: (B, S_new, KVH, hd); positions: (B, S_new).
+    """
+    length = cache["k"].shape[1]
+    s_new = k_new.shape[1]
+    if s_new > length:
+        k_new = k_new[:, -length:]
+        v_new = v_new[:, -length:]
+        positions = positions[:, -length:]
+    slots = (positions % length).long()
+    b_idx = torch.arange(k_new.shape[0], device=k_new.device)[:, None]
+    cache["k"][b_idx, slots] = k_new.to(cache["k"].dtype)
+    cache["v"][b_idx, slots] = v_new.to(cache["v"].dtype)
+    cache["pos"][b_idx, slots] = positions.to(torch.int32)
+    return cache

@@ -1,0 +1,316 @@
+"""Model assembly: ArchConfig -> init / train / prefill / decode.
+
+`Model` is an ``nn.Module`` whose top-level names are the reference's
+parameter tree: ``embed``, ``final_norm``, ``lm_head`` and the family's
+layer stacks as ``nn.ModuleList``s of blocks (``layers``; ``dense0`` for
+DeepSeek-V2's leading dense layer; ``swa``/``global`` for Hymba;
+``self`` as (groups, per) nested lists and ``cross`` for the VLM;
+``encoder``, ``enc_norm``, ``frontend_proj`` for whisper).  Where the
+reference scans stacked (L, ...) parameters, the port loops over the
+list; caches stay stacked tensors, e.g. (L, B, S, KVH, hd), and each layer
+writes its slice in place.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+
+from .attention import init_kv_cache
+from .blocks import (CrossBlock, DenseBlock, EncDecBlock, EncoderBlock,
+                     HybridBlock, MoEBlock, SSMBlock, _param, cross_kv,
+                     init_block_cache)
+from .config import ArchConfig
+from .init import init_params
+from .layers import DTYPES, cross_entropy_loss, rms_norm
+
+__all__ = ["Model", "build_model", "init_params", "reference_path"]
+
+
+def reference_path(name: str) -> tuple[tuple[str, ...], tuple[int, ...]]:
+    """A `Model` parameter name -> (the reference tree's keys, the index
+    into that leaf's stack dims): ``"layers.3.attn.wq"`` ->
+    ``(("layers", "attn", "wq"), (3,))``, ``"self.0.1.mlp.w_up"`` ->
+    ``(("self", "mlp", "w_up"), (0, 1))``, ``"embed"`` -> ``(("embed",), ())``."""
+    parts = name.split(".")
+    keys = tuple(p for p in parts if not p.isdigit())
+    index = tuple(int(p) for p in parts if p.isdigit())
+    return keys, index
+
+
+def _index(tree, *idx):
+    """The views of one layer in a stacked cache dict (None stays None)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _index(v, *idx) for k, v in tree.items()}
+    return tree[idx]
+
+
+def _write(tree: dict, new: dict, *idx) -> None:
+    """Copy one layer's ``new`` cache entries into the stacked ``tree``."""
+    for k, v in new.items():
+        tree[k][idx].copy_(v)
+
+
+def _stack(n: int, make) -> nn.ModuleList:
+    return nn.ModuleList([make() for _ in range(n)])
+
+
+class Model(nn.Module):
+    """One architecture config's model; parameters are created
+    uninitialized on ``device`` (``"meta"`` gives shapes only) and filled
+    by `init`."""
+
+    def __init__(self, cfg: ArchConfig, device: "str | torch.device" = "cuda"):
+        super().__init__()
+        self.cfg = cfg
+        dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
+        dt = DTYPES[cfg.param_dtype]
+        d = cfg.d_model
+        self.embed = _param((cfg.vocab_size, d), dt, dev)
+        self.final_norm = _param((d,), dt, dev)
+        self.lm_head = _param((d, cfg.vocab_size), dt, dev)
+        fam = cfg.family
+        if fam == "dense":
+            self.layers = _stack(cfg.num_layers, lambda: DenseBlock(cfg, dt, dev))
+        elif fam == "moe":
+            self.layers = _stack(cfg.num_layers - cfg.first_dense_layers,
+                                 lambda: MoEBlock(cfg, dt, dev))
+            if cfg.first_dense_layers:
+                self.dense0 = _stack(cfg.first_dense_layers,
+                                     lambda: DenseBlock(cfg, dt, dev))
+        elif fam == "ssm":
+            self.layers = _stack(cfg.num_layers, lambda: SSMBlock(cfg, dt, dev))
+        elif fam == "hybrid":
+            n_glob = len(cfg.global_attn_layers)
+            self.swa = _stack(cfg.num_layers - n_glob, lambda: HybridBlock(cfg, dt, dev))
+            self.add_module("global", _stack(n_glob, lambda: HybridBlock(cfg, dt, dev)))
+        elif fam == "vlm":
+            n_cross = cfg.num_layers // (cfg.cross_attn_every + 1)
+            per = cfg.cross_attn_every
+            groups = (cfg.num_layers - n_cross) // per
+            assert groups == n_cross, (cfg.num_layers, n_cross, per)
+            self.add_module("self", _stack(
+                groups, lambda: _stack(per, lambda: DenseBlock(cfg, dt, dev))))
+            self.cross = _stack(groups, lambda: CrossBlock(cfg, dt, dev))
+        elif fam == "audio":
+            self.encoder = _stack(cfg.encoder_layers, lambda: EncoderBlock(cfg, dt, dev))
+            self.enc_norm = _param((d,), dt, dev)
+            self.layers = _stack(cfg.num_layers, lambda: EncDecBlock(cfg, dt, dev))
+            if cfg.frontend_dim and cfg.frontend_dim != d:
+                self.frontend_proj = _param((cfg.frontend_dim, d), dt, dev)
+        else:
+            raise ValueError(f"unknown family {fam!r}")
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    # ------------------------------------------------------------- params
+    def init(self, generator: torch.Generator) -> "Model":
+        """Fill the parameters from ``generator`` (see `init_params`)."""
+        return init_params(self, generator)
+
+    def reference_leaves(self) -> dict:
+        """The reference tree's leaf keys -> ``(stacked shape,
+        [(stack index, parameter), ...])``, in parameter order."""
+        groups: dict = {}
+        for name, param in self.named_parameters():
+            keys, index = reference_path(name)
+            groups.setdefault(keys, []).append((index, param))
+        out = {}
+        for keys, items in groups.items():
+            lead = tuple(max(col) + 1 for col in zip(*(i for i, _ in items)))
+            out[keys] = (lead + tuple(items[0][1].shape), items)
+        return out
+
+    def param_shapes(self) -> dict:
+        """The reference's ``init_params`` tree with each leaf's stacked
+        shape (what `repro_torch.sharding.plan_params` reads)."""
+        tree: dict = {}
+        for keys, (shape, _) in self.reference_leaves().items():
+            node = tree
+            for k in keys[:-1]:
+                node = node.setdefault(k, {})
+            node[keys[-1]] = shape
+        return tree
+
+    # ------------------------------------------------------------- caches
+    def init_caches(self, batch: int, cache_len: int) -> Any:
+        """Zeroed decode caches on the model's device, stacked per layer
+        stack as the reference stacks them (empty slots at position -1)."""
+        cfg = self.cfg
+        dt = DTYPES[cfg.activation_dtype]
+        dev = self.device
+        fam = cfg.family
+
+        def block(kind, lead, window_len=None):
+            return init_block_cache(cfg, kind, batch, cache_len, dt, dev,
+                                    window_len, lead)
+
+        def cross(lead):  # cross K/V over the frontend's positions
+            return init_kv_cache(batch, cfg.frontend_seq, cfg.num_kv_heads,
+                                 cfg.head_dim, dt, dev, lead)
+
+        if fam in ("dense", "moe"):
+            kind = "mla" if cfg.use_mla else "attn"
+            caches = {"layers": block(kind, (cfg.num_layers - cfg.first_dense_layers,))}
+            if cfg.first_dense_layers:
+                caches["dense0"] = block(kind, (cfg.first_dense_layers,))
+            return caches
+        if fam == "ssm":
+            return {"layers": block("ssm", (cfg.num_layers,))}
+        if fam == "hybrid":
+            n_glob = len(cfg.global_attn_layers)
+            return {"swa": block("hybrid", (cfg.num_layers - n_glob,),
+                                 window_len=min(cfg.sliding_window, cache_len)),
+                    "global": block("hybrid", (n_glob,))}
+        if fam == "vlm":
+            per = cfg.cross_attn_every
+            groups = cfg.num_layers // (per + 1)
+            return {"self": block("attn", (groups, per)), "cross_kv": cross((groups,))}
+        if fam == "audio":
+            return {"layers": block("attn", (cfg.num_layers,)),
+                    "cross": cross((cfg.num_layers,))}
+        raise ValueError(fam)
+
+    # ------------------------------------------------------------ forward
+    def forward(
+        self,
+        tokens: torch.Tensor,  # (B, S)
+        *,
+        mode: str = "train",
+        caches: Any = None,
+        positions: torch.Tensor | None = None,
+        frontend: torch.Tensor | None = None,  # (B, Sf, Df) stub embeddings
+        kv_chunk: int = 1024,
+    ):
+        """Returns (logits, caches, aux_loss); prefill and decode write
+        ``caches`` in place and return it.  ``frontend`` is cast to the
+        activation dtype (its cross K/V are cached in it)."""
+        cfg = self.cfg
+        b, s = tokens.shape
+        if positions is None:
+            positions = torch.arange(s, dtype=torch.int32,
+                                     device=tokens.device).expand(b, s)
+        if frontend is not None:
+            frontend = frontend.to(DTYPES[cfg.activation_dtype])
+        x = self.embed[tokens.long()]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        fam = cfg.family
+        if fam in ("dense", "moe"):
+            x, aux = self._fwd_decoder(x, positions, mode, caches, kv_chunk, aux)
+        elif fam == "ssm":
+            lc = caches["layers"] if caches is not None else None
+            for i, blk in enumerate(self.layers):
+                x = blk(x, positions, mode, _index(lc, i))
+        elif fam == "hybrid":
+            x = self._fwd_hybrid(x, positions, mode, caches, kv_chunk)
+        elif fam == "vlm":
+            x = self._fwd_vlm(x, positions, mode, caches, frontend, kv_chunk)
+        elif fam == "audio":
+            x = self._fwd_audio(x, positions, mode, caches, frontend, kv_chunk)
+        else:
+            raise ValueError(fam)
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        return x @ self.lm_head, caches, aux
+
+    # ------------------------------------------------- family sub-forwards
+    def _fwd_decoder(self, x, positions, mode, caches, kv_chunk, aux):
+        cfg = self.cfg
+        if cfg.first_dense_layers:
+            d0 = caches["dense0"] if caches is not None else None
+            for i, blk in enumerate(self.dense0):
+                x = blk(x, positions, mode, _index(d0, i), kv_chunk=kv_chunk)
+        lc = caches["layers"] if caches is not None else None
+        for i, blk in enumerate(self.layers):
+            if cfg.is_moe:
+                x, a = blk(x, positions, mode, _index(lc, i), kv_chunk)
+                aux = aux + a
+            else:
+                x = blk(x, positions, mode, _index(lc, i),
+                        window=cfg.sliding_window, kv_chunk=kv_chunk)
+        return x, aux
+
+    def _fwd_hybrid(self, x, positions, mode, caches, kv_chunk):
+        """Hymba: SWA layers with the global-attention layers at their
+        indices, in layer order (the reference's segment schedule)."""
+        cfg = self.cfg
+        glob = sorted(cfg.global_attn_layers)
+        swa_c = caches["swa"] if caches is not None else None
+        glob_c = caches["global"] if caches is not None else None
+        swa_idx = 0
+        for layer in range(cfg.num_layers):
+            if layer in glob:
+                gi = glob.index(layer)
+                x = getattr(self, "global")[gi](x, positions, mode,
+                                                _index(glob_c, gi), window=None,
+                                                kv_chunk=kv_chunk)
+            else:
+                x = self.swa[swa_idx](x, positions, mode, _index(swa_c, swa_idx),
+                                      window=cfg.sliding_window, kv_chunk=kv_chunk)
+                swa_idx += 1
+        return x
+
+    def _fwd_vlm(self, x, positions, mode, caches, frontend, kv_chunk):
+        self_c = caches["self"] if caches is not None else None
+        ckv = caches["cross_kv"] if caches is not None else None
+        for g, (group, cross) in enumerate(zip(getattr(self, "self"), self.cross)):
+            for j, blk in enumerate(group):
+                x = blk(x, positions, mode, _index(self_c, g, j), kv_chunk=kv_chunk)
+            if mode == "decode":
+                enc_kv = _index(ckv, g)
+            else:
+                enc_kv = cross_kv(cross.attn, frontend)
+                if mode == "prefill":  # only a decode cache keeps cross K/V
+                    _write(ckv, enc_kv, g)
+            x = cross(x, enc_kv)
+        return x
+
+    def _fwd_audio(self, x, positions, mode, caches, frontend, kv_chunk):
+        cfg = self.cfg
+        if mode != "decode":  # at decode cross K/V comes from the cache
+            enc = frontend
+            if hasattr(self, "frontend_proj"):
+                enc = enc @ self.frontend_proj
+            b, se = enc.shape[:2]
+            enc_pos = torch.arange(se, dtype=torch.int32, device=enc.device).expand(b, se)
+            for blk in self.encoder:
+                enc = blk(enc, enc_pos, kv_chunk)
+            enc_states = rms_norm(enc, self.enc_norm, cfg.norm_eps)
+        lc = caches["layers"] if caches is not None else None
+        ckv = caches["cross"] if caches is not None else None
+        for i, blk in enumerate(self.layers):
+            if mode == "decode":
+                enc_kv = _index(ckv, i)
+            else:
+                enc_kv = cross_kv(blk.cross_attn, enc_states)
+                if mode == "prefill":
+                    _write(ckv, enc_kv, i)
+            x = blk(x, positions, enc_kv, mode, _index(lc, i), kv_chunk)
+        return x
+
+    # --------------------------------------------------------------- loss
+    def loss(self, batch: dict, *, kv_chunk: int = 1024, aux_weight: float = 0.01):
+        logits, _, aux = self.forward(batch["tokens"], mode="train",
+                                      frontend=batch.get("frontend"),
+                                      kv_chunk=kv_chunk)
+        if "labels" in batch:
+            ce = cross_entropy_loss(logits, batch["labels"])
+        else:  # next-token prediction: shift by one
+            ce = cross_entropy_loss(logits[:, :-1], batch["tokens"][:, 1:])
+        return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+
+
+def build_model(cfg: ArchConfig, device: "str | torch.device" = "cuda",
+                seed: int | None = None) -> Model:
+    """``Model(cfg, device)``; with ``seed``, initialized from a
+    ``torch.Generator`` on that device seeded with it."""
+    model = Model(cfg, device)
+    if seed is not None:
+        model.init(torch.Generator(device=model.device).manual_seed(seed))
+    return model

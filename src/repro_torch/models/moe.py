@@ -1,0 +1,123 @@
+"""Mixture-of-Experts (sort-based capacity dispatch), single shard.
+
+Each token's top-k experts are dispatched into a dense (E_local,
+capacity, D) buffer (a stable sort + cumulative rank, no (T, E, C) one-hot
+tensor is ever built), the expert SwiGLUs run as batched matmuls, and the
+weighted outputs are combined back per token.
+
+Two orders are pinned so that results are the reference's and repeat
+bitwise on the card: the router's top-k takes the first ``top_k`` of a
+stable descending sort (ties go to the lower expert index, as
+``jax.lax.top_k`` orders them; ``torch.topk`` promises no order on ties,
+which bf16 router logits make common), and the combine un-sorts the
+(token, k) pairs and sums each token's k contributions in k order instead
+of a scatter-add, whose order on CUDA is not fixed.
+
+The reference's expert-parallel ``moe_ffn_sharded`` (a shard_map over the
+model axis) waits for a multi-card slice; `repro_torch.launch.steps`
+refuses a model axis > 1 for MoE configs rather than run this single-shard
+version there.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["moe_ffn", "router_topk"]
+
+
+def router_topk(logits: torch.Tensor, top_k: int):
+    """Softmax-then-top-k with renormalized combine weights.
+
+    logits: (T, E). Returns (weights (T, K) f32, experts (T, K) int64,
+    aux_loss scalar) — aux is the standard load-balance term E * sum(f * P).
+    """
+    probs = torch.softmax(logits.float(), dim=-1)
+    weights, experts = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, experts = weights[:, :top_k], experts[:, :top_k]
+    weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+    e = logits.shape[-1]
+    # f_e: fraction of tokens whose top-1 hits e; P_e: mean router prob.
+    top1 = experts[:, 0]
+    f = torch.bincount(top1, minlength=e).float() / top1.shape[0]
+    p_mean = probs.mean(0)
+    aux = e * torch.sum(f * p_mean)
+    return weights, experts, aux
+
+
+def _dispatch_combine(
+    x: torch.Tensor,  # (T, D)
+    weights: torch.Tensor,  # (T, K)
+    experts: torch.Tensor,  # (T, K) global expert ids
+    w_gate: torch.Tensor,  # (E_loc, D, F)
+    w_up: torch.Tensor,
+    w_down: torch.Tensor,  # (E_loc, F, D)
+    e_start: int,
+    capacity: int,
+) -> torch.Tensor:
+    t, d = x.shape
+    k = weights.shape[1]
+    e_loc = w_gate.shape[0]
+    dev = x.device
+
+    flat_e = experts.reshape(-1) - e_start  # (T*K,) local expert index
+    flat_w = weights.reshape(-1)
+    flat_t = torch.arange(t, device=dev).repeat_interleave(k)
+    local = (flat_e >= 0) & (flat_e < e_loc)
+    # Non-local pairs sort to a sentinel bucket past the real experts.
+    sort_key = torch.where(local, flat_e, e_loc)
+    _, order = torch.sort(sort_key, stable=True)
+    se, st, sw = sort_key[order], flat_t[order], flat_w[order]
+    # Rank within each expert: position in the sorted list minus the
+    # expert's first position.
+    counts = torch.bincount(se, minlength=e_loc + 1)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(se.shape[0], device=dev) - starts[se]
+    keep = (se < e_loc) & (rank < capacity)
+    slot = torch.where(keep, se * capacity + rank,
+                       torch.full_like(se, e_loc * capacity))  # overflow slot
+
+    buf = torch.zeros((e_loc * capacity + 1, d), dtype=x.dtype, device=dev)
+    buf[slot] = torch.where(keep[:, None], x[st], 0)
+    buf = buf[:-1].reshape(e_loc, capacity, d)
+
+    g = F.silu(torch.bmm(buf, w_gate))
+    u = torch.bmm(buf, w_up)
+    y = torch.bmm(g * u, w_down)  # (E_loc, C, D)
+
+    y_flat = torch.cat([y.reshape(e_loc * capacity, d),
+                        torch.zeros((1, d), dtype=y.dtype, device=dev)])
+    gathered = y_flat[slot] * sw[:, None].to(y.dtype)  # (T*K, D), sorted order
+    gathered = torch.where(keep[:, None], gathered, 0)
+    # Undo the sort (the pre-sort index of a pair is t*K + k) and sum each
+    # token's K contributions in k order.
+    unsorted = torch.empty_like(gathered)
+    unsorted[order] = gathered
+    parts = unsorted.reshape(t, k, d)
+    out = parts[:, 0]
+    for j in range(1, k):
+        out = out + parts[:, j]
+    return out
+
+
+def moe_ffn(
+    x: torch.Tensor,  # (B, S, D) or (T, D)
+    p,  # router (D, E); w_gate/w_up (E, D, F); w_down (E, F, D)
+    top_k: int,
+    capacity_factor: float = 1.25,
+    e_start: int = 0,
+    num_experts_global: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-shard MoE. Returns (out, aux_loss)."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    t = x2.shape[0]
+    e_glob = num_experts_global or p.w_gate.shape[0]
+    logits = x2 @ p.router.to(x2.dtype)
+    weights, experts, aux = router_topk(logits, top_k)
+    # Floor of top_k*2 keeps tiny decode batches drop-free (a dropped token
+    # at serve time would silently change the served distribution).
+    capacity = max(int(capacity_factor * t * top_k / e_glob), 2 * top_k)
+    out = _dispatch_combine(x2, weights.to(x2.dtype), experts,
+                            p.w_gate, p.w_up, p.w_down, e_start, capacity)
+    return out.reshape(shape), aux

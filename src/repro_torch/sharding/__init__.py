@@ -1,12 +1,13 @@
-"""Sharding: the partitioning engine's vertex-block plan
-(`plan_vertex_shards`) and the SNEAP device-layout search
-(`sneap_device_layout`).
-
-The reference's parameter sharding rules belong to its LLM scaffolding
-and are not ported yet (ROADMAP queue 1, item 12a).
+"""Sharding: the LLM scaffolding's parameter, cache, batch and
+optimizer-state rules (`ShardingPlan`, `plan_params`, ...), the
+partitioning engine's vertex-block plan (`plan_vertex_shards`) and the
+SNEAP device-layout search (`sneap_device_layout`).
 """
 from .layout import logical_traffic_matrix, sneap_device_layout
-from .planner import VertexShardPlan, plan_vertex_shards
+from .planner import (ShardingPlan, VertexShardPlan, plan_batch, plan_caches,
+                      plan_opt_state, plan_params, plan_vertex_shards,
+                      spec_for_param)
 
-__all__ = ["VertexShardPlan", "plan_vertex_shards", "logical_traffic_matrix",
-           "sneap_device_layout"]
+__all__ = ["ShardingPlan", "plan_params", "plan_caches", "plan_batch",
+           "plan_opt_state", "spec_for_param", "VertexShardPlan",
+           "plan_vertex_shards", "logical_traffic_matrix", "sneap_device_layout"]
