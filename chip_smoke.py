@@ -100,6 +100,25 @@
    and every other architecture reduced (f32), card against CPU within
    1e-4 and the serving invariant on the card.  Each line carries the
    card's name and power limit.
+13. Trains on the card (``repro_torch.launch.train_loop``: eager train
+   step, ``loss.backward()``, the port's AdamW; no TPU kernel on the
+   path, every launch count must stay 0): llama3-8b at its published
+   width cut to 8 of 32 layers in bf16 (2.796 B parameters, 33.5 GB of
+   state; the whole model's 96 GB does not fit one card), remat on, 8 x
+   512 tokens of the repeat task (seed 0), 20 steps at lr 3e-4 with the
+   trainer's warmup of 5 (every loss and grad norm finite and the last 5
+   losses' mean below the first 5's), and mamba2-780m at full size for
+   10 steps (every loss and grad norm finite; its loss does not fall
+   that soon at this rate); each run is
+   repeated from the same seed and must give the same losses bitwise;
+   prints step ms (median of steps 3 on), the optimizer's ms
+   alone, tokens/s, model TFLOP/s against 989.4 dense bf16, peak memory
+   against the state and a traced step's busy share.  Then the tiny
+   llama and MoE configs of tests/test_train_integration.py in f32, 10
+   steps on the CPU and the card from the same weights (losses within
+   1e-4 relative), a run stopped at 5 and resumed from its checkpoint
+   on the card (bitwise the straight run), and a reduced llama3-8b in
+   bf16 whose model and optimizer state save and restore bitwise.
 
 Prints one line per kernel, the run's summary, the kernels JSON line, the
 card's name and power limit, and as its last line
@@ -120,6 +139,7 @@ ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 on the CUDA cores, H100 SXM data sheet
 H100_TF32_FLOPS = 494.7e12  # TF32 tensor cores, dense, H100 SXM data sheet
+H100_BF16_FLOPS = 989.4e12  # bf16 tensor cores, dense, H100 SXM data sheet
 EXACT_F32 = 2 ** 24  # integers below this add exactly in f32
 
 SLICE = dict(snn="edge_5120", num_steps=1200, mesh_w=16, mesh_h=16,
@@ -637,9 +657,10 @@ PATHS = {
     "island": ("part_degrees", "link_loads", "hop_cost"),
     # The layout search is host numpy (torus distances).
     "layout": (),
-    # The LLM serving path is torch ops (matmuls, the chunked softmax); no
-    # TPU kernel lies on it.
+    # The LLM serving and training paths are torch ops (matmuls, the
+    # chunked softmax, autograd, AdamW); no TPU kernel lies on them.
     "serve": (),
+    "train": (),
 }
 SHARDED_RUNS = ("sharded_cut", "sharded_stream", "sharded_volume")
 FAULT_RUNS = ("fault_zero", "fault_incremental", "fault_scratch", "fault_link")
@@ -821,7 +842,7 @@ EXACT_LAUNCHES = {"cut": {"lif_step": SLICE["num_steps"], "link_loads": 1,
                   **{run: {name: 0 for name in
                            ("lif_step", "part_degrees", "connectivity_degrees",
                             "swap_deltas", "link_loads", "hop_cost")}
-                     for run in SHARDED_RUNS + ("layout", "serve")},
+                     for run in SHARDED_RUNS + ("layout", "serve", "train")},
                   "island": {"lif_step": 0, "swap_deltas": 0, "link_loads": 1,
                              "hop_cost": 1}}
 
@@ -1758,6 +1779,275 @@ def serve_phase(counters) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- train phase
+
+TRAIN = dict(batch=8, seq=512, steps=20, lr=3e-4, seed=0)  # the full-width runs
+TRAIN_LAYERS = 8  # llama3-8b's depth cut from 32: the whole model's state
+# (8.03 B x (2 B param + 2 B grad + 8 B f32 m and v) = 96 GB) does not fit
+# on one 80 GB card; 8 layers hold 33.5 GB.
+MAMBA_STEPS = 10
+TRAIN_CHECK_STEPS, TRAIN_STOP = 10, 5  # card against CPU; stop and resume
+TRAIN_CPU_TOL = 1e-4  # card vs CPU in f32: losses, relative
+
+
+def tiny_train_config(name: str):
+    """tests/test_train_integration.py's tiny llama and MoE configs."""
+    from repro_torch.configs import get_config
+
+    kw = dict(num_layers=2, d_model=64, num_heads=2, num_kv_heads=2, head_dim=32,
+              vocab_size=128)
+    kw.update(dict(num_experts=4, moe_d_ff=32) if "moe" in name else dict(d_ff=128))
+    return dataclasses.replace(get_config(name).reduced(), **kw)
+
+
+def train_flops(model, cfg, tokens: int, seq: int, remat: bool) -> dict:
+    """Operations of one train step, from the shapes: 2 a matmul
+    parameter a token forward (every parameter of two or more dims but
+    the embedding table and the depthwise conv), twice that backward, the
+    attention's score and P.V products over the full (S, S) block the
+    chunked softmax computes (or the SSD scan's chunk products), and with
+    remat one more forward of the layers (not of the LM head)."""
+    head = model.lm_head.numel()
+    layers = sum(p.numel() for n, p in model.named_parameters()
+                 if p.dim() >= 2 and n not in ("embed", "lm_head")
+                 and not n.endswith("conv_w"))
+    if cfg.family == "ssm":
+        q, n, h, p = cfg.ssm_chunk, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+        mix = 2 * tokens * (q * n + h * q * p + 2 * h * n * p) * cfg.num_layers
+    else:
+        mix = 4 * tokens * seq * cfg.num_heads * cfg.head_dim * cfg.num_layers
+    fwd_layers = 2 * layers * tokens + mix
+    total = 3 * (fwd_layers + 2 * head * tokens) + (fwd_layers if remat else 0)
+    return {"total": total, "matmul_params": layers + head, "mix_fwd": mix}
+
+
+def traced_busy(fn) -> tuple[float, float, int, list]:
+    """(device busy seconds, wall seconds, device operations, [(device
+    microseconds, calls, name), ...] largest first) of one call of ``fn``
+    under device-only tracing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as trace:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    items = sorted(((getattr(e, "self_device_time_total", 0.0), e.count, e.key)
+                    for e in trace.key_averages()), reverse=True)
+    return sum(i[0] for i in items) / 1e6, wall, sum(i[1] for i in items), items
+
+
+def full_width_train(name: str, card: str, steps: int, layers: int | None,
+                     falling: bool) -> dict:
+    """One architecture at full width in bf16 trained on the card by
+    `train_loop` (remat on, the repeat task, seed 0, the trainer's
+    schedule for ``steps``): every loss and grad norm finite, and where
+    ``falling``, the mean of the last 5 losses below the first 5's; then
+    the optimizer timed alone, one more step traced for the busy share,
+    and a second run from the same seed, whose losses must repeat the
+    first's bitwise."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch import make_local_mesh, make_train_step, train_loop
+    from repro_torch.optim import AdamWConfig, adamw_update
+
+    cfg = get_config(name)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_local_mesh(device="cuda")
+    out = train_loop(cfg, mesh, steps=steps, batch=TRAIN["batch"], seq=TRAIN["seq"],
+                     lr=TRAIN["lr"], seed=TRAIN["seed"], remat=True,
+                     log_every=max(steps // 4, 1), print_fn=print)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses, gnorms = np.array(out["losses"]), np.array(out["grad_norms"])
+    if losses.shape != (steps,) or not (np.isfinite(losses).all()
+                                        and np.isfinite(gnorms).all()):
+        fail(f"train {name}: losses {losses.tolist()}, grad norms {gnorms.tolist()}")
+    first, last = losses[:5].mean(), losses[-5:].mean()
+    if falling and not last < first:
+        fail(f"train {name}: the last 5 losses average {last:.4f}, not below the "
+             f"first 5's {first:.4f}")
+    model, out_losses = out["model"], out["losses"]
+    step_s = float(np.median(out["step_seconds"][2:]))
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    flops = train_flops(model, cfg, tokens, TRAIN["seq"], remat=True)
+    tflops = flops["total"] / step_s / 1e12
+    n_params = sum(p.numel() for p in model.parameters())
+    state = sum(p.numel() * (2 * p.element_size() + 8) for p in model.parameters())
+
+    # The optimizer alone, on this model's gradients of one more batch.
+    opt = AdamWConfig(lr=TRAIN["lr"], warmup_steps=5, total_steps=steps)
+    bundle = make_train_step(cfg, mesh, opt=opt, remat=True, zero1=False)
+    opt_state = bundle.init_opt(model)
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq"],
+                                      global_batch=TRAIN["batch"], seed=TRAIN["seed"]))
+    batch = {"tokens": torch.from_numpy(data.batch(steps)["tokens"]).cuda()}
+    model.requires_grad_(True)
+    model.loss(batch, remat=True)[0].backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    opt_ms = cuda_ms(lambda: adamw_update(model, grads, opt_state, opt), iters=1,
+                     warmup=1, repeats=3)
+    model.zero_grad(set_to_none=True)
+    step_fn = bundle.jit_for(batch)
+    busy, wall, ops, items = traced_busy(lambda: step_fn(model, opt_state, batch))
+    print(f"train {name} [{card}]: {cfg.num_layers} layers, {n_params / 1e9:.3f} B "
+          f"parameters {cfg.param_dtype}, {TRAIN['batch']} x {TRAIN['seq']} tokens, "
+          f"{steps} steps, remat; losses {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"(first 5 mean {first:.4f}, last 5 mean {last:.4f}); grad norms "
+          f"{gnorms.min():.4f}..{gnorms.max():.4f}")
+    print(f"train {name} [{card}]: step {step_s * 1e3:.3f} ms (median of steps "
+          f"3-{steps}; first {out['step_seconds'][0] * 1e3:.3f} ms), optimizer "
+          f"{opt_ms:.3f} ms a step alone, {tokens / step_s:.1f} tokens/s; "
+          f"{flops['total'] / 1e12:.3f} TFLOP a step ({flops['matmul_params'] / 1e9:.3f} "
+          f"B matmul parameters) -> {tflops:.2f} TFLOP/s, "
+          f"{100 * tflops * 1e12 / H100_BF16_FLOPS:.2f}% of 989.4 dense bf16")
+    print(f"train {name} [{card}]: peak {peak / 2**30:.3f} GiB "
+          f"(max_memory_allocated) against {state / 1e9:.2f} GB of state "
+          f"(bf16 params and grads, f32 m and v); traced step: device busy "
+          f"{busy:.4f} s of {wall:.3f} s wall ({100 * busy / wall:.2f}% busy), "
+          f"{ops} device operations")
+    for us, count, key in items[:6]:
+        print(f"train {name} device time {us / 1e3:.3f} ms over {count} calls: "
+              f"{key[:90]}")
+    res = {"name": name, "step_ms": step_s * 1e3, "opt_ms": opt_ms,
+           "tokens_per_s": tokens / step_s, "tflops": tflops, "peak_bytes": peak,
+           "busy": busy / wall}
+    del model, out, opt_state, grads, bundle, step_fn
+    torch.cuda.empty_cache()
+    again = train_loop(cfg, mesh, steps=steps, batch=TRAIN["batch"], seq=TRAIN["seq"],
+                       lr=TRAIN["lr"], seed=TRAIN["seed"], remat=True,
+                       print_fn=lambda *_: None)
+    if again["losses"] != out_losses:
+        fail(f"train {name}: a second run from the same seed gave other losses")
+    print(f"train {name} [{card}]: a second run from seed {TRAIN['seed']} repeats "
+          "every loss bitwise")
+    del again
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_card_vs_cpu(card: str, tmp: Path) -> None:
+    """The tiny llama and MoE configs in f32: TRAIN_CHECK_STEPS steps of
+    `train_loop` on the CPU and the card from the same weights (losses
+    within TRAIN_CPU_TOL relative); on the card a run stopped at
+    TRAIN_STOP and resumed from its checkpoint equals the straight run
+    bitwise."""
+    import numpy as np
+    import torch
+
+    from repro_torch.interop import model_params_from, reference_tree
+    from repro_torch.launch import make_local_mesh, train_loop
+    from repro_torch.models import build_model
+
+    kw = dict(steps=TRAIN_CHECK_STEPS, batch=2, seq=16, lr=1e-3, log_every=100,
+              print_fn=lambda *_: None)
+    card_mesh = make_local_mesh(device="cuda")
+    for name in ("llama3-8b", "qwen3-moe-30b-a3b"):
+        cfg = tiny_train_config(name)
+        cpu = build_model(cfg, "cpu", seed=0)
+        on_card = model_params_from(cfg, reference_tree(cpu), device="cuda")
+        a = train_loop(cfg, make_local_mesh(device="cpu"), model=cpu, **kw)
+        b = train_loop(cfg, card_mesh, model=on_card, **kw)
+        err = float(np.max(np.abs(np.array(b["losses"]) - a["losses"])
+                           / np.abs(a["losses"])))
+        if not err < TRAIN_CPU_TOL:
+            fail(f"train {name} tiny: card losses differ from the CPU's by {err:.3e} "
+                 f"relative (bound {TRAIN_CPU_TOL})")
+        ckpt = tmp / name
+        straight = train_loop(cfg, card_mesh, **kw)
+        train_loop(cfg, card_mesh, ckpt_dir=ckpt, ckpt_every=TRAIN_STOP,
+                   stop_at=TRAIN_STOP, **kw)
+        resumed = train_loop(cfg, card_mesh, ckpt_dir=ckpt, resume=True, **kw)
+        same = resumed["losses"] == straight["losses"][TRAIN_STOP:] and all(
+            torch.equal(p, q) for p, q in zip(straight["model"].parameters(),
+                                              resumed["model"].parameters()))
+        if not same:
+            fail(f"train {name} tiny: the run stopped at {TRAIN_STOP} and resumed "
+                 "differs from the straight run on the card")
+        print(f"train {name} tiny f32 [{card}]: {TRAIN_CHECK_STEPS} steps, card vs "
+              f"CPU losses within {err:.3e} relative (bound {TRAIN_CPU_TOL}); "
+              f"losses {a['losses'][0]:.5f} -> {a['losses'][-1]:.5f}; stopped at "
+              f"{TRAIN_STOP} and resumed from its checkpoint: bitwise the straight run")
+
+
+def train_bf16_checkpoint(card: str, tmp: Path) -> None:
+    """llama3-8b reduced with bf16 parameters: one train step on the card,
+    then model and optimizer state saved and restored into a fresh model
+    through `CheckpointManager`, bitwise."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.interop import (load_reference_tree, opt_state_from,
+                                     reference_opt_state, reference_tree)
+    from repro_torch.launch import make_local_mesh, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.runtime import CheckpointManager
+
+    cfg = dataclasses.replace(get_config("llama3-8b").reduced(),
+                              param_dtype="bfloat16", activation_dtype="bfloat16")
+    model = build_model(cfg, "cuda", seed=0)
+    bundle = make_train_step(cfg, make_local_mesh(device="cuda"))
+    opt_state = bundle.init_opt(model)
+    tokens = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                        global_batch=2)).batch(0)["tokens"]
+    opt_state, _ = bundle.jit_for(None)(model, opt_state,
+                                        {"tokens": torch.from_numpy(tokens).cuda()})
+    mgr = CheckpointManager(tmp / "bf16")
+    mgr.save(1, (reference_tree(model), reference_opt_state(model, opt_state)))
+    fresh = build_model(cfg, "cuda", seed=1)
+    (params, ref_opt), _ = mgr.restore(
+        (reference_tree(fresh), reference_opt_state(fresh, bundle.init_opt(fresh))))
+    load_reference_tree(fresh, params)
+    back = opt_state_from(fresh, ref_opt)
+    bits = lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    same = all(torch.equal(bits(p), bits(q)) for p, q in
+               zip(model.parameters(), fresh.parameters()))
+    same &= all(torch.equal(opt_state[k][n], back[k][n])
+                for k in ("m", "v") for n in opt_state[k])
+    if not (same and int(back["step"]) == int(opt_state["step"])):
+        fail("train: a bf16 model and its optimizer state did not restore bitwise")
+    print(f"train llama3-8b reduced bf16 [{card}]: model and optimizer state "
+          "saved and restored bitwise (CheckpointManager)")
+
+
+def train_phase(counters) -> dict:
+    """The training path on the card (see the module docstring, 13), with
+    every kernel's launch count set to 0 before and read after: the path
+    runs none of them."""
+    import tempfile
+
+    card = card_label()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    full_width_train("llama3-8b", card, TRAIN["steps"], TRAIN_LAYERS, falling=True)
+    # mamba2-780m's loss does not fall within 10 steps at lr 3e-4 (nor 20
+    # or 40, in bf16 or f32, on the card: tools/train_curves.py), while the
+    # port follows the reference's bf16 steps at full width on the CPU
+    # (tools/train_dynamics.py, PERF.md's Findings): it is held to finite
+    # losses and a bitwise repeat, not to a fall.
+    full_width_train("mamba2-780m", card, MAMBA_STEPS, None, falling=False)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        train_card_vs_cpu(card, Path(tmp))
+        train_bf16_checkpoint(card, Path(tmp))
+    launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    print(f"train phase [{card}]: {time.perf_counter() - t0:.1f} s; launches",
+          json.dumps(launches))
+    for name, count in launches.items():
+        if count != EXACT_LAUNCHES["train"][name]:
+            fail(f"train: {name} launched {count} times, not 0")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -1805,6 +2095,7 @@ def main() -> int:
     runs += layout_runs(counters).values()
     check_profile_raster(prof, dev)
     runs.append(serve_phase(counters))
+    runs.append(train_phase(counters))
     launches = {name: sum(run[name] for run in runs) for name in counters}
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "repro")]

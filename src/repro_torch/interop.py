@@ -5,7 +5,9 @@ so that a fault shows up in the stage that caused it.  Every function here
 takes plain numpy fields — a dict, or any object with the attributes — and
 never a type of the reference package, which this package does not import.
 Model weights travel as the reference's parameter tree of numpy arrays
-(`model_params_from`) and back (`reference_tree`, `reference_path`).
+(`model_params_from`) and back (`reference_tree`, `reference_path`), and
+AdamW's moments as the reference's optimizer state (`opt_state_from`,
+`reference_opt_state`).
 """
 from __future__ import annotations
 
@@ -19,8 +21,9 @@ from repro_torch.snn.simulate import ProfileResult
 from repro_torch.snn.topology import SNNTopology
 
 __all__ = ["graph_from", "hypergraph_from", "partition_from", "profile_from",
-           "topology_from", "model_params_from", "reference_path",
-           "reference_tree"]
+           "topology_from", "model_params_from", "load_reference_tree",
+           "reference_path", "reference_tree", "opt_state_from",
+           "reference_opt_state"]
 
 
 def _get(obj, name: str, default=None):
@@ -131,6 +134,58 @@ def _as_tensor(leaf) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _named_leaves(model: Model) -> dict:
+    """`Model.reference_leaves` with each parameter's name:
+    keys -> (stacked shape, [(stack index, name, parameter), ...])."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {keys: (shape, [(index, names[id(p)], p) for index, p in items])
+            for keys, (shape, items) in model.reference_leaves().items()}
+
+
+def _unstack(model: Model, tree, put, same_dtype: bool) -> None:
+    """Check ``tree`` (the reference's parameter-shaped tree) against the
+    model's leaves — every key, each stacked shape and, where
+    ``same_dtype``, the parameter's dtype — and call ``put(name,
+    parameter, slice)`` for each layer's slice."""
+    flat = {k: _as_tensor(v) for k, v in _flatten(tree).items()}
+    leaves = _named_leaves(model)
+    missing, extra = sorted(set(leaves) - set(flat)), sorted(set(flat) - set(leaves))
+    if missing or extra:
+        raise ValueError(f"parameter tree mismatch: missing {missing}, extra {extra}")
+    for keys, (shape, items) in leaves.items():
+        got, dtype = flat[keys], items[0][2].dtype
+        if tuple(got.shape) != shape or (same_dtype and got.dtype != dtype):
+            raise ValueError(f"{'/'.join(keys)}: {tuple(got.shape)} {got.dtype}, "
+                             f"expected {shape} {dtype}")
+        for index, name, param in items:
+            put(name, param, got[index])
+
+
+def _stack(model: Model, value_of) -> dict:
+    """The reference's parameter-shaped tree of CPU tensors, each leaf
+    stacked from ``value_of(name, parameter)`` of its layers."""
+    tree: dict = {}
+    for keys, (shape, items) in _named_leaves(model).items():
+        first = value_of(items[0][1], items[0][2])
+        leaf = torch.empty(shape, dtype=first.dtype)
+        for index, name, param in items:
+            leaf[index] = value_of(name, param).detach().cpu()
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf
+    return tree
+
+
+def load_reference_tree(model: Model, tree) -> Model:
+    """Copy the reference's parameter tree into ``model``'s parameters in
+    place (see `model_params_from`); returns the model."""
+    with torch.no_grad():
+        _unstack(model, tree, lambda _name, param, value: param.copy_(value),
+                 same_dtype=True)
+    return model
+
+
 def model_params_from(cfg, tree, device: "str | torch.device" = "cuda") -> Model:
     """The port's `Model` for ``cfg`` on ``device``, loaded with the
     reference's ``init_params`` tree given as nested dicts of numpy arrays
@@ -138,34 +193,36 @@ def model_params_from(cfg, tree, device: "str | torch.device" = "cuda") -> Model
     leading (L,) dims — (groups, per) for the VLM's self layers — are
     unstacked; dtypes are kept, bfloat16 included.  Raises ValueError on a
     missing or extra leaf, or a leaf of another shape or dtype."""
-    model = Model(cfg, device)
-    flat = {k: _as_tensor(v) for k, v in _flatten(tree).items()}
-    leaves = model.reference_leaves()
-    missing, extra = sorted(set(leaves) - set(flat)), sorted(set(flat) - set(leaves))
-    if missing or extra:
-        raise ValueError(f"parameter tree mismatch: missing {missing}, extra {extra}")
-    with torch.no_grad():
-        for keys, (shape, items) in leaves.items():
-            got, dtype = flat[keys], items[0][1].dtype
-            if tuple(got.shape) != shape or got.dtype != dtype:
-                raise ValueError(f"{'/'.join(keys)}: {tuple(got.shape)} {got.dtype}, "
-                                 f"expected {shape} {dtype}")
-            for index, param in items:
-                param.copy_(got[index])
-    return model
+    return load_reference_tree(Model(cfg, device), tree)
 
 
 def reference_tree(model: Model) -> dict:
     """The reverse of `model_params_from`: the reference's parameter tree
     as nested dicts of CPU tensors, each layer stack stacked again (names
     mapped by `reference_path`)."""
-    tree: dict = {}
-    for keys, (shape, items) in model.reference_leaves().items():
-        leaf = torch.empty(shape, dtype=items[0][1].dtype)
-        for index, param in items:
-            leaf[index] = param.detach().cpu()
-        node = tree
-        for k in keys[:-1]:
-            node = node.setdefault(k, {})
-        node[keys[-1]] = leaf
-    return tree
+    return _stack(model, lambda _name, param: param)
+
+
+def opt_state_from(model: Model, ref_opt_state) -> dict:
+    """The port's optimizer state for ``model`` (`repro_torch.optim`:
+    moments keyed by parameter name, on the model's device) from the
+    reference's ``{"m": tree, "v": tree, "step"}``, its moment trees shaped
+    as the parameter tree; moment dtypes are kept."""
+    out: dict = {}
+    for part in ("m", "v"):
+        moments = out[part] = {}
+
+        def put(name, param, value, moments=moments):
+            moments[name] = value.to(param.device, copy=True)
+
+        _unstack(model, ref_opt_state[part], put, same_dtype=False)
+    out["step"] = _as_tensor(ref_opt_state["step"]).to(torch.int32).to(model.device)
+    return out
+
+
+def reference_opt_state(model: Model, opt_state: dict) -> dict:
+    """The reverse of `opt_state_from`: ``{"m", "v"}`` as the reference's
+    stacked trees of CPU tensors and ``step`` as a CPU int32 0-d tensor."""
+    return {"m": _stack(model, lambda name, _p: opt_state["m"][name]),
+            "v": _stack(model, lambda name, _p: opt_state["v"][name]),
+            "step": opt_state["step"].detach().cpu()}

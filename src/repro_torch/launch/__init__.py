@@ -1,18 +1,22 @@
 """Launchers: the batched toolchain sweep driver (`repro_torch.launch.sweep`)
-and the LLM scaffolding's serving path — meshes (`mesh`), the prefill and
-serve steps (`steps`) and the batched serving driver (`serve`,
-``python -m repro_torch.launch.serve``).
+and the LLM scaffolding's serving and training paths — meshes (`mesh`),
+the train, prefill and serve steps (`steps`), batched serving (`serve`,
+``python -m repro_torch.launch.serve``) and the fault-tolerant training
+loop (`train`, ``python -m repro_torch.launch.train``).
 
-The reference's train step and driver (ROADMAP queue 1, item 12b) and its
-XLA tooling (dry-run, roofline; item 13) are not ported yet.
+The reference's XLA tooling (dry-run, roofline; ROADMAP queue 1, item 13)
+is not ported yet.
 """
 from .mesh import (Mesh, batch_axes_of, make_local_mesh, make_mesh_with_layout,
                    make_production_mesh)
 from .serve import serve_batch
-from .steps import StepBundle, make_plan, make_prefill_step, make_serve_step
+from .steps import (StepBundle, make_plan, make_prefill_step, make_serve_step,
+                    make_train_step)
 from .sweep import SweepResult, config_grid, pareto_flags, run_sweep
+from .train import train_loop
 
 __all__ = ["SweepResult", "config_grid", "pareto_flags", "run_sweep",
            "Mesh", "batch_axes_of", "make_local_mesh", "make_mesh_with_layout",
            "make_production_mesh", "StepBundle", "make_plan",
-           "make_prefill_step", "make_serve_step", "serve_batch"]
+           "make_prefill_step", "make_serve_step", "make_train_step",
+           "serve_batch", "train_loop"]

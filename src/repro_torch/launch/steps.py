@@ -1,12 +1,14 @@
-"""Prefill and serve steps for any (arch, mesh).
+"""Train, prefill and serve steps for any (arch, mesh).
 
 `make_*_step` returns a `StepBundle`: the sharding plan and the parameter
 specs the planner gives the mesh, and ``jit_for``, which returns the step
-as an eager callable under ``torch.inference_mode()`` (the reference
-returns a jitted, sharded function; the port's counterpart of that program
-is the eager step, with no ``torch.compile`` and no CUDA graphs).  A step
-takes the model first, where the reference takes its params: the model
-holds its weights on its device, and the step runs there.
+as an eager callable (the reference returns a jitted, sharded function;
+the port's counterpart of that program is the eager step, with no
+``torch.compile`` and no CUDA graphs).  A step takes the model first,
+where the reference takes its params: the model holds its weights on its
+device, and the step runs there.  The prefill and serve steps run under
+``torch.inference_mode()``; the train step turns on the gradients of the
+model it trains and updates its parameters in place.
 
 On one card the specs are trivial and nothing applies them.  A model axis
 > 1 with a MoE config raises: the expert-parallel ``moe_ffn_sharded`` is
@@ -15,6 +17,8 @@ MoE must not run in its place.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Callable
 
@@ -22,11 +26,13 @@ import torch
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import Model
-from repro_torch.sharding import ShardingPlan, plan_params
+from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
+from repro_torch.sharding import ShardingPlan, plan_opt_state, plan_params
 
 from .mesh import Mesh, batch_axes_of
 
-__all__ = ["StepBundle", "make_prefill_step", "make_serve_step", "make_plan"]
+__all__ = ["StepBundle", "make_train_step", "make_prefill_step",
+           "make_serve_step", "make_plan"]
 
 
 @dataclass
@@ -34,6 +40,8 @@ class StepBundle:
     jit_for: Callable  # shape -> the eager step
     plan: ShardingPlan
     param_specs: dict
+    opt_specs: dict | None = None  # train: the m/v/step specs
+    init_opt: Callable | None = None  # train: model -> fresh optimizer state
 
 
 def make_plan(mesh: Mesh, **kw) -> ShardingPlan:
@@ -57,6 +65,43 @@ def _bundle(cfg, mesh, step, **plan_kw) -> StepBundle:
     plan = make_plan(mesh, **plan_kw)
     pspecs = plan_params(plan, Model(cfg, "meta").param_shapes())
     return StepBundle(jit_for=lambda _shape: step, plan=plan, param_specs=pspecs)
+
+
+def make_train_step(cfg: ArchConfig, mesh: Mesh, opt: AdamWConfig | None = None,
+                    remat: bool = True, zero1: bool = True,
+                    kv_chunk: int = 1024,
+                    moment_dtype: str | None = None) -> StepBundle:
+    """train_step(model, opt_state, batch) -> (opt_state, metrics): the
+    loss's gradients by ``loss.backward()``, then `adamw_update` on the
+    model's parameters and ``opt_state`` in place; the gradients are set to
+    None after the update.  ``batch`` holds tensors on the model's device
+    (``tokens``; ``frontend`` for vlm/audio).  ``metrics``: ``loss``,
+    ``ce``, ``aux``, ``grad_norm``, ``lr`` as 0-d tensors.
+    ``jit_for(batch)``; ``init_opt(model)`` gives the optimizer state."""
+    _mesh_info(cfg, mesh)
+    plan = make_plan(mesh)
+    opt = opt or AdamWConfig()
+    if moment_dtype is not None:
+        opt = dataclasses.replace(opt, moment_dtype=moment_dtype)
+    shapes = Model(cfg, "meta").param_shapes()
+    pspecs = plan_params(plan, shapes)
+    ospecs = {"m": plan_opt_state(plan, shapes, zero1),
+              "v": plan_opt_state(plan, shapes, zero1), "step": ()}
+
+    def train_step(model: Model, opt_state: dict, batch: dict):
+        model.requires_grad_(True)
+        loss, metrics = model.loss(batch, remat=remat, kv_chunk=kv_chunk)
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        stats = adamw_update(model, grads, opt_state, opt)
+        model.zero_grad(set_to_none=True)
+        return opt_state, {"loss": loss.detach(), "ce": metrics["ce"].detach(),
+                           "aux": metrics["aux"].detach(), **stats}
+
+    return StepBundle(jit_for=lambda _batch: train_step, plan=plan,
+                      param_specs=pspecs, opt_specs=ospecs,
+                      init_opt=functools.partial(init_opt_state,
+                                                 moment_dtype=opt.moment_dtype))
 
 
 def make_prefill_step(cfg: ArchConfig, mesh: Mesh, cache_len: int,

@@ -9,6 +9,17 @@ DeepSeek-V2's leading dense layer; ``swa``/``global`` for Hymba;
 reference scans stacked (L, ...) parameters, the port loops over the
 list; caches stay stacked tensors, e.g. (L, B, S, KVH, hd), and each layer
 writes its slice in place.
+
+Training: parameters are created with ``requires_grad=False``, so that no
+serving path builds an autograd graph; the train step
+(`repro_torch.launch.steps.make_train_step`) turns gradients on for the
+model it trains.  ``remat=True`` recomputes each layer's activations in
+the backward pass (``torch.utils.checkpoint``, non-reentrant) wherever the
+reference wraps its layer scan in ``jax.checkpoint``: the decoder, SSM,
+Hymba SWA, VLM self-attention and whisper encoder stacks.  It changes
+memory, never values.  The config's ``remat_policy="save_collectives"``
+keeps the tensor-parallel collectives' outputs in the reference; one card
+has no collective, so it recomputes everything, as ``"full"`` does.
 """
 from __future__ import annotations
 
@@ -16,6 +27,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
@@ -58,6 +70,15 @@ def _write(tree: dict, new: dict, *idx) -> None:
 
 def _stack(n: int, make) -> nn.ModuleList:
     return nn.ModuleList([make() for _ in range(n)])
+
+
+def _layer(blk: nn.Module, remat: bool, *args, **kw):
+    """``blk(*args, **kw)``; with ``remat``, its activations are recomputed
+    in the backward pass instead of kept."""
+    if remat:
+        return checkpoint(blk, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+    return blk(*args, **kw)
 
 
 class Model(nn.Module):
@@ -187,11 +208,13 @@ class Model(nn.Module):
         caches: Any = None,
         positions: torch.Tensor | None = None,
         frontend: torch.Tensor | None = None,  # (B, Sf, Df) stub embeddings
+        remat: bool = False,
         kv_chunk: int = 1024,
     ):
         """Returns (logits, caches, aux_loss); prefill and decode write
         ``caches`` in place and return it.  ``frontend`` is cast to the
-        activation dtype (its cross K/V are cached in it)."""
+        activation dtype (its cross K/V are cached in it).  ``remat``: see
+        the module docstring."""
         cfg = self.cfg
         b, s = tokens.shape
         if positions is None:
@@ -203,24 +226,27 @@ class Model(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         fam = cfg.family
         if fam in ("dense", "moe"):
-            x, aux = self._fwd_decoder(x, positions, mode, caches, kv_chunk, aux)
+            x, aux = self._fwd_decoder(x, positions, mode, caches, kv_chunk, aux,
+                                       remat)
         elif fam == "ssm":
             lc = caches["layers"] if caches is not None else None
             for i, blk in enumerate(self.layers):
-                x = blk(x, positions, mode, _index(lc, i))
+                x = _layer(blk, remat, x, positions, mode, _index(lc, i))
         elif fam == "hybrid":
-            x = self._fwd_hybrid(x, positions, mode, caches, kv_chunk)
+            x = self._fwd_hybrid(x, positions, mode, caches, kv_chunk, remat)
         elif fam == "vlm":
-            x = self._fwd_vlm(x, positions, mode, caches, frontend, kv_chunk)
+            x = self._fwd_vlm(x, positions, mode, caches, frontend, kv_chunk,
+                              remat)
         elif fam == "audio":
-            x = self._fwd_audio(x, positions, mode, caches, frontend, kv_chunk)
+            x = self._fwd_audio(x, positions, mode, caches, frontend, kv_chunk,
+                                remat)
         else:
             raise ValueError(fam)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         return x @ self.lm_head, caches, aux
 
     # ------------------------------------------------- family sub-forwards
-    def _fwd_decoder(self, x, positions, mode, caches, kv_chunk, aux):
+    def _fwd_decoder(self, x, positions, mode, caches, kv_chunk, aux, remat):
         cfg = self.cfg
         if cfg.first_dense_layers:
             d0 = caches["dense0"] if caches is not None else None
@@ -229,14 +255,15 @@ class Model(nn.Module):
         lc = caches["layers"] if caches is not None else None
         for i, blk in enumerate(self.layers):
             if cfg.is_moe:
-                x, a = blk(x, positions, mode, _index(lc, i), kv_chunk)
+                x, a = _layer(blk, remat, x, positions, mode, _index(lc, i),
+                              kv_chunk)
                 aux = aux + a
             else:
-                x = blk(x, positions, mode, _index(lc, i),
-                        window=cfg.sliding_window, kv_chunk=kv_chunk)
+                x = _layer(blk, remat, x, positions, mode, _index(lc, i),
+                           window=cfg.sliding_window, kv_chunk=kv_chunk)
         return x, aux
 
-    def _fwd_hybrid(self, x, positions, mode, caches, kv_chunk):
+    def _fwd_hybrid(self, x, positions, mode, caches, kv_chunk, remat):
         """Hymba: SWA layers with the global-attention layers at their
         indices, in layer order (the reference's segment schedule)."""
         cfg = self.cfg
@@ -251,17 +278,19 @@ class Model(nn.Module):
                                                 _index(glob_c, gi), window=None,
                                                 kv_chunk=kv_chunk)
             else:
-                x = self.swa[swa_idx](x, positions, mode, _index(swa_c, swa_idx),
-                                      window=cfg.sliding_window, kv_chunk=kv_chunk)
+                x = _layer(self.swa[swa_idx], remat, x, positions, mode,
+                           _index(swa_c, swa_idx), window=cfg.sliding_window,
+                           kv_chunk=kv_chunk)
                 swa_idx += 1
         return x
 
-    def _fwd_vlm(self, x, positions, mode, caches, frontend, kv_chunk):
+    def _fwd_vlm(self, x, positions, mode, caches, frontend, kv_chunk, remat):
         self_c = caches["self"] if caches is not None else None
         ckv = caches["cross_kv"] if caches is not None else None
         for g, (group, cross) in enumerate(zip(getattr(self, "self"), self.cross)):
             for j, blk in enumerate(group):
-                x = blk(x, positions, mode, _index(self_c, g, j), kv_chunk=kv_chunk)
+                x = _layer(blk, remat, x, positions, mode, _index(self_c, g, j),
+                           kv_chunk=kv_chunk)
             if mode == "decode":
                 enc_kv = _index(ckv, g)
             else:
@@ -271,7 +300,7 @@ class Model(nn.Module):
             x = cross(x, enc_kv)
         return x
 
-    def _fwd_audio(self, x, positions, mode, caches, frontend, kv_chunk):
+    def _fwd_audio(self, x, positions, mode, caches, frontend, kv_chunk, remat):
         cfg = self.cfg
         if mode != "decode":  # at decode cross K/V comes from the cache
             enc = frontend
@@ -280,7 +309,7 @@ class Model(nn.Module):
             b, se = enc.shape[:2]
             enc_pos = torch.arange(se, dtype=torch.int32, device=enc.device).expand(b, se)
             for blk in self.encoder:
-                enc = blk(enc, enc_pos, kv_chunk)
+                enc = _layer(blk, remat, enc, enc_pos, kv_chunk)
             enc_states = rms_norm(enc, self.enc_norm, cfg.norm_eps)
         lc = caches["layers"] if caches is not None else None
         ckv = caches["cross"] if caches is not None else None
@@ -295,10 +324,14 @@ class Model(nn.Module):
         return x
 
     # --------------------------------------------------------------- loss
-    def loss(self, batch: dict, *, kv_chunk: int = 1024, aux_weight: float = 0.01):
+    def loss(self, batch: dict, *, remat: bool = False, kv_chunk: int = 1024,
+             aux_weight: float = 0.01):
+        """(ce + aux_weight * aux, {"ce", "aux"}) of a batch of tensors on
+        the model's device (``tokens``; ``labels`` and ``frontend`` where
+        given)."""
         logits, _, aux = self.forward(batch["tokens"], mode="train",
                                       frontend=batch.get("frontend"),
-                                      kv_chunk=kv_chunk)
+                                      remat=remat, kv_chunk=kv_chunk)
         if "labels" in batch:
             ce = cross_entropy_loss(logits, batch["labels"])
         else:  # next-token prediction: shift by one

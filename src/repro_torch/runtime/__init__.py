@@ -1,13 +1,14 @@
-"""Runtime health: the fault model and the straggler monitor that the
-toolchain's graceful-degradation scenarios drive (host numpy).
-
-The reference's checkpointing and elastic re-meshing belong to its LLM
-scaffolding and are not ported yet (ROADMAP queue 1, item 12).
+"""Runtime: the fault model and the straggler monitor that the
+toolchain's graceful-degradation scenarios drive (host numpy), and the
+trainer's atomic checkpoints (`CheckpointManager`) and elastic
+re-placement (`remesh_params`).
 """
+from .checkpoint import CheckpointManager
+from .elastic import remesh_params
 from .faults import FaultEvent, FaultSchedule, FaultState, heartbeat_detect
 from .health import HeartbeatMonitor
 
 __all__ = [
-    "HeartbeatMonitor",
+    "CheckpointManager", "remesh_params", "HeartbeatMonitor",
     "FaultEvent", "FaultSchedule", "FaultState", "heartbeat_detect",
 ]
