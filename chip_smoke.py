@@ -112,13 +112,31 @@
    that soon at this rate); each run is
    repeated from the same seed and must give the same losses bitwise;
    prints step ms (median of steps 3 on), the optimizer's ms
-   alone, tokens/s, model TFLOP/s against 989.4 dense bf16, peak memory
+   alone, tokens/s, the step's matmul FLOPs as the op counter counts them
+   on the meta device over the step time against 989.4 dense bf16, peak memory
    against the state and a traced step's busy share.  Then the tiny
    llama and MoE configs of tests/test_train_integration.py in f32, 10
    steps on the CPU and the card from the same weights (losses within
    1e-4 relative), a run stopped at 5 and resumed from its checkpoint
    on the card (bitwise the straight run), and a reduced llama3-8b in
    bf16 whose model and optimizer state save and restore bitwise.
+14. The roofline phase (no TPU kernel on the path; every launch count
+   must stay 0): llama3-8b at its published width in bf16, the train step
+   (8 x 512 tokens, remat), prefill (4 x 32) and the decode step (batch 4
+   against a 64-slot cache), each counted op by op on the meta device
+   (`repro_torch.launch.roofline.measure_cell`, exactly linear in depth)
+   and run on the card (median of 5 synchronised calls) at 2 and 4
+   layers, both extrapolated to 32.  At each depth the profiler's matmul
+   FLOPs must equal the counted ones within 1% (both with remat's early
+   stop off: the profiler also records the ops it aborts), the counted peak live
+   bytes `max_memory_allocated` within ROOF_PEAK_TOL, and no time may
+   fall under 0.95 of its compute term or of its least traffic (weights,
+   optimizer state, inputs and caches read once at 3.35 TB/s).  Prints
+   the counts, compute_s, memory_s, bound_s, the measured seconds,
+   roofline_fraction and mfu (model FLOPs over 989.4 TFLOP/s over the
+   measured time) with the card's name and power limit; then dry-runs
+   llama3-8b's three applicable shapes and qwen3-moe-30b-a3b's decode_32k
+   at full size on meta (`repro_torch.launch.dryrun.run_cell`).
 
 Prints one line per kernel, the run's summary, the kernels JSON line, the
 card's name and power limit, and as its last line
@@ -136,10 +154,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
-H100_F32_FLOPS = 67e12  # f32 on the CUDA cores, H100 SXM data sheet
-H100_TF32_FLOPS = 494.7e12  # TF32 tensor cores, dense, H100 SXM data sheet
-H100_BF16_FLOPS = 989.4e12  # bf16 tensor cores, dense, H100 SXM data sheet
+# The H100 SXM data sheet's peaks (HBM3 B/s; f32 CUDA-core, TF32 and bf16
+# tensor-core FLOP/s), bound by `main` from `repro_torch.launch.roofline`.
+H100_BYTES_PER_S = H100_F32_FLOPS = H100_TF32_FLOPS = H100_BF16_FLOPS = None
 EXACT_F32 = 2 ** 24  # integers below this add exactly in f32
 
 SLICE = dict(snn="edge_5120", num_steps=1200, mesh_w=16, mesh_h=16,
@@ -252,11 +269,11 @@ def device_ms(fn, iters: int) -> float | None:
 
 
 def bound(nbytes: float, ops: float,
-          rate: float = H100_F32_FLOPS) -> tuple[float, str]:
+          rate: float | None = None) -> tuple[float, str]:
     """Least time (ms) for the work: the larger of bytes over the memory
     rate and operations over ``rate`` (f32 unless given)."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / rate * 1e3
+    t_ops = ops / (rate or H100_F32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -842,7 +859,8 @@ EXACT_LAUNCHES = {"cut": {"lif_step": SLICE["num_steps"], "link_loads": 1,
                   **{run: {name: 0 for name in
                            ("lif_step", "part_degrees", "connectivity_degrees",
                             "swap_deltas", "link_loads", "hop_cost")}
-                     for run in SHARDED_RUNS + ("layout", "serve", "train")},
+                     for run in SHARDED_RUNS + ("layout", "serve", "train",
+                                                "roofline")},
                   "island": {"lif_step": 0, "swap_deltas": 0, "link_loads": 1,
                              "hop_cost": 1}}
 
@@ -859,20 +877,26 @@ def device_total(busy, key_part: str) -> tuple[float, int]:
     return sum(h[0] for h in hits), sum(h[1] for h in hits)
 
 
-def traced(run: str, counters: dict, drive, report=None):
+TRACE_ATTEMPTS = 3
+
+
+def traced(run: str, counters: dict, drive, report=None, reset=None):
     """Call ``drive()`` with every launch count set to 0 just before and
     read just after, under device-only tracing (kernels, copies, fills),
     which gives the card's busy time without timing any host op.  Prints
     the busy share and the kernels' device times, then ``report(out)``;
     fails where a kernel of the run's path did not launch or a count
     differs from ``EXACT_LAUNCHES``.  Where the profiler's counts differ
-    from the wrappers' and the trace lacks its end marker (the trace lost
-    its tail), the run is driven once more and held to both again.
-    Returns drive's result and the launch counts."""
+    from ``EXACT_LAUNCHES`` (the trace lost events), the run is driven
+    again, up to ``TRACE_ATTEMPTS`` times in all, calling ``reset()``
+    first where given, and the last attempt is held to both.  Returns
+    drive's result and the launch counts."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for attempt in (1, 2):
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        if reset is not None and attempt > 1:
+            reset()
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
         with profile(activities=[ProfilerActivity.CUDA]) as trace:
@@ -893,12 +917,18 @@ def traced(run: str, counters: dict, drive, report=None):
         differs = busy_s > 0 and any(
             name in seen and seen[name] != want
             for name, want in EXACT_LAUNCHES[run].items())
-        if not differs or any(END_MARKER in e.key for e in events):
+        if not differs:
             break
-        # Seen once on the H100: the trace lost every event after the
-        # run's first seconds, its end marker too.
-        print(f"{run}: the profiler's trace lost its tail (no end marker); "
-              f"{'running again' if attempt == 1 else 'held as it is'}")
+        # Seen on the H100: the trace lost every event after the run's
+        # first seconds, its end marker too; and once it lost a run's
+        # single hop_cost launch with the end marker kept.
+        tail = ("kept" if any(END_MARKER in e.key for e in events)
+                else "lost")
+        lost = {name: seen[name] for name in EXACT_LAUNCHES[run]
+                if name in seen and seen[name] != EXACT_LAUNCHES[run][name]}
+        print(f"{run}: attempt {attempt}: the profiler's trace saw "
+              f"{json.dumps(lost)} (end marker {tail}); "
+              f"{'running again' if attempt < TRACE_ATTEMPTS else 'held as it is'}")
     print(f"{run} slice device: busy {busy_s:.4f} s of {wall:.3f} s "
           f"wall ({100 * busy_s / wall:.2f}% busy)")
     for us, count, key in busy[:8]:
@@ -927,7 +957,7 @@ def traced(run: str, counters: dict, drive, report=None):
     return out, launches
 
 
-def traced_run(run: str, counters: dict, prof=None, **run_kw):
+def traced_run(run: str, counters: dict, prof=None, reset=None, **run_kw):
     """One slice run (`run_slice`) under `traced`, printing its summary."""
 
     def report(out):
@@ -942,7 +972,7 @@ def traced_run(run: str, counters: dict, prof=None, **run_kw):
               f"(avg_hop {res.mapping.avg_hop!r})")
 
     (prof, res, _, hop), launches = traced(
-        run, counters, lambda: run_slice(run, prof, **run_kw), report)
+        run, counters, lambda: run_slice(run, prof, **run_kw), report, reset)
     return prof, res, hop, launches
 
 
@@ -958,6 +988,10 @@ class StepperSpy:
 
         self.replay, self.name = replay, name
         self.inner = getattr(replay, name)
+        self.reset()
+
+    def reset(self):
+        """Forget what was recorded (before the run is driven again)."""
         self.packets = self.cycles = self.calls = 0
         self.seconds = 0.0
 
@@ -1120,6 +1154,11 @@ class RemapSpy:
         self.results = []
         self.part_degrees = 0
 
+    def reset(self):
+        """Forget what was recorded (before the run is driven again)."""
+        self.results.clear()
+        self.part_degrees = 0
+
     def _wrap(self, fn):
         def remap(*args, **kwargs):
             before = self.gain_eval.launches
@@ -1167,7 +1206,7 @@ def fault_runs(prof, cut, counters) -> dict:
     for run, (sched, strategy) in schedules.items():
         with RemapSpy() as spy:
             _, res, hop, launches[run] = traced_run(
-                run, counters, prof, remaps=spy.results,
+                run, counters, prof, reset=spy.reset, remaps=spy.results,
                 fault_schedule=sched, remap_strategy=strategy)
         deg = res.degradation
         check_expect(run, {**res.summary(), "final_k": deg["final_k"]})
@@ -1239,7 +1278,8 @@ def sweep_run(prof, cut, counters) -> dict:
             print("sweep row:", json.dumps(row))
         print(f"sweep: {sweep.seconds:.3f} s for {len(sweep.rows)} configs")
 
-    (sweep, hops), launches = traced("sweep", counters, drive, report)
+    (sweep, hops), launches = traced("sweep", counters, drive, report,
+                                     msgs.clear)
     if f"{prof.name}: 2 partition runs for 4 configs" not in msgs:
         fail(f"sweep: partition dedup did not give 2 runs for 4 configs: {msgs}")
     for row, res, hop in zip(sweep.rows, sweep.results, hops):
@@ -1800,25 +1840,15 @@ def tiny_train_config(name: str):
     return dataclasses.replace(get_config(name).reduced(), **kw)
 
 
-def train_flops(model, cfg, tokens: int, seq: int, remat: bool) -> dict:
-    """Operations of one train step, from the shapes: 2 a matmul
-    parameter a token forward (every parameter of two or more dims but
-    the embedding table and the depthwise conv), twice that backward, the
-    attention's score and P.V products over the full (S, S) block the
-    chunked softmax computes (or the SSD scan's chunk products), and with
-    remat one more forward of the layers (not of the LM head)."""
-    head = model.lm_head.numel()
-    layers = sum(p.numel() for n, p in model.named_parameters()
-                 if p.dim() >= 2 and n not in ("embed", "lm_head")
-                 and not n.endswith("conv_w"))
-    if cfg.family == "ssm":
-        q, n, h, p = cfg.ssm_chunk, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-        mix = 2 * tokens * (q * n + h * q * p + 2 * h * n * p) * cfg.num_layers
-    else:
-        mix = 4 * tokens * seq * cfg.num_heads * cfg.head_dim * cfg.num_layers
-    fwd_layers = 2 * layers * tokens + mix
-    total = 3 * (fwd_layers + 2 * head * tokens) + (fwd_layers if remat else 0)
-    return {"total": total, "matmul_params": layers + head, "mix_fwd": mix}
+def counted_train_flops(cfg, remat: bool) -> int:
+    """Matmul FLOPs of one train step at TRAIN's batch and length, counted
+    op by op on the meta device (`repro_torch.launch.dryrun.count_cell`:
+    the backward and, with remat, the recomputed forward included)."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.dryrun import count_cell
+
+    sp = ShapeSpec("train_smoke", TRAIN["seq"], TRAIN["batch"], "train")
+    return count_cell(cfg, sp, remat=remat)["flops_matmul"]
 
 
 def traced_busy(fn) -> tuple[float, float, int, list]:
@@ -1877,8 +1907,8 @@ def full_width_train(name: str, card: str, steps: int, layers: int | None,
     model, out_losses = out["model"], out["losses"]
     step_s = float(np.median(out["step_seconds"][2:]))
     tokens = TRAIN["batch"] * TRAIN["seq"]
-    flops = train_flops(model, cfg, tokens, TRAIN["seq"], remat=True)
-    tflops = flops["total"] / step_s / 1e12
+    flops = counted_train_flops(cfg, remat=True)
+    tflops = flops / step_s / 1e12
     n_params = sum(p.numel() for p in model.parameters())
     state = sum(p.numel() * (2 * p.element_size() + 8) for p in model.parameters())
 
@@ -1905,8 +1935,8 @@ def full_width_train(name: str, card: str, steps: int, layers: int | None,
     print(f"train {name} [{card}]: step {step_s * 1e3:.3f} ms (median of steps "
           f"3-{steps}; first {out['step_seconds'][0] * 1e3:.3f} ms), optimizer "
           f"{opt_ms:.3f} ms a step alone, {tokens / step_s:.1f} tokens/s; "
-          f"{flops['total'] / 1e12:.3f} TFLOP a step ({flops['matmul_params'] / 1e9:.3f} "
-          f"B matmul parameters) -> {tflops:.2f} TFLOP/s, "
+          f"{flops / 1e12:.3f} TFLOP of matmuls a step (counted on meta) -> "
+          f"{tflops:.2f} TFLOP/s, "
           f"{100 * tflops * 1e12 / H100_BF16_FLOPS:.2f}% of 989.4 dense bf16")
     print(f"train {name} [{card}]: peak {peak / 2**30:.3f} GiB "
           f"(max_memory_allocated) against {state / 1e9:.2f} GB of state "
@@ -2048,6 +2078,197 @@ def train_phase(counters) -> dict:
     return launches
 
 
+# ---------------------------------------------------------- roofline phase
+
+# llama3-8b's steps as the train and serve phases run them: (kind, seq,
+# batch); the decode step's cache holds the served prompt and new tokens.
+ROOF_STEPS = (("train", TRAIN["seq"], TRAIN["batch"]),
+              ("prefill", SERVE["prompt_len"], SERVE["batch"]),
+              ("decode", SERVE["prompt_len"] + SERVE["gen_len"], SERVE["batch"]))
+ROOF_UNITS = (2, 4)  # the two truncated depths counted and run on the card
+ROOF_REPEATS, ROOF_WARMUP = 5, 2
+ROOF_FLOP_TOL = 0.01  # the profiler's matmul FLOPs against the counted ones
+ROOF_TIME_FLOOR = 0.95  # a step may not beat its compute or least-traffic bound
+# Counted peak live bytes against max_memory_allocated: the card's peak
+# holds ~62 MiB more than the step's tensors (library workspace), 0.2-2.2%
+# of the phase's peaks on an H100.
+ROOF_PEAK_TOL = 0.03
+ROOF_DRYRUN = (("llama3-8b", "train_4k"), ("llama3-8b", "prefill_32k"),
+               ("llama3-8b", "decode_32k"), ("qwen3-moe-30b-a3b", "decode_32k"))
+PROFILER_MATMULS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+def profiler_matmul_flops(call) -> int:
+    """The matmul FLOPs ``torch.profiler`` (``with_flops``) records for one
+    call of ``call`` on the card.  The profiler records an op when it is
+    called, so it also counts the ops that remat's early stop calls and
+    aborts before their kernel (`torch.utils.checkpoint`'s recomputation
+    stops at the last tensor the backward needs); the caller turns early
+    stop off to compare it with a count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU], with_flops=True) as prof:
+        call()
+        torch.cuda.synchronize()
+    return int(sum(e.flops or 0 for e in prof.events() if e.name in PROFILER_MATMULS))
+
+
+def step_seconds(call) -> float:
+    """Median host seconds of ROOF_REPEATS synchronised calls after
+    ROOF_WARMUP."""
+    import numpy as np
+    import torch
+
+    for _ in range(ROOF_WARMUP):
+        call()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(ROOF_REPEATS):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def card_step(cfg, sp) -> dict:
+    """One step of ``cfg`` (from a torch.Generator seeded 0) on the card:
+    its median seconds and peak memory over one call; with remat's early
+    stop off, the profiler's matmul FLOPs of one call and the count of the
+    same on meta; for decode, `decode_bound_ms`'s bytes."""
+    import torch
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+
+    from repro_torch.launch.dryrun import cell_step, count_cell
+    from repro_torch.models import build_model
+
+    torch.cuda.empty_cache()
+    model = build_model(cfg, "cuda", seed=0)
+    call, args = cell_step(cfg, sp, model,
+                           generator=torch.Generator("cuda").manual_seed(0))
+    run = lambda: (call(), None)[1]  # drop the step's outputs
+    seconds = step_seconds(run)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    out = {"s": seconds, "peak": torch.cuda.max_memory_allocated()}
+    with set_checkpoint_early_stop(False):
+        out["prof_flops"] = profiler_matmul_flops(run)
+        out["counted_flops"] = count_cell(cfg, sp)["flops_matmul"]
+    if sp.kind == "decode":
+        caches = sum(t.numel() * t.element_size() for t in _leaves(args[1]))
+        out["decode_bound_s"] = decode_bound_ms(model, caches) / 1e3
+    del model, call, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def _line(n1: float, v1: float, n2: float, v2: float, n: float) -> float:
+    return v2 + (v2 - v1) / (n2 - n1) * (n - n2)
+
+
+def roofline_phase(counters) -> dict:
+    """llama3-8b at its published width in bf16: the train (remat),
+    prefill and decode steps counted on the meta device
+    (`repro_torch.launch.roofline.measure_cell`) and run on the card at
+    ROOF_UNITS layers, both extrapolated linearly to 32 layers, beside the
+    roofline terms at the data-sheet peaks; then the dry run of
+    ROOF_DRYRUN at full size on meta.  Every kernel's launch count is set
+    to 0 before and read after: the path runs none of them."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.roofline import (measure_cell, model_flops,
+                                             roofline_terms, truncate_config)
+
+    card = card_label()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    cfg = get_config("llama3-8b")
+    n1, n2 = ROOF_UNITS
+    full = cfg.num_layers
+    for kind, seq, batch in ROOF_STEPS:
+        sp = ShapeSpec(f"{kind}_{batch}x{seq}", seq, batch, kind)
+        rec = measure_cell(cfg, sp, n1=n1, n2=n2, verbose=False)
+        if rec["status"] != "ok":
+            fail(f"roofline {sp.name}: counting failed: {rec['error']}")
+        if rec["linear_gap"] != {"flops": 0.0, "bytes": 0.0}:
+            fail(f"roofline {sp.name}: meta counts are not linear in depth: "
+                 f"{rec['linear_gap']}")
+        runs, least = {}, {}
+        for n in (n1, n2):
+            depth = rec["depths"][str(n)]
+            counted = depth["counters"]
+            runs[n] = card_step(truncate_config(cfg, n), sp)
+            run = runs[n]
+            matmul = sum(v for k, v in counted.items() if k.startswith("flops_matmul:"))
+            ferr = abs(run["prof_flops"] - run["counted_flops"]) / run["counted_flops"]
+            least[n] = depth["memory"]["argument_size_in_bytes_one_card"] / H100_BYTES_PER_S
+            terms = roofline_terms(counted)
+            peak = depth["memory"]["peak_live_bytes"]
+            perr = abs(peak - run["peak"]) / run["peak"]
+            print(f"roofline {sp.name} at {n} layers [{card}]: {run['s'] * 1e3:.3f} ms "
+                  f"(median of {ROOF_REPEATS}); matmul FLOPs counted {matmul:.6e}; "
+                  f"without early stop counted {run['counted_flops']:.6e}, profiler "
+                  f"{run['prof_flops']:.6e} ({ferr:.2e} apart, bound "
+                  f"{ROOF_FLOP_TOL}); compute {terms['compute_s'] * 1e3:.3f} ms, least "
+                  f"traffic {least[n] * 1e3:.3f} ms; peak live counted {peak / 2**30:.3f} "
+                  f"GiB, max_memory_allocated {run['peak'] / 2**30:.3f} GiB ({perr:.2e} "
+                  f"apart, bound {ROOF_PEAK_TOL})")
+            if not ferr <= ROOF_FLOP_TOL:
+                fail(f"roofline {sp.name} at {n} layers: the profiler's matmul FLOPs "
+                     f"{run['prof_flops']} are {ferr:.3e} from the counted "
+                     f"{run['counted_flops']}")
+            if not perr <= ROOF_PEAK_TOL:
+                fail(f"roofline {sp.name} at {n} layers: counted peak {peak} is "
+                     f"{perr:.3e} from max_memory_allocated {run['peak']}")
+            if run["s"] < ROOF_TIME_FLOOR * max(terms["compute_s"], least[n]):
+                fail(f"roofline {sp.name} at {n} layers: {run['s']} s beats its bound "
+                     f"(compute {terms['compute_s']}, least traffic {least[n]}): a "
+                     "count is wrong")
+        c = rec["counters"]
+        terms = roofline_terms(c)
+        measured = _line(n1, runs[n1]["s"], n2, runs[n2]["s"], full)
+        least_full = _line(n1, least[n1], n2, least[n2], full)
+        if measured < ROOF_TIME_FLOOR * max(terms["compute_s"], least_full):
+            fail(f"roofline {sp.name}: {measured} s at {full} layers beats its bound")
+        mf = model_flops(cfg, sp)
+        extra = ""
+        if kind == "decode":
+            dec = _line(n1, runs[n1]["decode_bound_s"], n2, runs[n2]["decode_bound_s"], full)
+            extra = f", decode_bound_ms {dec * 1e3:.3f} ms (weights but the embedding, caches)"
+        print(f"roofline {sp.name} at {full} layers (from {n1} and {n2}) [{card}]: "
+              f"flops {c['flops']:.6e} (matmul bf16 {c.get('flops_matmul:bfloat16', 0):.6e}, "
+              f"f32 {c.get('flops_matmul:float32', 0):.6e}, pointwise "
+              f"{c['flops_pointwise']:.6e}), bytes {c['bytes']:.6e}; compute_s "
+              f"{terms['compute_s']:.6f}, memory_s {terms['memory_s']:.6f}, bound_s "
+              f"{terms['bound_s']:.6f} ({terms['dominant']}); least traffic "
+              f"{least_full:.6f} s{extra}; measured_s {measured:.6f}; roofline_fraction "
+              f"{terms['bound_s'] / measured:.4f}; mfu {mf / H100_BF16_FLOPS / measured:.4f} "
+              f"(model_flops {mf:.6e})")
+    for arch, shape in ROOF_DRYRUN:
+        rec = run_cell(arch, shape, False, verbose=False)
+        if rec["status"] != "ok":
+            fail(f"dry run {arch} x {shape}: {rec.get('error')}")
+        mem = rec["memory"]
+        print(f"dryrun {arch} x {shape} x 16x16 (unpartitioned counts on meta, "
+              f"{rec['count_s']:.1f} s on the card's host): flops "
+              f"{rec['cost']['flops']:.4e}, bytes {rec['cost']['bytes accessed']:.4e}, "
+              f"args {mem['argument_size_in_bytes'] / 1e9:.3f} GB a device of the mesh, "
+              f"one card: args {mem['argument_size_in_bytes_one_card'] / 1e9:.3f} GB, "
+              f"peak {mem['peak_live_bytes'] / 1e9:.3f} GB")
+    launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    print(f"roofline phase [{card}]: {time.perf_counter() - t0:.1f} s; launches",
+          json.dumps(launches))
+    for name, count in launches.items():
+        if count != EXACT_LAUNCHES["roofline"][name]:
+            fail(f"roofline: {name} launched {count} times, not 0")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -2056,6 +2277,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     import torch
+
+    global H100_BYTES_PER_S, H100_F32_FLOPS, H100_TF32_FLOPS, H100_BF16_FLOPS
+    from repro_torch.launch.roofline import (H100_BF16_FLOPS, H100_BYTES_PER_S,
+                                             H100_F32_FLOPS, H100_TF32_FLOPS)
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2082,7 +2307,8 @@ def main() -> int:
     prof, cut_res, cut_hop, cut_launches = traced_run("cut", counters)
     _, vol_res, vol_hop, vol_launches = traced_run("volume", counters, prof)
     with StepperSpy() as spy:
-        _, dev_res, dev_hop, dev_launches = traced_run("device", counters, prof)
+        _, dev_res, dev_hop, dev_launches = traced_run("device", counters, prof,
+                                                       reset=spy.reset)
     check_result(prof, cut_res, "cut", cut_hop)
     check_result(prof, vol_res, "volume", vol_hop)
     check_device_run(prof, cut_res, dev_res, dev_hop, dev_launches, spy)
@@ -2096,6 +2322,7 @@ def main() -> int:
     check_profile_raster(prof, dev)
     runs.append(serve_phase(counters))
     runs.append(train_phase(counters))
+    runs.append(roofline_phase(counters))
     launches = {name: sum(run[name] for run in runs) for name in counters}
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "repro")]

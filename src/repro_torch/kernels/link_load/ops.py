@@ -6,6 +6,8 @@ per-link load vectors (the ``repro_torch.nocsim.xy`` directed-link id
 layout), which the batched queued engine uses to screen contention-free
 windows without any cycle stepping.  ``window_link_loads`` computes the
 same from dense per-window (K, K) core-to-core count matrices.
+``edge_variance`` is the paper's Eq. 4-5 over one traffic matrix, and
+``flatten_link_maps`` lays (E, W, S, N) load maps out as flat link ids.
 """
 from __future__ import annotations
 
@@ -18,8 +20,8 @@ from repro_torch.nocsim.xy import link_count
 from .kernel import MAX_RECORDS, link_loads_cuda, link_loads_records_cuda
 from .ref import MAX_CORES, link_loads_records_ref, link_loads_ref
 
-__all__ = ["link_loads", "link_loads_records", "record_link_loads",
-           "window_link_loads"]
+__all__ = ["edge_variance", "flatten_link_maps", "link_loads",
+           "link_loads_records", "record_link_loads", "window_link_loads"]
 
 
 def link_loads(counts: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
@@ -120,3 +122,32 @@ def window_link_loads(
     if not out:
         return np.empty((0, link_count(mesh_w, mesh_h)), dtype=np.int64)
     return np.concatenate(out).astype(np.int64)
+
+
+def flatten_link_maps(e: torch.Tensor, w_: torch.Tensor, s: torch.Tensor,
+                      n: torch.Tensor, mesh_w: int, mesh_h: int) -> torch.Tensor:
+    """Concatenate (E, W, S, N) maps into the flat directed-link id layout.
+
+    Row-major raveling of each map lands every entry exactly at its
+    ``repro_torch.nocsim.xy`` link id: ``east[y, x] -> y*(W-1)+x`` and so on
+    for the W/S/N blocks.  Maps may arrive padded; only the leading
+    (H, W-1) / (W, H-1) blocks are real.
+    """
+    return torch.cat([e[:mesh_h, :mesh_w - 1].reshape(-1),
+                      w_[:mesh_h, :mesh_w - 1].reshape(-1),
+                      s[:mesh_w, :mesh_h - 1].reshape(-1),
+                      n[:mesh_w, :mesh_h - 1].reshape(-1)])
+
+
+def edge_variance(traffic: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                  mesh_w: int, mesh_h: int) -> torch.Tensor:
+    """Paper Eq. 4-5 over partition-level traffic: the population variance
+    (a 0-d f64 tensor) of the XY link loads of (K, K) integer spike counts
+    between partitions placed at (x, y).  The loads come from the
+    ``link_loads`` kernel on CUDA, from its plain version on the CPU."""
+    if traffic.is_floating_point() and not torch.equal(traffic, traffic.round()):
+        raise ValueError("edge_variance takes integer spike counts")
+    counts = traffic.to(torch.int32)[None]
+    x, y = x.to(torch.int32), y.to(torch.int32)
+    flat = link_loads(counts, x, y, mesh_w, mesh_h)[0].to(torch.float64)
+    return flat.var(unbiased=False)

@@ -2,10 +2,10 @@
 and the LLM scaffolding's serving and training paths — meshes (`mesh`),
 the train, prefill and serve steps (`steps`), batched serving (`serve`,
 ``python -m repro_torch.launch.serve``) and the fault-tolerant training
-loop (`train`, ``python -m repro_torch.launch.train``).
-
-The reference's XLA tooling (dry-run, roofline; ROADMAP queue 1, item 13)
-is not ported yet.
+loop (`train`, ``python -m repro_torch.launch.train``); and the dry run
+and roofline from op counts of those steps on the meta device
+(`op_analysis`, `dryrun`, `roofline`, `hillclimb`, `report`; each with
+``python -m``), where the reference reads XLA's compiled HLO.
 """
 from .mesh import (Mesh, batch_axes_of, make_local_mesh, make_mesh_with_layout,
                    make_production_mesh)

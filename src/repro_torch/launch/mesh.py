@@ -18,8 +18,8 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["Mesh", "make_production_mesh", "make_local_mesh",
-           "make_mesh_with_layout", "batch_axes_of"]
+__all__ = ["Mesh", "make_production_mesh", "make_abstract_mesh",
+           "make_local_mesh", "make_mesh_with_layout", "batch_axes_of"]
 
 
 @dataclass
@@ -63,6 +63,14 @@ def make_production_mesh(*, multi_pod: bool = False,
         raise RuntimeError(f"need {n} devices for {axes} {shape}, have "
                            f"{len(devices)}")
     return Mesh(axes, _grid(devices[:n], shape))
+
+
+def make_abstract_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The production mesh's axes and shape over placeholder ``meta``
+    devices: what the planner reads, for planning a cell without its cards
+    (`repro_torch.launch.dryrun`)."""
+    shape, axes = _pod(multi_pod)
+    return Mesh(axes, _grid([torch.device("meta")] * int(np.prod(shape)), shape))
 
 
 def make_local_mesh(model_parallel: int = 1,

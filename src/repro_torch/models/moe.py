@@ -26,6 +26,14 @@ import torch.nn.functional as F
 __all__ = ["moe_ffn", "router_topk"]
 
 
+def _bincount(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(ids, minlength=n)`` for ids below ``n``, by an
+    integer ``index_add_``: exact in any order, and it has a meta kernel,
+    which ``bincount`` (whose output size depends on the values) lacks."""
+    return torch.zeros(n, dtype=torch.int64, device=ids.device).index_add_(
+        0, ids, torch.ones_like(ids, dtype=torch.int64))
+
+
 def router_topk(logits: torch.Tensor, top_k: int):
     """Softmax-then-top-k with renormalized combine weights.
 
@@ -39,7 +47,7 @@ def router_topk(logits: torch.Tensor, top_k: int):
     e = logits.shape[-1]
     # f_e: fraction of tokens whose top-1 hits e; P_e: mean router prob.
     top1 = experts[:, 0]
-    f = torch.bincount(top1, minlength=e).float() / top1.shape[0]
+    f = _bincount(top1, e).float() / top1.shape[0]
     p_mean = probs.mean(0)
     aux = e * torch.sum(f * p_mean)
     return weights, experts, aux
@@ -70,7 +78,7 @@ def _dispatch_combine(
     se, st, sw = sort_key[order], flat_t[order], flat_w[order]
     # Rank within each expert: position in the sorted list minus the
     # expert's first position.
-    counts = torch.bincount(se, minlength=e_loc + 1)
+    counts = _bincount(se, e_loc + 1)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(se.shape[0], device=dev) - starts[se]
     keep = (se < e_loc) & (rank < capacity)

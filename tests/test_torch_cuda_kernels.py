@@ -28,6 +28,7 @@ from repro_torch.kernels.lif_step import synapses_from_dense  # noqa: E402
 from repro_torch.kernels.link_load import kernel as link_kernel  # noqa: E402
 from repro_torch.kernels.link_load import link_loads_records_ref  # noqa: E402
 from repro_torch.kernels.link_load import link_loads_ref, window_link_loads  # noqa: E402
+from repro_torch.kernels.link_load import edge_variance  # noqa: E402
 from repro_torch.kernels.link_load.ref import dense_to_records, pack_routes  # noqa: E402
 from repro_torch.snn import make_snn, profile_drive  # noqa: E402
 from repro_torch.kernels.swap_delta import kernel as swap_kernel  # noqa: E402
@@ -250,6 +251,25 @@ def test_link_loads_record_kernel_matches_plain_exactly(cuda, case):
     assert link_kernel.launches == before + 1
     assert got.shape == (len(sizes), 2 * (w - 1) * h + 2 * w * (h - 1))
     assert torch.equal(got, link_loads_records_ref(woff, rec, count, x, y, w, h))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,w,h", [(5, 5, 5), (141, 16, 16), (256, 16, 16)])
+def test_edge_variance_kernel_matches_plain(cuda, k, w, h):
+    """Eq. 4-5 on the card (one link_loads launch) equals the CPU's plain
+    version within rtol 1e-12: the loads are exact integers on both, and
+    the f64 variance over them reduces in another order on the card."""
+    c = RNG.integers(0, 600, (k, k)) * (RNG.random((k, k)) < 0.3)
+    cores = RNG.permutation(w * h)[:k]
+    x = torch.tensor((cores % w).astype(np.int32))
+    y = torch.tensor((cores // w).astype(np.int32))
+    traffic = torch.tensor(c.astype(np.int32))
+    before = link_kernel.launches
+    got = edge_variance(traffic.to(cuda), x.to(cuda), y.to(cuda), w, h)
+    assert link_kernel.launches == before + 1
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(float(got), float(edge_variance(traffic, x, y, w, h)),
+                               rtol=1e-12)
 
 
 @pytest.mark.cuda

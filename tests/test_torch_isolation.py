@@ -32,7 +32,10 @@ def test_importing_the_port_loads_no_jax_or_reference_module():
         "repro_torch.configs, repro_torch.launch.serve, repro_torch.launch.steps, "
         "repro_torch.launch.mesh, repro_torch.launch.train, repro_torch.optim, "
         "repro_torch.optim.adamw, repro_torch.data, repro_torch.data.pipeline, "
-        "repro_torch.runtime.checkpoint, repro_torch.runtime.elastic\n"
+        "repro_torch.runtime.checkpoint, repro_torch.runtime.elastic, "
+        "repro_torch.configs.shapes, repro_torch.launch.op_analysis, "
+        "repro_torch.launch.dryrun, repro_torch.launch.roofline, "
+        "repro_torch.launch.hillclimb, repro_torch.launch.report\n"
         "[repro_torch.configs.get_config(n) for n in repro_torch.configs.ARCHS]\n"
         "import repro_torch.kernels.lif_step, repro_torch.kernels.gain_eval, "
         "repro_torch.kernels.swap_delta, repro_torch.kernels.link_load, "

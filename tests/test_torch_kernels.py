@@ -38,6 +38,7 @@ from repro_torch.kernels.lif_step import kernel as lif_kernel  # noqa: E402
 from repro_torch.kernels.lif_step import lif_step  # noqa: E402
 from repro_torch.kernels.link_load import kernel as link_kernel  # noqa: E402
 from repro_torch.kernels.link_load import link_loads, window_link_loads  # noqa: E402
+from repro_torch.kernels.link_load import edge_variance, flatten_link_maps  # noqa: E402
 from repro_torch.kernels.link_load import (  # noqa: E402
     link_loads_records,
     link_loads_records_ref,
@@ -251,6 +252,40 @@ def test_link_loads_plain_matches_reference(k, w, h):
                  ref_link.link_loads(*jargs, backend="interpret")):
         flat = np.asarray(ref_link.flatten_link_maps(*maps, w, h))
         np.testing.assert_array_equal(got, np.rint(flat).astype(np.int32))
+
+
+@pytest.mark.parametrize("k,w,h,pad", [(5, 5, 5, 0), (30, 8, 4, 3), (256, 16, 16, 1)])
+def test_flatten_link_maps_matches_reference_bitwise(k, w, h, pad):
+    """The reference's (E, W, S, N) maps, padded by ``pad`` rows and
+    columns as a kernel's output may be, flatten to the same ids."""
+    c = RNG.integers(0, 30, (k, k)).astype(np.float32)
+    cores = RNG.permutation(w * h)[:k]
+    maps = ref_link.link_loads_ref(jnp.asarray(c), jnp.asarray(cores % w),
+                                   jnp.asarray(cores // w), w, h)
+    maps = [jnp.pad(m, ((0, pad), (0, pad))) for m in maps]
+    got = flatten_link_maps(*[t(np.asarray(m)) for m in maps], w, h)
+    want = np.asarray(ref_link.flatten_link_maps(*maps, w, h))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("k,w,h", [(5, 5, 5), (30, 8, 4), (141, 16, 16), (256, 16, 16)])
+def test_edge_variance_matches_reference(k, w, h):
+    """Eq. 4-5 over partition traffic placed on the mesh: the reference's
+    f32 variance within rtol 1e-6; float counts and int counts agree."""
+    c = RNG.integers(0, 600, (k, k)) * (RNG.random((k, k)) < 0.3)
+    cores = RNG.permutation(w * h)[:k]
+    x, y = (cores % w).astype(np.int32), (cores // w).astype(np.int32)
+    want = float(ref_link.edge_variance(jnp.asarray(c.astype(np.float32)),
+                                        jnp.asarray(x), jnp.asarray(y), w, h,
+                                        backend="jnp"))
+    got = edge_variance(t(c), t(x), t(y), w, h)
+    assert got.dtype == torch.float64 and got.shape == ()
+    np.testing.assert_allclose(float(got), want, rtol=1e-6)
+    same = edge_variance(t(c.astype(np.float32)), t(x), t(y), w, h)
+    assert float(same) == float(got)
+    with pytest.raises(ValueError, match="integer"):
+        edge_variance(t(c + 0.5), t(x), t(y), w, h)
 
 
 @pytest.mark.parametrize("w,h,windows", [(8, 4, 3), (16, 16, 2)])
