@@ -678,6 +678,9 @@ PATHS = {
     # chunked softmax, autograd, AdamW); no TPU kernel lies on them.
     "serve": (),
     "train": (),
+    # The ranks' serving and island runs are torch ops and collectives;
+    # the parent recomputes the islands' hop cost on the card.
+    "ranks": ("hop_cost",),
 }
 SHARDED_RUNS = ("sharded_cut", "sharded_stream", "sharded_volume")
 FAULT_RUNS = ("fault_zero", "fault_incremental", "fault_scratch", "fault_link")
@@ -862,7 +865,10 @@ EXACT_LAUNCHES = {"cut": {"lif_step": SLICE["num_steps"], "link_loads": 1,
                      for run in SHARDED_RUNS + ("layout", "serve", "train",
                                                 "roofline")},
                   "island": {"lif_step": 0, "swap_deltas": 0, "link_loads": 1,
-                             "hop_cost": 1}}
+                             "hop_cost": 1},
+                  "ranks": {"lif_step": 0, "part_degrees": 0,
+                            "connectivity_degrees": 0, "swap_deltas": 0,
+                            "link_loads": 0, "hop_cost": 1}}
 
 
 # `torch.cuda._sleep`'s kernel, launched last in every traced run: a trace
@@ -1398,11 +1404,12 @@ def sharded_runs(prof, cut, vol, counters) -> dict:
     return launches
 
 
-def island_run(prof, cut, counters) -> dict:
+def island_run(prof, cut, counters) -> tuple[dict, dict]:
     """``run_toolchain(mapper="island")`` with the reference's defaults and
     the torch stepper, traced: the cut run's partition, an injective
     placement within ``ISLAND_HOP_BOUND`` of the cut run's avg_hop, and
-    the same placement from the same seed again."""
+    the same placement from the same seed again.  Returns the launches
+    and the search's traffic, seed and placement (for `ranks_phase`)."""
     import numpy as np
     import torch
 
@@ -1424,11 +1431,12 @@ def island_run(prof, cut, counters) -> dict:
         fail(f"island: avg_hop {res.mapping.avg_hop!r} exceeds "
              f"{ISLAND_HOP_BOUND} x the cut run's ({bound!r})")
     traffic = slice_traffic(prof, res, "island")
+    seed = phase_seeds(SLICE["seed"])[1]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     again = MAPPERS["island"](traffic, SLICE["mesh_w"] * SLICE["mesh_h"],
-                              SLICE["mesh_w"], int(traffic.sum()),
-                              seed=phase_seeds(SLICE["seed"])[1], device="cuda")
+                              SLICE["mesh_w"], int(traffic.sum()), seed=seed,
+                              device="cuda")
     again_s = time.perf_counter() - t0
     if not np.array_equal(again.placement, placement):
         fail("island: the same seed gave another placement")
@@ -1436,7 +1444,8 @@ def island_run(prof, cut, counters) -> dict:
           f"{cut.mapping.avg_hop!r}); {res.mapping.evaluations} evaluations, "
           f"search {res.mapping.seconds:.3f} s traced, {again_s:.3f} s "
           f"untraced with the same placement")
-    return launches
+    return launches, {"traffic": traffic, "seed": seed, "placement": placement,
+                      "seconds": again_s}
 
 
 def layout_runs(counters) -> dict:
@@ -1508,6 +1517,312 @@ def check_profile_raster(prof, dev) -> None:
     print(f"profile raster: card == CPU bitwise over {steps} steps "
           f"({int(card.sum())} firings); step loop {loop_s:.4f} s on the card "
           f"({steps} launches), {cpu_s:.2f} s on the CPU path")
+
+
+# ------------------------------------------------------------- ranks phase
+
+# The rank runs serve qwen3-moe-30b-a3b at its published width (d_model
+# 2048, 32 heads, kv 4, 128 experts top-8, moe_d_ff 768, vocab 151,936),
+# its depth cut from 48 layers, from a torch.Generator seeded RANKS["seed"]
+# on the card; every rank is a process on cuda:0, joined over gloo.
+RANKS_ARCH = "qwen3-moe-30b-a3b"
+RANKS = dict(batch=4, prompt_len=32, gen_len=8, seed=0)
+RANKS_PARITY_LAYERS = 2  # f32, held to the unsharded run
+RANKS_TIMING_LAYERS = 4  # bf16, timed on the (1, 2) mesh
+RANKS_WORLD = 4
+RANKS_TOL = 1e-5  # of max|logit|: only the shard sum's order differs
+RANKS_TIMEOUT_S = 300.0  # a collective that waits longer fails the job
+RANKS_COLLECTIVES = 50  # all_reduces timed alone
+
+
+def ranks_config(layers: int, dtype: str):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(RANKS_ARCH), num_layers=layers,
+                               param_dtype=dtype, activation_dtype=dtype)
+
+
+def _expert_leaves(model) -> dict:
+    """A model's expert leaves, stacked over its layers as the reference
+    stacks them: (L, E_loc, D, F) and (L, E_loc, F, D)."""
+    import torch
+
+    return {k: torch.stack([getattr(b.moe, k) for b in model.layers])
+            for k in ("w_gate", "w_up", "w_down")}
+
+
+def _served(res: dict, mesh) -> dict:
+    """A serve_batch result as a rank hands it back: its tokens and a hash
+    of its logits, and the logits themselves from model coordinate 0."""
+    import hashlib
+
+    logits = res["logits"]
+    out = {"tokens": res["tokens"], "prefill_s": res["prefill_s"],
+           "decode_s_per_tok": res["decode_s_per_tok"],
+           "finite": bool(logits.isfinite().all()),
+           "logits_hash": hashlib.sha256(logits.numpy().tobytes()).hexdigest()}
+    if mesh.coord["model"] == 0:
+        out["logits"] = logits
+    return out
+
+
+def ranks_body(prompts, traffic, island_seed: int) -> dict:
+    """What each of RANKS_WORLD ranks runs (`run_ranks`): the f32 model on
+    the (1, 4) mesh, its expert leaves moved to the (1, 2) mesh (ranks 0
+    and 1; `remesh_params`) and held bitwise to the experts of the f32
+    model built for that mesh, which then serves; the bf16 model served
+    twice on the (1, 2) mesh; the island SA with one island a rank.
+    Returns the results and this process's kernel launch counts."""
+    import torch
+
+    from repro_torch.core.mapping_device import island_sa
+    from repro_torch.launch import serve_batch
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.launch.steps import expert_shard
+    from repro_torch.models import Model, build_model
+    from repro_torch.runtime import Sharded, remesh_params
+    from repro_torch.sharding import ShardingPlan, plan_params
+
+    counters = launch_counters()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    mesh4 = make_rank_mesh((1, 4), device="cuda")
+    mesh2 = make_rank_mesh((1, 2), device="cuda", ranks=(0, 1))
+    islands = make_rank_mesh((RANKS_WORLD,), ("data",), device="cuda")
+    cfg = ranks_config(RANKS_PARITY_LAYERS, "float32")
+    kw = dict(seed=RANKS["seed"], keep_logits=True, print_fn=lambda *_: None)
+
+    def build(cfg, mesh):
+        return build_model(cfg, mesh.device, seed=RANKS["seed"],
+                           expert_shard=expert_shard(cfg, mesh))
+
+    shapes = Model(cfg, "meta").param_shapes()
+
+    def expert_specs(mesh) -> dict:  # the planner's expert rule on ``mesh``
+        moe = plan_params(ShardingPlan(mesh_shape=mesh.shape), shapes)["layers"]["moe"]
+        return {"layers": {"moe": {k: moe[k] for k in ("w_gate", "w_up", "w_down")}}}
+
+    out = {}
+    model = build(cfg, mesh4)
+    out["parity_1x4"] = _served(serve_batch(cfg, mesh4, prompts, RANKS["gen_len"],
+                                            model=model, **kw), mesh4)
+    # This rank's expert leaves as placed on the (1, 4) mesh.
+    spec4 = expert_specs(mesh4)["layers"]["moe"]
+    pos = tuple(mesh4.coord.values())
+    placed = {"layers": {"moe": {
+        k: Sharded({pos: leaf}, tuple(shapes["layers"]["moe"][k]), mesh4, spec4[k])
+        for k, leaf in _expert_leaves(model).items()}}}
+    del model
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    moved = remesh_params(placed, mesh2, expert_specs(mesh2))["layers"]["moe"]
+    torch.cuda.synchronize()
+    remesh_s = time.perf_counter() - t0
+    del placed
+    torch.cuda.empty_cache()
+    if mesh2.is_member:
+        model = build(cfg, mesh2)
+        want = _expert_leaves(model)
+        out["remesh"] = {
+            "exact": all(torch.equal(moved[k].local, want[k]) for k in want),
+            "bytes": sum(moved[k].local.numel() * moved[k].local.element_size()
+                         for k in want), "seconds": remesh_s}
+        del moved, want
+        out["parity_1x2"] = _served(serve_batch(cfg, mesh2, prompts,
+                                                RANKS["gen_len"], model=model,
+                                                **kw), mesh2)
+        del model
+        torch.cuda.empty_cache()
+        timing = ranks_config(RANKS_TIMING_LAYERS, "bfloat16")
+        torch.cuda.reset_peak_memory_stats()
+        model = build(timing, mesh2)
+        first = serve_batch(timing, mesh2, prompts, RANKS["gen_len"], model=model,
+                            **kw)
+        again = serve_batch(timing, mesh2, prompts, RANKS["gen_len"], model=model,
+                            **kw)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        del model
+        # One decode step's collective alone: the all_reduce of a MoE
+        # layer's (B, 1, D) output over the model axis.
+        step = torch.ones((RANKS["batch"], 1, timing.d_model),
+                          dtype=torch.bfloat16, device=mesh2.device)
+        mesh2.all_reduce(step, "model")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RANKS_COLLECTIVES):
+            mesh2.all_reduce(step, "model")
+        torch.cuda.synchronize()
+        out["timing"] = dict(_served(again, mesh2),
+                             first_tokens=first["tokens"],
+                             first_prefill_s=first["prefill_s"],
+                             first_decode_s_per_tok=first["decode_s_per_tok"],
+                             peak_bytes=peak,
+                             all_reduce_s=(time.perf_counter() - t0)
+                             / RANKS_COLLECTIVES)
+        torch.cuda.empty_cache()
+    else:
+        out["remesh"] = {"none": moved is None or all(
+            v is None for v in moved.values())}
+    res = island_sa(traffic, SLICE["mesh_w"] * SLICE["mesh_h"], SLICE["mesh_w"],
+                    int(traffic.sum()), seed=island_seed, mesh=islands,
+                    axis="data")
+    out["island"] = {"placement": res.placement, "avg_hop": res.avg_hop,
+                     "seconds": res.seconds, "evaluations": res.evaluations}
+    out["launches"] = {name: getattr(mod, attr)
+                       for name, (mod, attr) in counters.items()}
+    return out
+
+
+def _held_to(name: str, card: str, members: list, want: dict, tol: float) -> float:
+    """Every rank's greedy tokens equal the unsharded run's, every rank's
+    logits the same bits (their hashes), and model coordinate 0's logits
+    within ``tol`` of max|logit| of the unsharded run's; returns the
+    error."""
+    import numpy as np
+
+    if len({m["logits_hash"] for m in members}) != 1:
+        fail(f"ranks {name}: the ranks' logits differ")
+    for m in members:
+        if not np.array_equal(m["tokens"], want["tokens"]):
+            fail(f"ranks {name}: greedy tokens {m['tokens'].tolist()} differ "
+                 f"from the unsharded run's {want['tokens'].tolist()}")
+    logits = next(m["logits"] for m in members if "logits" in m)
+    ref = want["logits"]
+    err = float((logits - ref).abs().max() / ref.abs().max())
+    if not err <= tol:
+        fail(f"ranks {name}: logits {err!r} of max|logit| from the unsharded "
+             f"run's, beyond {tol}")
+    print(f"ranks {name} [{card}]: {len(members)} ranks; greedy tokens equal "
+          f"the unsharded run's; logits {err:.3e} of max|logit| from it "
+          f"(bound {tol})")
+    return err
+
+
+def ranks_phase(counters, island: dict) -> dict:
+    """The rank path on the card (`ranks_body` on RANKS_WORLD processes,
+    all on cuda:0 over gloo): qwen3-moe-30b-a3b at full width with 2 layers
+    in f32 on (1, 4) and (1, 2) rank meshes against the unsharded model on
+    the same weights (tokens equal, logits within RANKS_TOL of
+    max|logit|); the (1, 4) mesh's expert leaves moved to the (1, 2) mesh,
+    bitwise that mesh's own; the model with 4 layers in bf16 timed on
+    (1, 2) beside the unsharded model (finite logits, tokens repeating
+    run to run); and the island SA with one island a rank, bitwise the
+    batched islands of `island_run`, its avg_hop recomputed here on the
+    hop_cost kernel.  Every launch count is set to 0 before and read
+    after, the ranks' own included."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.hop_eval import hop_cost
+    from repro_torch.launch import make_local_mesh, serve_batch
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import build_model
+
+    card = card_label()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t_phase = time.perf_counter()
+    cfg = ranks_config(RANKS_PARITY_LAYERS, "float32")
+    prompts, _ = serve_prompts(cfg, RANKS["batch"], RANKS["prompt_len"],
+                               RANKS["seed"])
+    one = make_local_mesh(device="cuda")
+    kw = dict(keep_logits=True, print_fn=lambda *_: None)
+    torch.cuda.empty_cache()
+    model = build_model(cfg, "cuda", seed=RANKS["seed"])
+    want = serve_batch(cfg, one, prompts, RANKS["gen_len"], model=model, **kw)
+    del model
+    timing = ranks_config(RANKS_TIMING_LAYERS, "bfloat16")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(timing, "cuda", seed=RANKS["seed"])
+    serve_batch(timing, one, prompts, RANKS["gen_len"], model=model, **kw)
+    alone = serve_batch(timing, one, prompts, RANKS["gen_len"], model=model, **kw)
+    alone_peak = torch.cuda.max_memory_allocated()
+    del model
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    got = run_ranks(ranks_body, RANKS_WORLD, ROOT / "build" / "ranks", prompts,
+                    island["traffic"], island["seed"], device="cuda",
+                    timeout_s=RANKS_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+
+    _held_to("f32 (1, 4)", card, [r["parity_1x4"] for r in got], want, RANKS_TOL)
+    _held_to("f32 (1, 2)", card, [r["parity_1x2"] for r in got[:2]], want,
+             RANKS_TOL)
+    for rank, r in enumerate(got):
+        if rank < 2 and not r["remesh"]["exact"]:
+            fail(f"ranks remesh: rank {rank}'s experts moved from the 4-rank "
+                 "mesh differ from the 2-rank mesh's own")
+        if rank >= 2 and not r["remesh"]["none"]:
+            fail(f"ranks remesh: rank {rank}, off the 2-rank mesh, holds a block")
+    moved = got[0]["remesh"]
+    print(f"ranks remesh [{card}]: the experts of {RANKS_PARITY_LAYERS} layers "
+          f"moved from (1, 4) to (1, 2) in {moved['seconds']:.3f} s "
+          f"({moved['bytes'] / 2**30:.3f} GiB a rank after); bitwise the (1, 2) "
+          "mesh's own shards")
+    print(f"ranks bf16 ({RANKS_TIMING_LAYERS} layers) unsharded [{card}]: prefill "
+          f"{alone['prefill_s'] * 1e3:.3f} ms ({RANKS['batch']} x "
+          f"{RANKS['prompt_len']} tokens); decode "
+          f"{alone['decode_s_per_tok'] * 1e3:.3f} ms a token, "
+          f"{RANKS['batch'] / alone['decode_s_per_tok']:.1f} tokens/s; peak "
+          f"memory {alone_peak / 2**30:.3f} GiB (max_memory_allocated)")
+    for rank, r in enumerate(got[:2]):
+        t = r["timing"]
+        if not t["finite"]:
+            fail(f"ranks bf16: rank {rank}'s logits are not finite")
+        if not np.array_equal(t["tokens"], t["first_tokens"]):
+            fail(f"ranks bf16: rank {rank}'s second serve gave other tokens")
+        if not np.array_equal(t["tokens"], got[0]["timing"]["tokens"]):
+            fail("ranks bf16: the ranks' greedy tokens differ")
+        print(f"ranks bf16 ({RANKS_TIMING_LAYERS} layers) (1, 2) rank {rank} "
+              f"[{card}]: prefill {t['prefill_s'] * 1e3:.3f} ms (first call "
+              f"{t['first_prefill_s'] * 1e3:.3f}); decode "
+              f"{t['decode_s_per_tok'] * 1e3:.3f} ms a token (first call "
+              f"{t['first_decode_s_per_tok'] * 1e3:.3f}), "
+              f"{RANKS['batch'] / t['decode_s_per_tok']:.1f} tokens/s; peak "
+              f"memory {t['peak_bytes'] / 2**30:.3f} GiB (max_memory_allocated); "
+              f"one decode step's all_reduce alone "
+              f"{t['all_reduce_s'] * 1e3:.3f} ms (mean of {RANKS_COLLECTIVES})")
+    placement = island["placement"]
+    for rank, r in enumerate(got):
+        if not np.array_equal(r["island"]["placement"], placement):
+            fail(f"ranks island: rank {rank}'s placement differs from the "
+                 "batched islands'")
+        if r["island"]["avg_hop"] != got[0]["island"]["avg_hop"]:
+            fail("ranks island: the ranks' avg_hop differ")
+    traffic = island["traffic"]
+    x = torch.tensor(placement % SLICE["mesh_w"], dtype=torch.float32, device="cuda")
+    y = torch.tensor(placement // SLICE["mesh_w"], dtype=torch.float32,
+                     device="cuda")
+    hop = float(hop_cost(torch.tensor(traffic, dtype=torch.float32, device="cuda"),
+                         x, y)) / max(int(traffic.sum()), 1)
+    avg_hop = got[0]["island"]["avg_hop"]
+    if not np.isclose(hop, avg_hop, rtol=1e-6, atol=0.0):
+        fail(f"ranks island: hop_cost / trace_len = {hop!r} differs from avg_hop "
+             f"= {avg_hop!r} beyond rtol 1e-6")
+    print(f"ranks island [{card}]: {RANKS_WORLD} ranks, one island each: "
+          f"placement bitwise the batched islands'; avg_hop {avg_hop!r} "
+          f"(hop_cost {hop!r}); search {got[0]['island']['seconds']:.3f} s "
+          f"against {island['seconds']:.3f} s batched")
+    launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    in_ranks = {name: sum(r["launches"][name] for r in got) for name in launches}
+    print(f"ranks phase [{card}]: {time.perf_counter() - t_phase:.1f} s "
+          f"({ranks_s:.1f} s in the rank job); launches here "
+          f"{json.dumps(launches)}, in the ranks {json.dumps(in_ranks)}")
+    for name, count in in_ranks.items():
+        if count:
+            fail(f"ranks: the ranks launched {name} {count} times, not 0")
+    for name in PATHS["ranks"]:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the ranks phase")
+    for name, want_n in EXACT_LAUNCHES["ranks"].items():
+        if launches[name] != want_n:
+            fail(f"ranks: {name} launched {launches[name]} times, not {want_n}")
+    return {name: launches[name] + in_ranks[name] for name in launches}
 
 
 # ------------------------------------------------------------- serve phase
@@ -2317,9 +2632,11 @@ def main() -> int:
     runs += fault_runs(prof, cut_res, counters).values()
     runs.append(sweep_run(prof, cut_res, counters))
     runs += sharded_runs(prof, cut_res, vol_res, counters).values()
-    runs.append(island_run(prof, cut_res, counters))
+    island_launches, island = island_run(prof, cut_res, counters)
+    runs.append(island_launches)
     runs += layout_runs(counters).values()
     check_profile_raster(prof, dev)
+    runs.append(ranks_phase(counters, island))
     runs.append(serve_phase(counters))
     runs.append(train_phase(counters))
     runs.append(roofline_phase(counters))

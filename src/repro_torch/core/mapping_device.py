@@ -31,7 +31,8 @@ the run's device:
     (the reference's shard_map islands, one a device) as the config slots
     of one `_Population` over a shared traffic matrix, with a periodic
     exchange on the device that copies the global best chain into each
-    island's worst.
+    island's worst; or, on a mesh of ranks, one island a rank with the
+    exchange over ``all_gather``, bitwise the batched run.
 
 The registry keys stay the reference's (``"sa_jax"``, ``"polish"``,
 ``"island"`` in `mapping.MAPPERS`), so one `ToolchainConfig` selects the
@@ -369,15 +370,19 @@ def polish_search(
     )
 
 
-def _exchange(placement: torch.Tensor, cost: torch.Tensor) -> None:
+def _exchange(placement: torch.Tensor, cost: torch.Tensor,
+              gather=None) -> None:
     """The islands' exchange, in place and on the device (no host sync):
-    the lowest-cost chain of all I * P (first index on ties) is copied,
+    the lowest-cost chain of all islands' (first index on ties) is copied,
     with its cost, into each island's highest-cost chain.  ``placement``
-    is (I, P, NC), ``cost`` (I, P)."""
+    is (I, P, NC), ``cost`` (I, P): this process's islands.  ``gather``
+    (islands on ranks) turns them into every island's, rank-major."""
     islands, _, nc = placement.shape
-    flat = cost.view(-1).argmin().view(1)
-    best_place = placement.view(-1, nc).index_select(0, flat)
-    best_cost = cost.view(-1).index_select(0, flat)
+    all_place, all_cost = ((placement, cost) if gather is None
+                           else (gather(placement), gather(cost)))
+    flat = all_cost.reshape(-1).argmin().view(1)
+    best_place = all_place.reshape(-1, nc).index_select(0, flat)
+    best_cost = all_cost.reshape(-1).index_select(0, flat)
     rows = torch.arange(islands, device=cost.device)
     worst = cost.argmax(dim=1)
     placement[rows, worst] = best_place.expand(islands, nc)
@@ -396,16 +401,26 @@ def island_sa(
     chains_per_device: int = 4,
     torus: bool = False,
     device: "str | torch.device" = "cuda",
+    mesh=None,
+    axis: str = "data",
 ) -> MappingResult:
     """Island-model SA (registry: ``"island"``): ``n_dev`` independent
     populations of ``chains_per_device`` chains, with a periodic exchange
     of the global best into each island's worst chain.
 
-    ``n_dev`` is the island count, the reference's ``n_dev =
-    mesh.shape[axis]`` (one island a device of a jax mesh axis).  Here the
-    islands are the config slots of one `_Population` on ``device``, over
-    one traffic matrix expanded (not copied) to (n_dev, NC, NC), so each
-    temperature epoch of all islands is one CUDA graph on the card.
+    Without ``mesh``, ``n_dev`` is the island count, the reference's
+    ``n_dev = mesh.shape[axis]`` (one island a device of a jax mesh axis),
+    and the islands are the config slots of one `_Population` on
+    ``device``, over one traffic matrix expanded (not copied) to (n_dev,
+    NC, NC), so each temperature epoch of all islands is one CUDA graph on
+    the card.  With a mesh of ranks (`repro_torch.launch.mesh.
+    make_rank_mesh`), as the reference runs it, ``n_dev =
+    mesh.shape[axis]`` and the rank at index ``r`` of ``axis`` runs island
+    ``r`` on its device (``device`` is not read); the exchange and the
+    final choice ``all_gather`` every island's costs and chains over
+    ``axis``, rank-major, so every rank returns the result of the batched
+    run, bit for bit (the costs are f64 sums of integer products, exact in
+    any order).
     Island ``i`` draws its initial chains and every proposal from its own
     `torch.Generator` on ``device``, seeded with the i-th child of
     ``np.random.SeedSequence(seed).spawn(n_dev)`` (its first 32-bit
@@ -419,7 +434,14 @@ def island_sa(
     search is held to the reference test's quality bound, not to its
     placements.
     """
-    dev = resolve_device(device)
+    if mesh is None:
+        dev, islands, gather = resolve_device(device), range(n_dev), None
+    else:
+        n_dev, dev = mesh.shape[axis], mesh.device
+        islands = [mesh.coord[axis]]
+
+        def gather(local):  # this rank's (1, ...) -> every island's (n_dev, ...)
+            return mesh.all_gather(local[0], axis)
     start = time.perf_counter()
     k = traffic.shape[0]
     trace_length = max(trace_length, 1)  # zero-traffic profiles normalize by 1
@@ -427,23 +449,26 @@ def island_sa(
     sym = torch.tensor(padded + padded.T, dtype=torch.float64, device=dev)
     dist = torch.tensor(hop_distance_matrix(num_cores, mesh_w, torus=torus),
                         dtype=torch.float64, device=dev)
+    children = np.random.SeedSequence(seed).spawn(n_dev)
     gens, placements = [], []
-    for child in np.random.SeedSequence(seed).spawn(n_dev):
-        gen, pl = _chains(int(child.generate_state(1)[0]), chains_per_device,
-                          num_cores, dev)
+    for i in islands:
+        gen, pl = _chains(int(children[i].generate_state(1)[0]),
+                          chains_per_device, num_cores, dev)
         gens.append(gen)
         placements.append(pl)
-    t0 = 0.25 * float(_cost(sym, placements[0][0], dist)) / max(k, 1)
-    pop = _Population(sym.expand(n_dev, num_cores, num_cores), dist,
-                      torch.stack(placements), [t0] * n_dev, ISLAND_SWEEPS,
-                      gens)
+    placements = torch.stack(placements)
+    first = placements if gather is None else gather(placements)
+    t0 = 0.25 * float(_cost(sym, first[0, 0], dist)) / max(k, 1)
+    pop = _Population(sym.expand(len(islands), num_cores, num_cores), dist,
+                      placements, [t0] * len(islands), ISLAND_SWEEPS, gens)
     epochs = iters_per_round // ISLAND_SWEEPS
     for r in range(rounds):
         pop.temp.fill_(t0 * ALPHA ** (r * epochs))
         for _ in range(max(epochs, 1)):
             pop.run_epoch()
-        _exchange(pop.placement, pop.cost)
-    chains = pop.placement.view(-1, num_cores)
+        _exchange(pop.placement, pop.cost, gather)
+    chains = (pop.placement if gather is None
+              else gather(pop.placement)).reshape(-1, num_cores)
     costs = torch.stack([_cost(sym, pl, dist) for pl in chains])
     best = chains[int(torch.argmin(costs))]
     final_cost = float(_cost(sym, best, dist))

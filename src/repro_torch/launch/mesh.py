@@ -1,4 +1,5 @@
-"""Meshes over the visible cards, and the production pods' shapes.
+"""Meshes over the visible cards, meshes of ranks, and the production pods'
+shapes.
 
 Single pod: 16x16 = 256 devices, axes (data, model).
 Multi-pod:  2x16x16 = 512 devices, axes (pod, data, model) — the pod axis
@@ -8,28 +9,107 @@ A `Mesh` is a small dataclass: axis names and an object array of
 ``torch.device``s in the mesh's shape.  Nothing here touches a card
 (``torch.device("cuda", i)`` is a name), so a device list can be passed
 in to test the index arithmetic.
+
+A rank mesh (`make_rank_mesh`) is the same dataclass bound to the
+processes of a ``torch.distributed`` job, one rank a position: ``ranks``
+holds the rank at each position, and every set of axes has a process
+group (the ranks that differ only along those axes).  A function running
+on a rank reads its coordinate (`Mesh.coord`) and sums or gathers along
+axes (`Mesh.all_reduce`, `Mesh.all_gather`), as the body of the
+reference's ``shard_map`` does with ``axis_index``, ``psum`` and
+``all_gather``.  `run_ranks` starts such a job on this host: ``world``
+processes (``torch.multiprocessing.spawn``) joined through a ``file://``
+store in a directory the caller gives.  `backend_for` fixes the backend:
+gloo for CPU tensors and for ranks that share a card, NCCL where each
+rank has a card of its own (written, not yet run on several cards).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import itertools
+import os
+from dataclasses import dataclass, field
+from datetime import timedelta
+from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
 __all__ = ["Mesh", "make_production_mesh", "make_abstract_mesh",
-           "make_local_mesh", "make_mesh_with_layout", "batch_axes_of"]
+           "make_local_mesh", "make_mesh_with_layout", "batch_axes_of",
+           "make_rank_mesh", "run_ranks", "backend_for"]
 
 
 @dataclass
 class Mesh:
     axis_names: tuple[str, ...]
     devices: np.ndarray  # object array of torch.device, one axis per name
+    # A rank mesh: the process rank at each position (an int array in the
+    # mesh's shape), and this rank's process group over each set of axes
+    # (keyed by the axis names in mesh order) that spans more than one rank.
+    ranks: np.ndarray | None = None
+    groups: dict = field(default_factory=dict, repr=False)
 
     @property
     def shape(self) -> dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
+
+    def _position(self) -> tuple[int, ...]:
+        if self.ranks is None:
+            raise ValueError("a device mesh is bound to no rank; make_rank_mesh "
+                             "builds a mesh of ranks")
+        hit = np.argwhere(self.ranks == dist.get_rank())
+        if not len(hit):
+            raise ValueError(f"rank {dist.get_rank()} is not in this mesh "
+                             f"(ranks {self.ranks.reshape(-1).tolist()})")
+        return tuple(int(i) for i in hit[0])
+
+    @property
+    def is_member(self) -> bool:
+        """Whether this process's rank holds a position of this rank mesh."""
+        return self.ranks is not None and bool((self.ranks == dist.get_rank()).any())
+
+    @property
+    def coord(self) -> dict[str, int]:
+        """This rank's index on each axis (a rank mesh only)."""
+        return dict(zip(self.axis_names, self._position()))
+
+    @property
+    def device(self) -> torch.device:
+        """This rank's device (a rank mesh only)."""
+        return self.devices[self._position()]
+
+    def _axes(self, axes) -> tuple[str, ...]:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        unknown = set(axes) - set(self.axis_names)
+        if unknown:
+            raise ValueError(f"axes {sorted(unknown)} not in {self.axis_names}")
+        return tuple(a for a in self.axis_names if a in axes)
+
+    def size(self, axes) -> int:
+        """The number of positions along ``axes`` (a name or names)."""
+        return int(np.prod([self.shape[a] for a in self._axes(axes)]))
+
+    def all_reduce(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """The sum of ``t`` over the ranks along ``axes`` (``psum``), as a
+        new tensor with the same bits on every one of them."""
+        out = t.clone()
+        if self.size(axes) > 1:
+            dist.all_reduce(out, group=self.groups[self._axes(axes)])
+        return out
+
+    def all_gather(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """``(n, *t.shape)``: ``t`` of each of the ``n`` ranks along
+        ``axes``, in the order of their positions (row-major over the axes
+        in mesh order, rank-major)."""
+        n = self.size(axes)
+        if n == 1:
+            return t[None].clone()
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t.contiguous(), group=self.groups[self._axes(axes)])
+        return torch.stack(parts)
 
 
 def _pod(multi_pod: bool):
@@ -105,3 +185,107 @@ def make_mesh_with_layout(device_order, *, multi_pod: bool = False,
 
 def batch_axes_of(mesh: Mesh) -> tuple[str, ...]:
     return tuple(a for a in mesh.axis_names if a != "model")
+
+
+# ------------------------------------------------------------ rank meshes
+
+
+def backend_for(device: "str | torch.device", world: int) -> str:
+    """The ``torch.distributed`` backend of ``world`` ranks on ``device``'s
+    type: gloo for CPU tensors and for ranks that share a card (NCCL
+    refuses two ranks on one device), NCCL where each rank has its own."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and world <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+def _rank_device(device: "str | torch.device", rank: int) -> torch.device:
+    """Rank ``rank``'s device: the CPU, or card ``rank % count``."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return torch.device("cuda", rank % torch.cuda.device_count())
+    return dev
+
+
+def make_rank_mesh(shape: tuple[int, ...],
+                   axis_names: tuple[str, ...] = ("data", "model"),
+                   device: "str | torch.device" = "cuda",
+                   ranks=None) -> Mesh:
+    """A mesh of ``shape`` over the ranks ``ranks`` (default: all of the
+    job's, in order), bound to this process's rank.  Positions take the
+    ranks in ascending order, row-major.  Collective: every rank of the
+    job calls it, members or not, in the same order, since each process
+    group is made by all of them (``torch.distributed.new_group``)."""
+    members = sorted(range(dist.get_world_size()) if ranks is None else ranks)
+    if len(members) != int(np.prod(shape)) or len(shape) != len(axis_names):
+        raise ValueError(f"{len(members)} ranks do not fill a {axis_names} "
+                         f"mesh of shape {tuple(shape)}")
+    grid = np.asarray(members, dtype=np.int64).reshape(shape)
+    me = dist.get_rank()
+    groups = {}
+    n = len(axis_names)
+    for size in range(1, n + 1):
+        for axes in itertools.combinations(range(n), size):
+            # Each row: the ranks that differ only along ``axes``.
+            rows = np.moveaxis(grid, axes, range(n - size, n)).reshape(
+                -1, int(np.prod([shape[i] for i in axes])))
+            if rows.shape[1] == 1:
+                continue
+            for row in rows:
+                group = dist.new_group(row.tolist())
+                if me in row:
+                    groups[tuple(axis_names[i] for i in axes)] = group
+    devices = [_rank_device(device, r) for r in members]
+    return Mesh(tuple(axis_names), _grid(devices, tuple(shape)), ranks=grid,
+                groups=groups)
+
+
+def _rank_main(rank: int, world: int, store_dir: str, device_type: str,
+               timeout_s: float) -> None:
+    fn, args = torch.load(Path(store_dir) / "call.pt", weights_only=False)
+    dev = _rank_device(device_type, rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:  # the ranks share this host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    # The ranks of one job share this host: gloo binds to its loopback.
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group(backend_for(device_type, world),
+                            init_method=f"file://{store_dir}/store",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=timeout_s))
+    try:
+        out = fn(*args)
+        torch.save(out, Path(store_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, world: int, store_dir, *args,
+              device: "str | torch.device" = "cuda",
+              timeout_s: float = 600.0) -> list:
+    """Run ``fn(*args)`` on ``world`` ranks of a new ``torch.distributed``
+    job on this host and return each rank's return value, by rank.
+
+    Each rank is a process of its own (``torch.multiprocessing.spawn``:
+    ``fn`` is pickled by its import path, so it lives in an importable
+    module), sets its card where ``device`` is CUDA (`_rank_device`), and
+    joins the job through a ``file://`` store in ``store_dir``.  The call
+    and the return values travel through files there (``torch.save``:
+    keep the return values on the host), since a start's pipe that
+    fills up would make each rank wait for the one before it to finish
+    its imports.  A collective that waits longer than ``timeout_s``
+    fails.  A rank that raises ends the job: the other ranks are stopped
+    and the error is raised here."""
+    dev = resolve_device(device)
+    store = Path(store_dir).resolve()
+    store.mkdir(parents=True, exist_ok=True)
+    for stale in [store / "store"] + [store / f"rank{r}.pt" for r in range(world)]:
+        stale.unlink(missing_ok=True)
+    torch.save((fn, args), store / "call.pt")
+    torch.multiprocessing.spawn(
+        _rank_main, args=(world, str(store), dev.type, timeout_s),
+        nprocs=world, join=True)
+    return [torch.load(store / f"rank{r}.pt", map_location="cpu",
+                       weights_only=False) for r in range(world)]

@@ -7,6 +7,12 @@ temperature sampling; reports prefill and per-token decode latency:
       --batch 4 --prompt-len 32 --gen 32
 
 (``--reduced`` for the smoke-test size, ``--device cpu`` off the card.)
+
+On a mesh of ranks (`repro_torch.launch.mesh.make_rank_mesh`) every rank
+calls `serve_batch`: each holds its share of the experts where the MoE
+runs expert-parallel (`steps.expert_shard`) and the rows of the batch of
+its batch-axes coordinate, and every rank returns the whole batch's
+tokens (gathered over the batch axes).
 """
 from __future__ import annotations
 
@@ -18,9 +24,11 @@ import torch
 
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import make_local_mesh
-from repro_torch.launch.steps import make_prefill_step, make_serve_step
+from repro_torch.launch.mesh import batch_axes_of, make_local_mesh
+from repro_torch.launch.steps import (expert_shard, make_prefill_step,
+                                      make_serve_step)
 from repro_torch.models.model import Model, build_model
+from repro_torch.sharding.planner import shard_slices
 
 __all__ = ["main", "serve_batch"]
 
@@ -43,10 +51,23 @@ def serve_batch(cfg, mesh, prompts: np.ndarray, gen_len: int,
     on a generator seeded with ``seed + 1``.  ``keep_logits`` adds
     ``"logits"``: (gen_len + 1, B, V) f32 on the host, the prefill's last
     position and then each decode step's.
+
+    On a mesh of ranks ``device`` is this rank's (``mesh.device``), a
+    model built here holds the rank's expert shard, and the rank serves
+    the rows of ``prompts`` (and ``frontend``) of its batch-axes
+    coordinate; tokens and logits are gathered back over those axes.
     """
+    ranks = mesh.ranks is not None
     if model is None:
-        model = build_model(cfg, device, seed=seed)
+        model = build_model(cfg, mesh.device if ranks else device, seed=seed,
+                            expert_shard=expert_shard(cfg, mesh))
     dev = model.device
+    batch_axes = batch_axes_of(mesh)
+    if ranks:
+        rows = shard_slices((batch_axes,), prompts.shape, mesh.shape,
+                            mesh.coord)[0]
+        prompts = prompts[rows]
+        frontend = None if frontend is None else frontend[rows]
     b, plen = prompts.shape
     cache_len = plen + gen_len
     prefill = make_prefill_step(cfg, mesh, cache_len=cache_len).jit_for(prompts.shape)
@@ -86,7 +107,15 @@ def serve_batch(cfg, mesh, prompts: np.ndarray, gen_len: int,
     res = {"tokens": out, "prefill_s": t_prefill,
            "decode_s_per_tok": t_decode / gen_len}
     if keep_logits:
-        res["logits"] = torch.stack(kept).float().cpu()
+        res["logits"] = torch.stack(kept).float()
+    if ranks:  # the batch axes' rows, in their order
+        res["tokens"] = mesh.all_gather(torch.as_tensor(out, device=dev),
+                                        batch_axes).flatten(0, 1).cpu().numpy()
+        if keep_logits:
+            res["logits"] = mesh.all_gather(res["logits"], batch_axes).movedim(
+                0, 1).flatten(1, 2)
+    if keep_logits:
+        res["logits"] = res["logits"].cpu()
     return res
 
 

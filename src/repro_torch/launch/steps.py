@@ -10,10 +10,14 @@ device, and the step runs there.  The prefill and serve steps run under
 ``torch.inference_mode()``; the train step turns on the gradients of the
 model it trains and updates its parameters in place.
 
-On one card the specs are trivial and nothing applies them.  A model axis
-> 1 with a MoE config raises: the expert-parallel ``moe_ffn_sharded`` is
-not ported (ROADMAP queue 1, item 12a's leftover), and the single-shard
-MoE must not run in its place.
+On one card the specs are trivial and nothing applies them.  Where the
+reference runs the expert-parallel MoE (`_mesh_info`: a MoE config on a
+model axis > 1 that divides ``num_experts``), the prefill and serve steps
+pass ``mesh_info`` to the model, which then runs ``moe_ffn_sharded`` on a
+mesh of ranks (`repro_torch.launch.mesh.make_rank_mesh`; each rank holds
+its expert shard, `expert_shard`).  Elsewhere the single-shard MoE runs,
+as in the reference.  The train step refuses such a mesh: the
+``all_reduce``'s backward is not ported.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ from repro_torch.sharding import ShardingPlan, plan_opt_state, plan_params
 from .mesh import Mesh, batch_axes_of
 
 __all__ = ["StepBundle", "make_train_step", "make_prefill_step",
-           "make_serve_step", "make_plan"]
+           "make_serve_step", "make_plan", "expert_shard"]
 
 
 @dataclass
@@ -49,19 +53,25 @@ def make_plan(mesh: Mesh, **kw) -> ShardingPlan:
 
 
 def _mesh_info(cfg: ArchConfig, mesh: Mesh | None):
-    """None: the step runs unsharded.  Raises where the reference would
-    run the expert-parallel MoE (a model axis > 1)."""
-    if cfg.is_moe and mesh is not None and mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: a model axis of {mesh.shape['model']} needs the "
-            "expert-parallel moe_ffn_sharded, which is not ported (ROADMAP "
-            "queue 1, item 12a's leftover); the single-shard MoE does not "
-            "run in its place")
+    """``(mesh, batch_axes)`` where the reference runs the expert-parallel
+    MoE — a MoE config, a model axis > 1 and ``num_experts`` divisible by
+    it — else None: the single-shard MoE, the reference's semantics."""
+    if (cfg.is_moe and mesh is not None and mesh.shape.get("model", 1) > 1
+            and cfg.num_experts % mesh.shape["model"] == 0):
+        return (mesh, batch_axes_of(mesh))
     return None
 
 
+def expert_shard(cfg: ArchConfig, mesh: Mesh | None) -> tuple[int, int]:
+    """``(index, count)`` of this rank's experts on a mesh of ranks where
+    `_mesh_info` shards them (its model coordinate and axis size), else
+    ``(0, 1)``: every expert."""
+    if _mesh_info(cfg, mesh) is None:
+        return (0, 1)
+    return (mesh.coord["model"], mesh.shape["model"])
+
+
 def _bundle(cfg, mesh, step, **plan_kw) -> StepBundle:
-    _mesh_info(cfg, mesh)
     plan = make_plan(mesh, **plan_kw)
     pspecs = plan_params(plan, Model(cfg, "meta").param_shapes())
     return StepBundle(jit_for=lambda _shape: step, plan=plan, param_specs=pspecs)
@@ -77,8 +87,14 @@ def make_train_step(cfg: ArchConfig, mesh: Mesh, opt: AdamWConfig | None = None,
     None after the update.  ``batch`` holds tensors on the model's device
     (``tokens``; ``frontend`` for vlm/audio).  ``metrics``: ``loss``,
     ``ce``, ``aux``, ``grad_norm``, ``lr`` as 0-d tensors.
-    ``jit_for(batch)``; ``init_opt(model)`` gives the optimizer state."""
-    _mesh_info(cfg, mesh)
+    ``jit_for(batch)``; ``init_opt(model)`` gives the optimizer state.
+    Raises where `_mesh_info` would shard the experts: training with
+    expert parallelism needs the ``all_reduce``'s backward, not ported."""
+    if _mesh_info(cfg, mesh) is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: training on a model axis of {mesh.shape['model']} "
+            "runs the expert-parallel MoE, whose all_reduce backward is not "
+            "ported (ROADMAP queue 1: training with expert parallelism)")
     plan = make_plan(mesh)
     opt = opt or AdamWConfig()
     if moment_dtype is not None:
@@ -109,6 +125,7 @@ def make_prefill_step(cfg: ArchConfig, mesh: Mesh, cache_len: int,
                       seq_parallel_decode: bool = True) -> StepBundle:
     """prefill_step(model, batch) -> (last-position logits (B, 1, V),
     caches of ``cache_len``); ``jit_for(batch)``."""
+    minfo = _mesh_info(cfg, mesh)
 
     @torch.inference_mode()
     def prefill_step(model: Model, batch: dict):
@@ -116,7 +133,7 @@ def make_prefill_step(cfg: ArchConfig, mesh: Mesh, cache_len: int,
         caches = model.init_caches(tokens.shape[0], cache_len)
         logits, caches, _ = model(tokens, mode="prefill", caches=caches,
                                   frontend=batch.get("frontend"),
-                                  kv_chunk=kv_chunk)
+                                  mesh_info=minfo, kv_chunk=kv_chunk)
         return logits[:, -1:], caches
 
     return _bundle(cfg, mesh, prefill_step,
@@ -130,11 +147,13 @@ def make_serve_step(cfg: ArchConfig, mesh: Mesh, cache_len: int,
     """serve_step(model, caches, tokens, positions): one new token per
     sequence against the decode cache, written in place;
     ``jit_for(batch_size)``."""
+    minfo = _mesh_info(cfg, mesh)
 
     @torch.inference_mode()
     def serve_step(model: Model, caches, tokens, positions):
         logits, caches, _ = model(tokens, mode="decode", caches=caches,
-                                  positions=positions, kv_chunk=kv_chunk)
+                                  positions=positions, mesh_info=minfo,
+                                  kv_chunk=kv_chunk)
         return logits, caches
 
     return _bundle(cfg, mesh, serve_step, seq_parallel_decode=seq_parallel_decode,

@@ -22,7 +22,7 @@ from .attention import decode_attend, init_kv_cache, mha, update_kv_cache
 from .layers import apply_rope, rms_norm, swiglu
 from .mamba2 import init_mamba_cache, mamba_block, mamba_decode
 from .mla import init_mla_cache, mla_attention, mla_decode, update_mla_cache
-from .moe import moe_ffn
+from .moe import moe_ffn, moe_ffn_sharded
 
 __all__ = ["Attention", "MLA", "MLP", "MoE", "Mamba", "DenseBlock", "MoEBlock",
            "SSMBlock", "HybridBlock", "CrossBlock", "EncDecBlock",
@@ -79,13 +79,21 @@ class MLP(nn.Module):
 
 
 class MoE(nn.Module):
-    """Routed experts: router (D, E) in f32, w_gate/w_up (E, D, F),
-    w_down (E, F, D)."""
+    """Routed experts: router (D, E) in f32, w_gate/w_up (E_loc, D, F),
+    w_down (E_loc, F, D).  ``shard = (i, n)``: the experts ``[e_start,
+    e_start + E_loc)`` with ``E_loc = E / n`` and ``e_start = i·E_loc``,
+    one rank's share of an expert-parallel model; (0, 1): all of them."""
 
-    def __init__(self, cfg, dtype, device):
+    def __init__(self, cfg, dtype, device, shard: tuple[int, int] = (0, 1)):
         super().__init__()
-        d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
-        self.router = _param((d, e), torch.float32, device)
+        index, count = shard
+        if cfg.num_experts % count or not 0 <= index < count:
+            raise ValueError(f"expert shard {shard} of {cfg.num_experts} experts")
+        d, f = cfg.d_model, cfg.moe_d_ff
+        e = cfg.num_experts // count
+        self.num_experts = cfg.num_experts
+        self.e_start = index * e
+        self.router = _param((d, cfg.num_experts), torch.float32, device)
         self.w_gate = _param((e, d, f), dtype, device)
         self.w_up = _param((e, d, f), dtype, device)
         self.w_down = _param((e, f, d), dtype, device)
@@ -190,25 +198,45 @@ class DenseBlock(nn.Module):
 
 
 class MoEBlock(nn.Module):
-    """Attention (GQA or MLA) + routed-experts FFN (+ shared experts)."""
+    """Attention (GQA or MLA) + routed-experts FFN (+ shared experts).
 
-    def __init__(self, cfg, dtype, device):
+    With ``mesh_info = (mesh, batch_axes)`` (a mesh of ranks, from
+    `repro_torch.launch.steps`) the routed experts run expert-parallel
+    (`moe_ffn_sharded`) and ``moe`` holds this rank's share of them
+    (``expert_shard``); the attention, norms and shared experts stay whole
+    on every rank (tensor parallelism for them is not ported)."""
+
+    def __init__(self, cfg, dtype, device, expert_shard: tuple[int, int] = (0, 1)):
         super().__init__()
         self.cfg = cfg
         self.attn = (MLA if cfg.use_mla else Attention)(cfg, dtype, device)
-        self.moe = MoE(cfg, dtype, device)
+        self.moe = MoE(cfg, dtype, device, expert_shard)
         self.attn_norm = _param((cfg.d_model,), dtype, device)
         self.mlp_norm = _param((cfg.d_model,), dtype, device)
         if cfg.num_shared_experts:
             self.shared = MLP(cfg.d_model, cfg.moe_d_ff * cfg.num_shared_experts,
                               dtype, device)
 
-    def forward(self, x, positions, mode, cache=None, kv_chunk: int = 1024):
+    def forward(self, x, positions, mode, cache=None, kv_chunk: int = 1024,
+                mesh_info=None):
         """Returns (x, aux_loss)."""
         cfg = self.cfg
         x = x + _attend(self, x, positions, cfg, mode, cache, None, kv_chunk)
         h = rms_norm(x, self.mlp_norm, cfg.norm_eps)
-        out, aux = moe_ffn(h, self.moe, cfg.top_k, cfg.capacity_factor)
+        if mesh_info is not None:
+            mesh, batch_axes = mesh_info
+            e_loc = self.moe.w_gate.shape[0]
+            if self.moe.e_start != mesh.coord["model"] * e_loc:
+                raise ValueError(
+                    f"this rank's model holds experts from {self.moe.e_start}, "
+                    f"its model coordinate {mesh.coord['model']} those from "
+                    f"{mesh.coord['model'] * e_loc}")
+            out, aux = moe_ffn_sharded(h, self.moe, cfg, mesh, batch_axes)
+        elif self.moe.w_gate.shape[0] != cfg.num_experts:
+            raise ValueError("a model holding a share of the experts runs on "
+                             "a mesh of ranks (mesh_info)")
+        else:
+            out, aux = moe_ffn(h, self.moe, cfg.top_k, cfg.capacity_factor)
         if cfg.num_shared_experts:
             out = out + self.shared(h)
         return x + out, aux

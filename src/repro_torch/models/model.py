@@ -20,6 +20,16 @@ Hymba SWA, VLM self-attention and whisper encoder stacks.  It changes
 memory, never values.  The config's ``remat_policy="save_collectives"``
 keeps the tensor-parallel collectives' outputs in the reference; one card
 has no collective, so it recomputes everything, as ``"full"`` does.
+
+Expert parallelism: ``Model(cfg, device, expert_shard=(i, n))`` holds
+one rank's share of each MoE layer's experts (`blocks.MoE`), and
+``forward(..., mesh_info=(mesh, batch_axes))`` on a mesh of ranks runs
+them with `moe.moe_ffn_sharded`, as the reference's ``model.py`` threads
+``mesh_info`` to ``moe_block``.  The embedding, attention, norms, shared
+experts and head stay whole on every rank: tensor parallelism for the
+dense layers is not ported.  A rank's model comes from a seed
+(`build_model`) or from the reference's weights
+(`repro_torch.interop.rank_model_from`).
 """
 from __future__ import annotations
 
@@ -86,7 +96,8 @@ class Model(nn.Module):
     uninitialized on ``device`` (``"meta"`` gives shapes only) and filled
     by `init`."""
 
-    def __init__(self, cfg: ArchConfig, device: "str | torch.device" = "cuda"):
+    def __init__(self, cfg: ArchConfig, device: "str | torch.device" = "cuda",
+                 expert_shard: tuple[int, int] = (0, 1)):
         super().__init__()
         self.cfg = cfg
         dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
@@ -100,7 +111,7 @@ class Model(nn.Module):
             self.layers = _stack(cfg.num_layers, lambda: DenseBlock(cfg, dt, dev))
         elif fam == "moe":
             self.layers = _stack(cfg.num_layers - cfg.first_dense_layers,
-                                 lambda: MoEBlock(cfg, dt, dev))
+                                 lambda: MoEBlock(cfg, dt, dev, expert_shard))
             if cfg.first_dense_layers:
                 self.dense0 = _stack(cfg.first_dense_layers,
                                      lambda: DenseBlock(cfg, dt, dev))
@@ -208,13 +219,16 @@ class Model(nn.Module):
         caches: Any = None,
         positions: torch.Tensor | None = None,
         frontend: torch.Tensor | None = None,  # (B, Sf, Df) stub embeddings
+        mesh_info=None,
         remat: bool = False,
         kv_chunk: int = 1024,
     ):
         """Returns (logits, caches, aux_loss); prefill and decode write
         ``caches`` in place and return it.  ``frontend`` is cast to the
-        activation dtype (its cross K/V are cached in it).  ``remat``: see
-        the module docstring."""
+        activation dtype (its cross K/V are cached in it).  ``mesh_info``:
+        ``(mesh, batch_axes)`` on a mesh of ranks, where the MoE blocks run
+        expert-parallel (see the module docstring).  ``remat``: see the
+        module docstring."""
         cfg = self.cfg
         b, s = tokens.shape
         if positions is None:
@@ -227,7 +241,7 @@ class Model(nn.Module):
         fam = cfg.family
         if fam in ("dense", "moe"):
             x, aux = self._fwd_decoder(x, positions, mode, caches, kv_chunk, aux,
-                                       remat)
+                                       remat, mesh_info)
         elif fam == "ssm":
             lc = caches["layers"] if caches is not None else None
             for i, blk in enumerate(self.layers):
@@ -246,7 +260,8 @@ class Model(nn.Module):
         return x @ self.lm_head, caches, aux
 
     # ------------------------------------------------- family sub-forwards
-    def _fwd_decoder(self, x, positions, mode, caches, kv_chunk, aux, remat):
+    def _fwd_decoder(self, x, positions, mode, caches, kv_chunk, aux, remat,
+                     mesh_info):
         cfg = self.cfg
         if cfg.first_dense_layers:
             d0 = caches["dense0"] if caches is not None else None
@@ -256,7 +271,7 @@ class Model(nn.Module):
         for i, blk in enumerate(self.layers):
             if cfg.is_moe:
                 x, a = _layer(blk, remat, x, positions, mode, _index(lc, i),
-                              kv_chunk)
+                              kv_chunk, mesh_info=mesh_info)
                 aux = aux + a
             else:
                 x = _layer(blk, remat, x, positions, mode, _index(lc, i),
@@ -324,14 +339,15 @@ class Model(nn.Module):
         return x
 
     # --------------------------------------------------------------- loss
-    def loss(self, batch: dict, *, remat: bool = False, kv_chunk: int = 1024,
-             aux_weight: float = 0.01):
+    def loss(self, batch: dict, *, mesh_info=None, remat: bool = False,
+             kv_chunk: int = 1024, aux_weight: float = 0.01):
         """(ce + aux_weight * aux, {"ce", "aux"}) of a batch of tensors on
         the model's device (``tokens``; ``labels`` and ``frontend`` where
-        given)."""
+        given); ``mesh_info`` as in `forward`."""
         logits, _, aux = self.forward(batch["tokens"], mode="train",
                                       frontend=batch.get("frontend"),
-                                      remat=remat, kv_chunk=kv_chunk)
+                                      mesh_info=mesh_info, remat=remat,
+                                      kv_chunk=kv_chunk)
         if "labels" in batch:
             ce = cross_entropy_loss(logits, batch["labels"])
         else:  # next-token prediction: shift by one
@@ -340,10 +356,12 @@ class Model(nn.Module):
 
 
 def build_model(cfg: ArchConfig, device: "str | torch.device" = "cuda",
-                seed: int | None = None) -> Model:
-    """``Model(cfg, device)``; with ``seed``, initialized from a
-    ``torch.Generator`` on that device seeded with it."""
-    model = Model(cfg, device)
+                seed: int | None = None,
+                expert_shard: tuple[int, int] = (0, 1)) -> Model:
+    """``Model(cfg, device, expert_shard)``; with ``seed``, initialized
+    from a ``torch.Generator`` on that device seeded with it (an expert
+    shard's weights are the unsharded model's block of them)."""
+    model = Model(cfg, device, expert_shard)
     if seed is not None:
         model.init(torch.Generator(device=model.device).manual_seed(seed))
     return model

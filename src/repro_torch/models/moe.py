@@ -1,4 +1,5 @@
-"""Mixture-of-Experts (sort-based capacity dispatch), single shard.
+"""Mixture-of-Experts (sort-based capacity dispatch), single shard and
+expert-parallel.
 
 Each token's top-k experts are dispatched into a dense (E_local,
 capacity, D) buffer (a stable sort + cumulative rank, no (T, E, C) one-hot
@@ -13,17 +14,19 @@ which bf16 router logits make common), and the combine un-sorts the
 (token, k) pairs and sums each token's k contributions in k order instead
 of a scatter-add, whose order on CUDA is not fixed.
 
-The reference's expert-parallel ``moe_ffn_sharded`` (a shard_map over the
-model axis) waits for a multi-card slice; `repro_torch.launch.steps`
-refuses a model axis > 1 for MoE configs rather than run this single-shard
-version there.
+`moe_ffn_sharded` is the reference's expert-parallel MoE on a mesh of
+ranks (`repro_torch.launch.mesh.make_rank_mesh`): the tokens are
+replicated over the model axis inside the block, each rank holds the
+experts of its model coordinate and dispatches only the tokens routed to
+them, and one ``all_reduce`` over the model axis sums the experts'
+contributions — the body of the reference's ``shard_map``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["moe_ffn", "router_topk"]
+__all__ = ["moe_ffn", "router_topk", "moe_ffn_sharded"]
 
 
 def _bincount(ids: torch.Tensor, n: int) -> torch.Tensor:
@@ -129,3 +132,40 @@ def moe_ffn(
     out = _dispatch_combine(x2, weights.to(x2.dtype), experts,
                             p.w_gate, p.w_up, p.w_down, e_start, capacity)
     return out.reshape(shape), aux
+
+
+def moe_ffn_sharded(
+    x: torch.Tensor,  # (B_local, S, D): this rank's rows of the batch
+    p,  # router (D, E); this rank's experts: w_gate/w_up (E/n, D, F), w_down
+    cfg,
+    mesh,
+    batch_axes: tuple[str, ...],
+    expert_axis: str = "model",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE on a mesh of ranks; returns (out, aux) of this
+    rank's rows.
+
+    The rank at index ``i`` of ``expert_axis`` (n positions) holds the
+    experts ``[i·E/n, (i+1)·E/n)`` and runs `moe_ffn` on them with the
+    global capacity formula (``num_experts_global=E``), so it drops what
+    the unsharded MoE drops on the same rows.  ``out`` is summed over
+    ``expert_axis`` (the same bits on each of its ranks); ``aux`` is
+    averaged over ``expert_axis``, then over ``batch_axes``, whose ranks
+    hold the other rows (the reference's ``pmean``s)."""
+    if mesh.ranks is None:
+        raise ValueError("moe_ffn_sharded runs on a mesh of ranks "
+                         "(repro_torch.launch.mesh.make_rank_mesh)")
+    n = mesh.shape[expert_axis]
+    e_glob = cfg.num_experts
+    e_loc = p.w_gate.shape[0]
+    if e_glob % n or e_loc * n != e_glob:
+        raise ValueError(f"{e_loc} experts a rank do not split {e_glob} over "
+                         f"{expert_axis}={n}")
+    out, aux = moe_ffn(x, p, cfg.top_k, cfg.capacity_factor,
+                       e_start=mesh.coord[expert_axis] * e_loc,
+                       num_experts_global=e_glob)
+    out = mesh.all_reduce(out, expert_axis)
+    aux = mesh.all_reduce(aux, expert_axis) / n
+    if batch_axes:
+        aux = mesh.all_reduce(aux, batch_axes) / mesh.size(batch_axes)
+    return out, aux

@@ -10,21 +10,29 @@ rules may change — e.g. the batch divisor halves when a pod drops), and
 are re-balanced by re-deriving `DataConfig.num_shards` from the new mesh —
 the pipeline's (seed, step, shard) determinism makes this a pure re-index.
 
-Only replicated placement is ported: a spec that shards a dimension over
-a mesh axis larger than 1 raises ``NotImplementedError``, since placing a
-shard per card needs ``torch.distributed``, which the port does not use
-yet (ROADMAP queue 1, item 12b's leftover).
+A leaf whose spec splits it over mesh axes larger than 1 is placed as a
+`Sharded`: on a mesh of cards in one process it holds every position's
+block, each on its card; on a mesh of ranks (`repro_torch.launch.mesh.
+make_rank_mesh`) each rank holds its own block, and `Sharded.full`
+gathers them back (an ``all_gather`` over the mesh), bit for bit.  So a
+tree placed on mesh A moves to mesh B as the reference's test moves it:
+every rank of A takes part, and the ranks of B (a subset of A's, as after
+a loss) come out holding their blocks; a rank outside B gets None.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import TYPE_CHECKING
 
+import numpy as np
 import torch
+
+from repro_torch.sharding.planner import shard_slices
 
 if TYPE_CHECKING:
     from repro_torch.launch.mesh import Mesh
 
-__all__ = ["remesh_params"]
+__all__ = ["remesh_params", "Sharded"]
 
 
 def _axes(entry) -> tuple[str, ...]:
@@ -33,22 +41,79 @@ def _axes(entry) -> tuple[str, ...]:
     return tuple(entry) if isinstance(entry, tuple) else (entry,)
 
 
-def remesh_params(tree, new_mesh: "Mesh", new_specs):
-    """Re-place a tree (nested dicts) of tensors onto ``new_mesh`` under
-    ``new_specs`` (the planner's specs: one axis name, tuple of names or
-    None per dimension).  Values are preserved exactly; only the
-    placement changes — here, onto the mesh's one device."""
-    sizes = new_mesh.shape
-    device = new_mesh.devices.flat[0]
+@dataclass
+class Sharded:
+    """A leaf of ``shape`` placed on ``mesh`` under ``spec``, which splits
+    it: the blocks this process holds, by mesh position (every position on
+    a mesh of cards, this rank's alone on a mesh of ranks)."""
+    blocks: dict  # position (an index per axis) -> tensor
+    shape: tuple[int, ...]
+    mesh: "Mesh"
+    spec: tuple
 
-    def place(leaf: torch.Tensor, spec) -> torch.Tensor:
+    @property
+    def local(self) -> torch.Tensor:
+        """This rank's block (a mesh of ranks)."""
+        return self.blocks[tuple(self.mesh.coord.values())]
+
+    def full(self) -> torch.Tensor:
+        """The whole leaf, exact, on the first card of a mesh of cards or
+        on this rank's device; on a mesh of ranks every rank of the mesh
+        must call it (an ``all_gather``)."""
+        mesh = self.mesh
+        if mesh.ranks is None:
+            blocks = self.blocks
+            device = mesh.devices.flat[0]
+        else:
+            # All positions' blocks, in position order (row-major).
+            gathered = mesh.all_gather(self.local, mesh.axis_names)
+            blocks = dict(zip(np.ndindex(mesh.devices.shape), gathered))
+            device = mesh.device
+        first = next(iter(blocks.values()))
+        out = torch.empty(self.shape, dtype=first.dtype, device=device)
+        for pos, block in blocks.items():
+            coord = dict(zip(mesh.axis_names, pos))
+            out[shard_slices(self.spec, self.shape, mesh.shape, coord)] = block
+        return out
+
+
+def remesh_params(tree, new_mesh: "Mesh", new_specs):
+    """Re-place a tree (nested dicts) of tensors or `Sharded` leaves onto
+    ``new_mesh`` under ``new_specs`` (the planner's specs: one axis name,
+    tuple of names or None per dimension).  Values are preserved exactly;
+    only the placement changes.  A leaf that no axis larger than 1 splits
+    is a tensor on the mesh's (first) card or this rank's device; one that
+    such an axis splits is a `Sharded` of its blocks (`shard_slices`).  On
+    a mesh of ranks every rank of the old placement takes part (a
+    `Sharded` leaf is gathered first), and a rank outside ``new_mesh``
+    gets None for each leaf."""
+    sizes = new_mesh.shape
+    member = new_mesh.ranks is None or new_mesh.is_member
+
+    def place(leaf, spec):
+        if leaf is None:
+            if member:
+                raise ValueError("a rank of the new mesh holds no value of "
+                                 "this leaf")
+            return None
+        full = leaf.full() if isinstance(leaf, Sharded) else leaf
+        if not member:
+            return None
         split = [a for e in spec for a in _axes(e) if sizes.get(a, 1) > 1]
-        if split:
-            raise NotImplementedError(
-                f"spec {spec} shards over mesh axes {split} of sizes "
-                f"{[sizes[a] for a in split]}: placing shards on several cards "
-                "is not ported (ROADMAP queue 1, item 12b's leftover)")
-        return leaf.to(device)
+        if new_mesh.ranks is None:
+            if not split:
+                return full.to(new_mesh.devices.flat[0])
+            positions = list(np.ndindex(new_mesh.devices.shape))
+        else:
+            if not split:
+                return full.to(new_mesh.device)
+            positions = [tuple(new_mesh.coord.values())]
+        blocks = {}
+        for pos in positions:
+            coord = dict(zip(new_mesh.axis_names, pos))
+            block = full[shard_slices(spec, full.shape, sizes, coord)]
+            blocks[pos] = block.to(new_mesh.devices[pos], copy=True)
+        return Sharded(blocks, tuple(full.shape), new_mesh, tuple(spec))
 
     def walk(node, spec):
         if isinstance(node, dict):

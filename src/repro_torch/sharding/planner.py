@@ -27,8 +27,12 @@ dimension, ``()`` for fully replicated (the reference's ``P()``).  Trees
 are nested dicts whose leaves have a ``.shape`` (tensors, shape structs)
 or are shapes; they are walked in sorted key order, as the reference
 walks the ``jax.eval_shape`` trees it plans (jax returns dicts with sorted
-keys), so ``notes`` list the same drops in the same order.  On one card every
-spec is trivial; nothing applies them yet (a multi-card slice will).
+keys), so ``notes`` list the same drops in the same order.  `shard_slices`
+gives the block of a leaf that a mesh position holds under a spec: on a
+mesh of ranks, `repro_torch.runtime.remesh_params` places any spec with
+it, and a rank's model takes its experts' block by the expert rule
+(`repro_torch.interop.rank_model_from`); the dense layers' specs are not
+applied yet (their weights stay whole on every rank).
 
 The partitioning engine shards its O(n)/O(m) state over contiguous vertex
 blocks (CSR rows stay contiguous per shard, so per-shard adjacency slices
@@ -50,7 +54,7 @@ import torch
 from repro_torch.device import resolve_device
 
 __all__ = ["ShardingPlan", "plan_params", "plan_caches", "plan_batch",
-           "plan_opt_state", "spec_for_param",
+           "plan_opt_state", "spec_for_param", "shard_slices",
            "VertexShardPlan", "plan_vertex_shards"]
 
 Spec = tuple
@@ -150,6 +154,31 @@ def spec_for_param(plan: ShardingPlan, names, leaf) -> Spec:
             return spec
     # norms, scales, biases and anything unrecognized: replicate.
     return ()
+
+
+def shard_slices(spec: Spec, shape, mesh_shape: dict[str, int],
+                 coord: dict[str, int]) -> tuple[slice, ...]:
+    """The block of a leaf of ``shape`` that the mesh position ``coord``
+    (an index per axis) holds under ``spec``: a dimension split over axes
+    (a name, or a tuple of names: the first is the major one) is cut into
+    as many equal blocks as those axes have positions, and the position
+    takes the block of its index flattened over them, as jax places a
+    ``NamedSharding``; a dimension with None, or past the spec's end, is
+    whole.  Raises ValueError where a split dimension does not divide."""
+    out = []
+    for dim, size in enumerate(_shape(shape)):
+        entry = spec[dim] if dim < len(spec) else None
+        axes = () if entry is None else (
+            tuple(entry) if isinstance(entry, tuple) else (entry,))
+        n, index = 1, 0
+        for a in axes:
+            n, index = n * mesh_shape[a], index * mesh_shape[a] + coord[a]
+        if size % n:
+            raise ValueError(f"dim {dim} of {tuple(_shape(shape))} does not "
+                             f"split over {axes} ({n} positions)")
+        block = size // n
+        out.append(slice(index * block, (index + 1) * block))
+    return tuple(out)
 
 
 def plan_params(plan: ShardingPlan, params) -> dict:

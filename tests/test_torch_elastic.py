@@ -1,14 +1,14 @@
 """The port's elastic pieces: the three cases of ``tests/test_elastic.py``
-on ``remesh_params`` and ``HeartbeatMonitor``, and the refusal to shard
-over a mesh axis larger than 1 (not ported: one card, no
-``torch.distributed``)."""
+on ``remesh_params`` and ``HeartbeatMonitor``, and the placement of a spec
+that splits a mesh axis larger than 1 on a mesh of cards in one process
+(tests/test_torch_ranks_elastic.py covers meshes of ranks)."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.launch.mesh import Mesh, make_local_mesh  # noqa: E402
-from repro_torch.runtime import HeartbeatMonitor, remesh_params  # noqa: E402
+from repro_torch.runtime import HeartbeatMonitor, Sharded, remesh_params  # noqa: E402
 
 
 def test_remesh_preserves_values():
@@ -22,17 +22,27 @@ def test_remesh_preserves_values():
     assert moved["w"].device == torch.device("cpu")
 
 
-def test_remesh_refuses_a_split_axis():
+def test_remesh_places_a_split_axis_in_one_process():
     devices = np.empty(2, dtype=object)
     devices[:] = [torch.device("cpu")] * 2
     mesh = Mesh(("data", "model"), devices.reshape(1, 2))
-    tree = {"a": {"w": torch.ones(4, 4)}}
-    # Replicated, or over the size-1 data axis: placed.
-    remesh_params(tree, mesh, {"a": {"w": ("data", None)}})
-    with pytest.raises(NotImplementedError, match="model"):
-        remesh_params(tree, mesh, {"a": {"w": (None, "model")}})
-    with pytest.raises(NotImplementedError):
-        remesh_params(tree, mesh, {"a": {"w": (("data", "model"), None)}})
+    w = torch.arange(16.0).reshape(4, 4)
+    tree = {"a": {"w": w}}
+    # Replicated, or over the size-1 data axis: the whole leaf.
+    placed = remesh_params(tree, mesh, {"a": {"w": ("data", None)}})
+    assert torch.equal(placed["a"]["w"], w)
+    # Over the model axis: one block a position, gathered back exactly.
+    cols = remesh_params(tree, mesh, {"a": {"w": (None, "model")}})["a"]["w"]
+    assert isinstance(cols, Sharded) and cols.shape == (4, 4)
+    assert sorted(cols.blocks) == [(0, 0), (0, 1)]
+    assert torch.equal(cols.blocks[(0, 1)], w[:, 2:])
+    assert torch.equal(cols.full(), w)
+    rows = remesh_params(tree, mesh, {"a": {"w": (("data", "model"), None)}})
+    assert torch.equal(rows["a"]["w"].blocks[(0, 0)], w[:2])
+    assert torch.equal(rows["a"]["w"].full(), w)
+    # A placed tree moves back to a replicated spec whole.
+    back = remesh_params(rows, mesh, {"a": {"w": (None, None)}})
+    assert torch.equal(back["a"]["w"], w)
 
 
 def test_heartbeat_straggler_detection():

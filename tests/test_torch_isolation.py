@@ -1,5 +1,8 @@
 """The port stands alone: it imports torch and numpy, never jax and nothing
-of the reference package, and chip_smoke.py refuses to run off the card."""
+of the reference package, and chip_smoke.py refuses to run off the card.
+What the rank tests' spawned ranks import (the rank meshes, the
+expert-parallel MoE, the island SA and tests/torch_ranks_bodies.py) is
+held to the same rule."""
 import os
 import re
 import shutil
@@ -35,7 +38,8 @@ def test_importing_the_port_loads_no_jax_or_reference_module():
         "repro_torch.runtime.checkpoint, repro_torch.runtime.elastic, "
         "repro_torch.configs.shapes, repro_torch.launch.op_analysis, "
         "repro_torch.launch.dryrun, repro_torch.launch.roofline, "
-        "repro_torch.launch.hillclimb, repro_torch.launch.report\n"
+        "repro_torch.launch.hillclimb, repro_torch.launch.report, "
+        "repro_torch.models.moe, repro_torch.core.mapping_device\n"
         "[repro_torch.configs.get_config(n) for n in repro_torch.configs.ARCHS]\n"
         "import repro_torch.kernels.lif_step, repro_torch.kernels.gain_eval, "
         "repro_torch.kernels.swap_delta, repro_torch.kernels.link_load, "
@@ -48,8 +52,21 @@ def test_importing_the_port_loads_no_jax_or_reference_module():
     assert out.stdout.strip() == "[]"
 
 
+def test_the_ranks_import_no_jax_or_reference_module():
+    code = ("import sys, json\n"
+            "import torch_ranks_bodies\n"
+            "print(json.dumps(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))))\n")
+    env = _env()
+    env["PYTHONPATH"] += os.pathsep + str(ROOT / "tests")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, check=True)
+    assert out.stdout.strip() == "[]"
+
+
 def test_port_sources_import_no_jax_or_reference_module():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "tests" / "torch_ranks_bodies.py"]
     assert len(files) > 20
     offenders = {str(f.relative_to(ROOT)): FORBIDDEN.findall(f.read_text())
                  for f in files}

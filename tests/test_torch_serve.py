@@ -3,7 +3,7 @@ on the reference serve test's ``_tiny`` llama3-8b and mamba2-780m configs
 gives the tokens of a reference greedy loop over ``Model.forward``
 (prefill, then decode) on the same carried weights, with every step's
 logits within 1e-4 * max; plus sampling, the MoE combine's repeatability,
-the steps' refusal of an unported sharded MoE, and the meshes."""
+the steps' condition for the expert-parallel MoE, and the meshes."""
 import dataclasses
 import os
 import subprocess
@@ -124,15 +124,20 @@ def _mesh(data, model):
     return Mesh(("data", "model"), devs.reshape(data, model))
 
 
-def test_mesh_info_refuses_the_single_shard_moe_on_a_model_axis():
-    moe_cfg = get_config("qwen3-moe-30b-a3b").reduced()
+def test_mesh_info_follows_the_reference_condition():
+    """`_mesh_info` shards the experts exactly where the reference's does:
+    a MoE config, a model axis > 1 and num_experts divisible by it."""
+    moe_cfg = get_config("qwen3-moe-30b-a3b")
     dense = get_config("llama3-8b").reduced()
     mesh = _mesh(2, 2)
-    with pytest.raises(NotImplementedError, match="moe_ffn_sharded.*12a"):
-        _mesh_info(moe_cfg, mesh)
+    assert _mesh_info(moe_cfg, mesh) == (mesh, ("data",))
+    assert _mesh_info(moe_cfg.reduced(), mesh) == (mesh, ("data",))
+    # 128 experts do not split over a model axis of 3: the single-shard MoE.
+    assert _mesh_info(moe_cfg, _mesh(1, 3)) is None
     for make in (make_prefill_step, make_serve_step):
-        with pytest.raises(NotImplementedError, match="moe_ffn_sharded"):
-            make(moe_cfg, mesh, cache_len=16)
+        bundle = make(moe_cfg, mesh, cache_len=16)
+        assert bundle.param_specs["layers"]["moe"]["w_gate"] == (
+            None, "model", None, None)
     assert _mesh_info(dense, mesh) is None
     assert _mesh_info(moe_cfg, _mesh(4, 1)) is None
     assert make_plan(mesh).batch_axes == ("data",)
