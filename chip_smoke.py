@@ -82,7 +82,24 @@
    re-run.  Then reruns the 1,200-step profile loop on the card and holds
    its raster bitwise against the CPU path's (``lif_run(...,
    device="cpu")``), printing the loop's own seconds.
-12. Serves the LLM model zoo on the card (``repro_torch.launch.serve_batch``,
+12. The ranks phase: four processes on the card joined over gloo
+   (``run_ranks``).  qwen3-moe-30b-a3b at its published width with 2
+   layers in f32 on (1, 4) and (1, 2) rank meshes, each rank's model
+   holding the planner's blocks (experts, heads, vocabulary), held to
+   the unsharded model (tokens equal, logits within 1e-5 of max|logit|);
+   the (1, 4) mesh's experts moved to the (1, 2) mesh (``remesh_params``),
+   bitwise that mesh's own; 4 layers in bf16 timed on (1, 2); the island
+   SA with one island a rank, bitwise the batched islands.  Then the
+   tensor-parallel part: llama3-8b at its published width, 2 layers in
+   f32 on (1, 4) and (1, 2) against the unsharded model (tokens equal,
+   logits within 1e-5 of max|logit|, each rank's leaves the unsharded
+   model's blocks by fingerprint, a decode step's 2L + 2 collectives by
+   the mesh's tally) and all 32 layers in bf16 on (1, 2), timed beside
+   the unsharded model (the prefill's last logits within 5e-2 of
+   max|logit|, 66 collectives a decode step, each rank's peak memory at
+   most 0.6 of the unsharded run's).  The ranks launch no TPU kernel;
+   the parent one hop_cost (the islands' avg_hop).
+13. Serves the LLM model zoo on the card (``repro_torch.launch.serve_batch``,
    greedy, no TPU kernel on the path: every launch count must stay 0):
    llama3-8b at its full published width and depth in bf16 (8.03 B
    parameters from a torch.Generator seeded 0 on the card; 4 prompts of 32
@@ -100,7 +117,7 @@
    and every other architecture reduced (f32), card against CPU within
    1e-4 and the serving invariant on the card.  Each line carries the
    card's name and power limit.
-13. Trains on the card (``repro_torch.launch.train_loop``: eager train
+14. Trains on the card (``repro_torch.launch.train_loop``: eager train
    step, ``loss.backward()``, the port's AdamW; no TPU kernel on the
    path, every launch count must stay 0): llama3-8b at its published
    width cut to 8 of 32 layers in bf16 (2.796 B parameters, 33.5 GB of
@@ -120,7 +137,7 @@
    1e-4 relative), a run stopped at 5 and resumed from its checkpoint
    on the card (bitwise the straight run), and a reduced llama3-8b in
    bf16 whose model and optimizer state save and restore bitwise.
-14. The roofline phase (no TPU kernel on the path; every launch count
+15. The roofline phase (no TPU kernel on the path; every launch count
    must stay 0): llama3-8b at its published width in bf16, the train step
    (8 x 512 tokens, remat), prefill (4 x 32) and the decode step (batch 4
    against a 64-slot cache), each counted op by op on the meta device
@@ -1580,10 +1597,9 @@ def ranks_body(prompts, traffic, island_seed: int) -> dict:
     from repro_torch.core.mapping_device import island_sa
     from repro_torch.launch import serve_batch
     from repro_torch.launch.mesh import make_rank_mesh
-    from repro_torch.launch.steps import expert_shard
     from repro_torch.models import Model, build_model
     from repro_torch.runtime import Sharded, remesh_params
-    from repro_torch.sharding import ShardingPlan, plan_params
+    from repro_torch.sharding import ParamShard, ShardingPlan, plan_params
 
     counters = launch_counters()
     for mod, attr in counters.values():
@@ -1596,7 +1612,7 @@ def ranks_body(prompts, traffic, island_seed: int) -> dict:
 
     def build(cfg, mesh):
         return build_model(cfg, mesh.device, seed=RANKS["seed"],
-                           expert_shard=expert_shard(cfg, mesh))
+                           shard=ParamShard.of(mesh))
 
     shapes = Model(cfg, "meta").param_shapes()
 
@@ -1699,6 +1715,263 @@ def _held_to(name: str, card: str, members: list, want: dict, tol: float) -> flo
           f"the unsharded run's; logits {err:.3e} of max|logit| from it "
           f"(bound {tol})")
     return err
+
+
+# The tensor-parallel part of the ranks phase serves llama3-8b at its
+# published width (d_model 4096, 32 heads, 8 KV heads, d_ff 14,336, vocab
+# 128,256) on gloo ranks of cuda:0, each rank's model holding the
+# planner's blocks (`ParamShard.of(mesh)`), from a torch.Generator seeded
+# RANKS["seed"]: f32 at 2 layers on (1, 4) and (1, 2) against the
+# unsharded model, and bf16 at all 32 layers on (1, 2), timed.
+TP_ARCH = "llama3-8b"
+TP_MESHES = ((1, 4), (1, 2))
+TP_PARITY_LAYERS = 2  # f32, held to the unsharded run
+TP_TIMING_LAYERS = 32  # bf16, the full depth, timed on (1, 2)
+# The prefill's last logits, of max|logit|, against the unsharded bf16
+# run's.  32 random bf16 layers amplify any change of rounding to ~2e-2:
+# the shipped f32 reduction of the row-parallel sums reads 1.9e-2 and
+# XLA's bf16 one 2.3e-2, both correct; each rank attending with its KV
+# heads rolled by one reads 1.6 (PERF.md §6).  The limit sits
+# between them.
+TP_BF16_TOL = 5e-2
+TP_PEAK_SHARE = 0.6  # a rank's peak memory against the unsharded run's
+
+
+def tp_config(layers: int, dtype: str):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(TP_ARCH), num_layers=layers,
+                               param_dtype=dtype, activation_dtype=dtype)
+
+
+def fingerprint(t) -> tuple[int, int]:
+    """A digest of a tensor's bits, computed on its device: the sum of its
+    words (int16 or int32, by its element size, summed as int64) and
+    their sum weighted by a hash of each word's position.  A change of any
+    one word moves the weighted sum (modulo 2**64)."""
+    import torch
+
+    words = t.detach().contiguous().view(-1).view(
+        {2: torch.int16, 4: torch.int32}[t.element_size()])
+    total = weighted = 0
+    for start in range(0, words.numel(), 1 << 26):
+        w = words[start:start + (1 << 26)].to(torch.int64)
+        pos = torch.arange(start, start + w.numel(), dtype=torch.int64,
+                           device=w.device)
+        total += int(w.sum())
+        weighted += int((w * (pos * 2654435761 % (1 << 31) + 1)).sum())
+    return total, weighted
+
+
+def _decode_bytes(model, batch: int, cache_len: int) -> tuple[int, int]:
+    """(the weights a decode step reads: all but the embedding table, the
+    bytes of the caches) of ``model``."""
+    weights = sum(p.numel() * p.element_size()
+                  for n, p in model.named_parameters() if n != "embed")
+    caches = model.init_caches(batch, cache_len)["layers"]
+    return weights, nbytes(*caches.values())
+
+
+def tp_body(prompts) -> dict:
+    """What each of RANKS_WORLD ranks runs for the tensor-parallel part:
+    the f32 model served on the (1, 4) and (1, 2) meshes (tokens, logits,
+    the collectives' tally and a `fingerprint` of every leaf it holds),
+    then the bf16 model at full depth served twice on (1, 2) (ranks 0 and
+    1; timings, peak memory, tally).  Returns the results and this
+    process's kernel launch counts."""
+    import torch
+
+    from repro_torch.launch import serve_batch
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.models import build_model
+    from repro_torch.sharding import ParamShard
+
+    counters = launch_counters()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    meshes = {shape: make_rank_mesh(shape, device="cuda",
+                                    ranks=range(shape[0] * shape[1]))
+              for shape in TP_MESHES}
+    kw = dict(seed=RANKS["seed"], keep_logits=True, print_fn=lambda *_: None)
+    cfg = tp_config(TP_PARITY_LAYERS, "float32")
+    out = {}
+    for shape, mesh in meshes.items():
+        if not mesh.is_member:
+            continue
+        model = build_model(cfg, mesh.device, seed=RANKS["seed"],
+                            shard=ParamShard.of(mesh))
+        res = serve_batch(cfg, mesh, prompts, RANKS["gen_len"], model=model, **kw)
+        out[shape] = dict(_served(res, mesh), coord=mesh.coord["model"],
+                          collectives=res["collectives"],
+                          digests={n: fingerprint(p)
+                                   for n, p in model.named_parameters()})
+        del model, res
+        torch.cuda.empty_cache()
+    mesh = meshes[(1, 2)]
+    if mesh.is_member:
+        timing = tp_config(TP_TIMING_LAYERS, "bfloat16")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        model = build_model(timing, mesh.device, seed=RANKS["seed"],
+                            shard=ParamShard.of(mesh))
+        first = serve_batch(timing, mesh, prompts, RANKS["gen_len"], model=model,
+                            **kw)
+        again = serve_batch(timing, mesh, prompts, RANKS["gen_len"], model=model,
+                            **kw)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        weights, caches = _decode_bytes(model, RANKS["batch"],
+                                        RANKS["prompt_len"] + RANKS["gen_len"])
+        del model
+        torch.cuda.empty_cache()
+        out["timing"] = dict(_served(again, mesh), first_tokens=first["tokens"],
+                             first_prefill_s=first["prefill_s"],
+                             first_decode_s_per_tok=first["decode_s_per_tok"],
+                             peak_bytes=peak, collectives=again["collectives"],
+                             weight_bytes=weights, cache_bytes=caches)
+    out["launches"] = {name: getattr(mod, attr)
+                       for name, (mod, attr) in counters.items()}
+    return out
+
+
+def _check_tally(name: str, tally: dict, layers: int) -> None:
+    """A decode step's collectives: the embedding's all_reduce, one after
+    each layer's attention and one after its MLP, and the head's
+    all_gather."""
+    want = {"all-reduce": 2 * layers + 1, "all-gather": 1, "_count": 2 * layers + 2}
+    if tally["count"] != want:
+        fail(f"ranks {name}: a decode step issued {tally['count']} "
+             f"collectives, not {want}")
+
+
+def _fmt_tally(tally: dict) -> str:
+    return ", ".join(f"{op} {tally['count'][op]} ({tally['bytes'][op]} B)"
+                     for op in ("all-reduce", "all-gather"))
+
+
+def tp_part(card: str) -> dict:
+    """The tensor-parallel part of the ranks phase (`tp_body` on
+    RANKS_WORLD processes on cuda:0 over gloo) against the unsharded model
+    from the same seed: f32 at TP_PARITY_LAYERS on (1, 4) and (1, 2)
+    (tokens equal, logits within RANKS_TOL of max|logit|, each rank's
+    leaves the unsharded model's blocks by `fingerprint`, a decode step's
+    2L + 2 collectives); bf16 at full depth on (1, 2) (the prefill's last
+    logits within TP_BF16_TOL of max|logit|, a decode step's 66
+    collectives, each rank's peak at most TP_PEAK_SHARE of the unsharded
+    run's; the greedy tokens' agreement printed).  Returns the ranks'
+    kernel launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import make_local_mesh, serve_batch
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import build_model
+    from repro_torch.models.model import reference_path
+    from repro_torch.sharding import ParamShard
+
+    cfg = tp_config(TP_PARITY_LAYERS, "float32")
+    prompts, _ = serve_prompts(cfg, RANKS["batch"], RANKS["prompt_len"],
+                               RANKS["seed"])
+    one = make_local_mesh(device="cuda")
+    kw = dict(keep_logits=True, print_fn=lambda *_: None)
+    cache_len = RANKS["prompt_len"] + RANKS["gen_len"]
+    torch.cuda.empty_cache()
+    model = build_model(cfg, "cuda", seed=RANKS["seed"])
+    want = serve_batch(cfg, one, prompts, RANKS["gen_len"], model=model, **kw)
+    digests = {}
+    for shape in TP_MESHES:
+        for i in range(shape[1]):
+            shard = ParamShard({"data": shape[0], "model": shape[1]},
+                               {"data": 0, "model": i})
+            digests[shape, i] = {
+                n: fingerprint(p[shard.block(reference_path(n)[0], p.shape)[1]])
+                for n, p in model.named_parameters()}
+    parity_bytes = nbytes(*model.parameters())
+    del model
+    timing = tp_config(TP_TIMING_LAYERS, "bfloat16")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = build_model(timing, "cuda", seed=RANKS["seed"])
+    serve_batch(timing, one, prompts, RANKS["gen_len"], model=model, **kw)
+    alone = serve_batch(timing, one, prompts, RANKS["gen_len"], model=model, **kw)
+    torch.cuda.synchronize()
+    alone_peak = torch.cuda.max_memory_allocated() - base
+    alone_weights, alone_caches = _decode_bytes(model, RANKS["batch"], cache_len)
+    del model
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    got = run_ranks(tp_body, RANKS_WORLD, ROOT / "build" / "tp_ranks", prompts,
+                    device="cuda", timeout_s=RANKS_TIMEOUT_S)
+    tp_s = time.perf_counter() - t0
+
+    for shape in TP_MESHES:
+        members = [r[shape] for r in got if shape in r]
+        _held_to(f"tp f32 {shape}", card, members, want, RANKS_TOL)
+        for m in members:
+            if m["digests"] != digests[shape, m["coord"]]:
+                bad = sorted(n for n, d in m["digests"].items()
+                             if d != digests[shape, m["coord"]].get(n))
+                fail(f"ranks tp f32 {shape}: model coordinate {m['coord']}'s "
+                     f"leaves {bad[:4]} are not the unsharded model's blocks")
+            _check_tally(f"tp f32 {shape}", m["collectives"]["decode"],
+                         TP_PARITY_LAYERS)
+        print(f"ranks tp f32 {shape} [{card}]: every rank's {len(members[0]['digests'])} "
+              f"leaves are the unsharded model's blocks (fingerprints; "
+              f"{parity_bytes / 1e9:.3f} GB whole); a decode step: "
+              f"{_fmt_tally(members[0]['collectives']['decode'])}")
+    bound = (alone_weights + alone_caches) / H100_BYTES_PER_S * 1e3
+    print(f"ranks tp bf16 ({TP_TIMING_LAYERS} layers) unsharded [{card}]: prefill "
+          f"{alone['prefill_s'] * 1e3:.3f} ms ({RANKS['batch']} x "
+          f"{RANKS['prompt_len']} tokens); decode "
+          f"{alone['decode_s_per_tok'] * 1e3:.3f} ms a token (bound "
+          f"{bound:.3f} ms), {RANKS['batch'] / alone['decode_s_per_tok']:.1f} "
+          f"tokens/s; peak memory {alone_peak / 2**30:.3f} GiB "
+          f"(max_memory_allocated over the phase's start)")
+    ref = alone["logits"][0]
+    for rank, r in enumerate(got[:2]):
+        t = r["timing"]
+        if not t["finite"]:
+            fail(f"ranks tp bf16: rank {rank}'s logits are not finite")
+        if not np.array_equal(t["tokens"], t["first_tokens"]):
+            fail(f"ranks tp bf16: rank {rank}'s second serve gave other tokens")
+        if not np.array_equal(t["tokens"], got[0]["timing"]["tokens"]):
+            fail("ranks tp bf16: the ranks' greedy tokens differ")
+        if t["logits_hash"] != got[0]["timing"]["logits_hash"]:
+            fail("ranks tp bf16: the ranks' logits differ")
+        _check_tally("tp bf16", t["collectives"]["decode"], TP_TIMING_LAYERS)
+        share = t["peak_bytes"] / alone_peak
+        if not share <= TP_PEAK_SHARE:
+            fail(f"ranks tp bf16: rank {rank}'s peak memory is {share:.3f} of "
+                 f"the unsharded run's, above {TP_PEAK_SHARE}")
+        rank_bound = (t["weight_bytes"] + t["cache_bytes"]) / H100_BYTES_PER_S * 1e3
+        print(f"ranks tp bf16 ({TP_TIMING_LAYERS} layers) (1, 2) rank {rank} "
+              f"[{card}]: prefill {t['prefill_s'] * 1e3:.3f} ms (first call "
+              f"{t['first_prefill_s'] * 1e3:.3f}); decode "
+              f"{t['decode_s_per_tok'] * 1e3:.3f} ms a token (first call "
+              f"{t['first_decode_s_per_tok'] * 1e3:.3f}; bound "
+              f"{rank_bound:.3f} ms), "
+              f"{RANKS['batch'] / t['decode_s_per_tok']:.1f} tokens/s; peak "
+              f"memory {t['peak_bytes'] / 2**30:.3f} GiB, {share:.3f} of the "
+              f"unsharded run's; a decode step: "
+              f"{_fmt_tally(t['collectives']['decode'])}; the prefill: "
+              f"{_fmt_tally(t['collectives']['prefill'])}")
+    t = got[0]["timing"]
+    err = float((t["logits"][0] - ref).abs().max() / ref.abs().max())
+    if not err <= TP_BF16_TOL:
+        fail(f"ranks tp bf16: the prefill's last logits are {err!r} of "
+             f"max|logit| from the unsharded run's, beyond {TP_BF16_TOL}")
+    agree = float(np.mean(t["tokens"] == alone["tokens"]))
+    print(f"ranks tp bf16 [{card}]: the prefill's last logits {err:.3e} of "
+          f"max|logit| from the unsharded run's (bound {TP_BF16_TOL}); "
+          f"{agree:.3f} of the greedy tokens agree with it (not gated); the "
+          f"rank job {tp_s:.1f} s. One card over gloo shows the sharded "
+          "program's correctness, memory and collectives, not what tensor "
+          "parallelism gains across cards")
+    return {name: sum(r["launches"][name] for r in got) for name in got[0]["launches"]}
 
 
 def ranks_phase(counters, island: dict) -> dict:
@@ -1808,10 +2081,12 @@ def ranks_phase(counters, island: dict) -> dict:
           f"placement bitwise the batched islands'; avg_hop {avg_hop!r} "
           f"(hop_cost {hop!r}); search {got[0]['island']['seconds']:.3f} s "
           f"against {island['seconds']:.3f} s batched")
+    in_tp = tp_part(card)
     launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
-    in_ranks = {name: sum(r["launches"][name] for r in got) for name in launches}
+    in_ranks = {name: sum(r["launches"][name] for r in got) + in_tp[name]
+                for name in launches}
     print(f"ranks phase [{card}]: {time.perf_counter() - t_phase:.1f} s "
-          f"({ranks_s:.1f} s in the rank job); launches here "
+          f"({ranks_s:.1f} s in the expert-parallel rank job); launches here "
           f"{json.dumps(launches)}, in the ranks {json.dumps(in_ranks)}")
     for name, count in in_ranks.items():
         if count:

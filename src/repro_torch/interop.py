@@ -5,7 +5,7 @@ so that a fault shows up in the stage that caused it.  Every function here
 takes plain numpy fields — a dict, or any object with the attributes — and
 never a type of the reference package, which this package does not import.
 Model weights travel as the reference's parameter tree of numpy arrays
-(`model_params_from`; one rank's model of an expert-parallel mesh,
+(`model_params_from`; one rank's model of a mesh of ranks,
 `rank_model_from`) and back (`reference_tree`, `reference_path`), and
 AdamW's moments as the reference's optimizer state (`opt_state_from`,
 `reference_opt_state`).
@@ -18,7 +18,7 @@ import torch
 from repro_torch.core.graph import Graph, Hypergraph
 from repro_torch.core.partition import PartitionResult
 from repro_torch.models.model import Model, reference_path
-from repro_torch.sharding.planner import ShardingPlan, shard_slices, spec_for_param
+from repro_torch.sharding.planner import ParamShard
 from repro_torch.snn.simulate import ProfileResult
 from repro_torch.snn.topology import SNNTopology
 
@@ -202,28 +202,18 @@ def model_params_from(cfg, tree, device: "str | torch.device" = "cuda") -> Model
 def rank_model_from(cfg, tree, mesh) -> Model:
     """This rank's `Model` on a mesh of ranks, on the rank's device, from
     the reference's whole parameter tree (as `model_params_from` takes
-    it): where the MoE runs expert-parallel (`launch.steps.expert_shard`),
-    each ``moe`` leaf ``w_gate``, ``w_up`` and ``w_down`` is cut to the
-    block of the rank's coordinate along the expert dimension (the
-    planner's expert rule, dim -3, through `shard_slices`); every other
-    leaf is loaded whole (the dense layers stay replicated)."""
-    # Imported here: repro_torch.launch imports this module.
-    from repro_torch.launch.steps import expert_shard
-
-    shard = expert_shard(cfg, mesh)
-    plan = ShardingPlan(mesh_shape=mesh.shape)
+    it): each stacked leaf is cut to the block the rank's model holds
+    (`Model.leaf_block`: the planner's spec of the leaf for the rank's
+    position, ``ParamShard.of(mesh)``, through `shard_slices`)."""
+    model = Model(cfg, mesh.device, ParamShard.of(mesh))
 
     def local(node, keys):
         if isinstance(node, dict):
             return {k: local(v, keys + (str(k),)) for k, v in node.items()}
-        if shard[1] > 1 and "moe" in keys and keys[-1] in ("w_gate", "w_up",
-                                                          "w_down"):
-            leaf = _as_tensor(node)
-            spec = spec_for_param(plan, keys, leaf)
-            return leaf[shard_slices(spec, leaf.shape, mesh.shape, mesh.coord)]
-        return node
+        leaf = _as_tensor(node)
+        return leaf[model.leaf_block(keys, leaf.shape)]
 
-    return load_reference_tree(Model(cfg, mesh.device, shard), local(tree, ()))
+    return load_reference_tree(model, local(tree, ()))
 
 
 def reference_tree(model: Model) -> dict:

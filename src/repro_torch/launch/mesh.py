@@ -17,7 +17,9 @@ group (the ranks that differ only along those axes).  A function running
 on a rank reads its coordinate (`Mesh.coord`) and sums or gathers along
 axes (`Mesh.all_reduce`, `Mesh.all_gather`), as the body of the
 reference's ``shard_map`` does with ``axis_index``, ``psum`` and
-``all_gather``.  `run_ranks` starts such a job on this host: ``world``
+``all_gather``.  The mesh keeps a tally of the collectives it issued
+(`Mesh.tally`): the count and the bytes this rank sent, by operation,
+under the keys of the reference's ``hlo_analysis.collective_bytes``.  `run_ranks` starts such a job on this host: ``world``
 processes (``torch.multiprocessing.spawn``) joined through a ``file://``
 store in a directory the caller gives.  `backend_for` fixes the backend:
 gloo for CPU tensors and for ranks that share a card, NCCL where each
@@ -51,6 +53,12 @@ class Mesh:
     # (keyed by the axis names in mesh order) that spans more than one rank.
     ranks: np.ndarray | None = None
     groups: dict = field(default_factory=dict, repr=False)
+    # The collectives issued on this rank (one over a single position is
+    # none): "count" and "bytes" (the operands' bytes), each by operation
+    # ("all-reduce", "all-gather") with "_count" the total count.
+    tally: dict = field(default_factory=lambda: {"count": {"_count": 0},
+                                                 "bytes": {"_count": 0}},
+                        repr=False, compare=False)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -92,11 +100,29 @@ class Mesh:
         """The number of positions along ``axes`` (a name or names)."""
         return int(np.prod([self.shape[a] for a in self._axes(axes)]))
 
+    def _record(self, op: str, t: torch.Tensor) -> None:
+        for part, add in (("count", 1), ("bytes", t.numel() * t.element_size())):
+            tally = self.tally[part]
+            tally[op] = tally.get(op, 0) + add
+            tally["_count"] += 1
+
+    def tally_since(self, mark: dict) -> dict:
+        """The tally's growth since ``mark`` (a copy of `Mesh.tally` taken
+        earlier, `copy_tally`), in its form; an operation that did not
+        grow is left out."""
+        return {part: {op: n - mark[part].get(op, 0) for op, n in tally.items()
+                       if op == "_count" or n != mark[part].get(op, 0)}
+                for part, tally in self.tally.items()}
+
+    def copy_tally(self) -> dict:
+        return {part: dict(tally) for part, tally in self.tally.items()}
+
     def all_reduce(self, t: torch.Tensor, axes) -> torch.Tensor:
         """The sum of ``t`` over the ranks along ``axes`` (``psum``), as a
         new tensor with the same bits on every one of them."""
         out = t.clone()
         if self.size(axes) > 1:
+            self._record("all-reduce", out)
             dist.all_reduce(out, group=self.groups[self._axes(axes)])
         return out
 
@@ -108,6 +134,7 @@ class Mesh:
         if n == 1:
             return t[None].clone()
         parts = [torch.empty_like(t) for _ in range(n)]
+        self._record("all-gather", t)
         dist.all_gather(parts, t.contiguous(), group=self.groups[self._axes(axes)])
         return torch.stack(parts)
 

@@ -9,10 +9,12 @@ temperature sampling; reports prefill and per-token decode latency:
 (``--reduced`` for the smoke-test size, ``--device cpu`` off the card.)
 
 On a mesh of ranks (`repro_torch.launch.mesh.make_rank_mesh`) every rank
-calls `serve_batch`: each holds its share of the experts where the MoE
-runs expert-parallel (`steps.expert_shard`) and the rows of the batch of
-its batch-axes coordinate, and every rank returns the whole batch's
-tokens (gathered over the batch axes).
+calls `serve_batch`: each holds its blocks of the planner's parameter
+specs (`repro_torch.sharding.ParamShard`: the experts of an
+expert-parallel MoE, and the heads, ffn and vocabulary blocks of a GQA
+dense or MoE model over a model axis) and the rows of the batch of its
+batch-axes coordinate, and every rank returns the whole batch's tokens
+(gathered over the batch axes) and the collectives it issued.
 """
 from __future__ import annotations
 
@@ -25,10 +27,9 @@ import torch
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import batch_axes_of, make_local_mesh
-from repro_torch.launch.steps import (expert_shard, make_prefill_step,
-                                      make_serve_step)
+from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models.model import Model, build_model
-from repro_torch.sharding.planner import shard_slices
+from repro_torch.sharding.planner import ParamShard, shard_slices
 
 __all__ = ["main", "serve_batch"]
 
@@ -53,14 +54,16 @@ def serve_batch(cfg, mesh, prompts: np.ndarray, gen_len: int,
     position and then each decode step's.
 
     On a mesh of ranks ``device`` is this rank's (``mesh.device``), a
-    model built here holds the rank's expert shard, and the rank serves
-    the rows of ``prompts`` (and ``frontend``) of its batch-axes
-    coordinate; tokens and logits are gathered back over those axes.
+    model built here holds the rank's blocks (``ParamShard.of(mesh)``),
+    and the rank serves the rows of ``prompts`` (and ``frontend``) of its
+    batch-axes coordinate; tokens and logits are gathered back over those
+    axes, and ``"collectives"`` holds the rank's tally (`Mesh.tally`) of
+    the prefill and of the first decode step.
     """
     ranks = mesh.ranks is not None
     if model is None:
         model = build_model(cfg, mesh.device if ranks else device, seed=seed,
-                            expert_shard=expert_shard(cfg, mesh))
+                            shard=ParamShard.of(mesh) if ranks else None)
     dev = model.device
     batch_axes = batch_axes_of(mesh)
     if ranks:
@@ -83,11 +86,14 @@ def serve_batch(cfg, mesh, prompts: np.ndarray, gen_len: int,
         probs = torch.softmax(last.float() / temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=gen).to(torch.int32)
 
+    tally = {}
+    mark = mesh.copy_tally()
     _sync(dev)
     t0 = time.perf_counter()
     logits, caches = prefill(model, batch)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
+    tally["prefill"] = mesh.tally_since(mark)
 
     kept = [logits[:, -1]] if keep_logits else None
     out = np.zeros((b, gen_len), dtype=np.int32)
@@ -96,7 +102,10 @@ def serve_batch(cfg, mesh, prompts: np.ndarray, gen_len: int,
     for i in range(gen_len):
         out[:, i] = tok[:, 0].cpu().numpy()
         positions = torch.full((b, 1), plen + i, dtype=torch.int32, device=dev)
+        mark = mesh.copy_tally()
         logits, caches = decode(model, caches, tok, positions)
+        if i == 0:
+            tally["decode"] = mesh.tally_since(mark)
         if keep_logits:
             kept.append(logits[:, -1])
         tok = pick(logits[:, -1])
@@ -109,6 +118,7 @@ def serve_batch(cfg, mesh, prompts: np.ndarray, gen_len: int,
     if keep_logits:
         res["logits"] = torch.stack(kept).float()
     if ranks:  # the batch axes' rows, in their order
+        res["collectives"] = tally
         res["tokens"] = mesh.all_gather(torch.as_tensor(out, device=dev),
                                         batch_axes).flatten(0, 1).cpu().numpy()
         if keep_logits:

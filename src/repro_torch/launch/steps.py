@@ -10,14 +10,16 @@ device, and the step runs there.  The prefill and serve steps run under
 ``torch.inference_mode()``; the train step turns on the gradients of the
 model it trains and updates its parameters in place.
 
-On one card the specs are trivial and nothing applies them.  Where the
-reference runs the expert-parallel MoE (`_mesh_info`: a MoE config on a
-model axis > 1 that divides ``num_experts``), the prefill and serve steps
-pass ``mesh_info`` to the model, which then runs ``moe_ffn_sharded`` on a
-mesh of ranks (`repro_torch.launch.mesh.make_rank_mesh`; each rank holds
-its expert shard, `expert_shard`).  Elsewhere the single-shard MoE runs,
-as in the reference.  The train step refuses such a mesh: the
-``all_reduce``'s backward is not ported.
+On one card the specs are trivial and nothing applies them.  On a mesh
+of ranks (`repro_torch.launch.mesh.make_rank_mesh`) each rank's model
+holds its blocks of the specs (`repro_torch.models.Model` with
+``ParamShard.of(mesh)``: the model alone decides which leaves it
+splits), and the prefill and serve steps pass it ``mesh_info = (mesh,
+batch_axes)``; the forward acts on what the model holds.  The train step
+refuses a mesh where the reference runs the expert-parallel MoE
+(`_mesh_info`: a MoE config on a model axis > 1 that divides
+``num_experts``) and a mesh of ranks whose models hold blocks: the
+collectives' backward is not ported.
 """
 from __future__ import annotations
 
@@ -31,12 +33,13 @@ import torch
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
-from repro_torch.sharding import ShardingPlan, plan_opt_state, plan_params
+from repro_torch.sharding import (ParamShard, ShardingPlan, plan_opt_state,
+                                 plan_params)
 
 from .mesh import Mesh, batch_axes_of
 
 __all__ = ["StepBundle", "make_train_step", "make_prefill_step",
-           "make_serve_step", "make_plan", "expert_shard"]
+           "make_serve_step", "make_plan"]
 
 
 @dataclass
@@ -62,13 +65,20 @@ def _mesh_info(cfg: ArchConfig, mesh: Mesh | None):
     return None
 
 
-def expert_shard(cfg: ArchConfig, mesh: Mesh | None) -> tuple[int, int]:
-    """``(index, count)`` of this rank's experts on a mesh of ranks where
-    `_mesh_info` shards them (its model coordinate and axis size), else
-    ``(0, 1)``: every expert."""
-    if _mesh_info(cfg, mesh) is None:
-        return (0, 1)
-    return (mesh.coord["model"], mesh.shape["model"])
+def _rank_info(mesh: Mesh):
+    """The steps' ``mesh_info``: ``(mesh, batch_axes)`` on a mesh of
+    ranks, else None (one process holds every leaf whole)."""
+    return (mesh, batch_axes_of(mesh)) if mesh.ranks is not None else None
+
+
+def _holds_blocks(cfg: ArchConfig, mesh: Mesh) -> bool:
+    """Whether the ranks of ``mesh`` hold blocks of ``cfg``'s leaves
+    (`Model.blocks` of its first position, on meta: every position's
+    blocks have the same shapes)."""
+    if mesh.ranks is None:
+        return False
+    first = ParamShard(dict(mesh.shape), dict.fromkeys(mesh.axis_names, 0))
+    return bool(Model(cfg, "meta", first).blocks)
 
 
 def _bundle(cfg, mesh, step, **plan_kw) -> StepBundle:
@@ -88,13 +98,20 @@ def make_train_step(cfg: ArchConfig, mesh: Mesh, opt: AdamWConfig | None = None,
     (``tokens``; ``frontend`` for vlm/audio).  ``metrics``: ``loss``,
     ``ce``, ``aux``, ``grad_norm``, ``lr`` as 0-d tensors.
     ``jit_for(batch)``; ``init_opt(model)`` gives the optimizer state.
-    Raises where `_mesh_info` would shard the experts: training with
-    expert parallelism needs the ``all_reduce``'s backward, not ported."""
+    Raises where `_mesh_info` would shard the experts or where the ranks'
+    models hold blocks (`_holds_blocks`): training there needs the
+    collectives' backward, not ported."""
     if _mesh_info(cfg, mesh) is not None:
         raise NotImplementedError(
             f"{cfg.name}: training on a model axis of {mesh.shape['model']} "
             "runs the expert-parallel MoE, whose all_reduce backward is not "
             "ported (ROADMAP queue 1: training with expert parallelism)")
+    if _holds_blocks(cfg, mesh):
+        raise NotImplementedError(
+            f"{cfg.name}: training on a rank mesh of {mesh.shape} whose "
+            "models hold blocks of their leaves (tensor-parallel) needs the "
+            "collectives' backward, not ported (ROADMAP queue 1: "
+            "tensor-parallel training)")
     plan = make_plan(mesh)
     opt = opt or AdamWConfig()
     if moment_dtype is not None:
@@ -125,7 +142,7 @@ def make_prefill_step(cfg: ArchConfig, mesh: Mesh, cache_len: int,
                       seq_parallel_decode: bool = True) -> StepBundle:
     """prefill_step(model, batch) -> (last-position logits (B, 1, V),
     caches of ``cache_len``); ``jit_for(batch)``."""
-    minfo = _mesh_info(cfg, mesh)
+    minfo = _rank_info(mesh)
 
     @torch.inference_mode()
     def prefill_step(model: Model, batch: dict):
@@ -147,7 +164,7 @@ def make_serve_step(cfg: ArchConfig, mesh: Mesh, cache_len: int,
     """serve_step(model, caches, tokens, positions): one new token per
     sequence against the decode cache, written in place;
     ``jit_for(batch_size)``."""
-    minfo = _mesh_info(cfg, mesh)
+    minfo = _rank_info(mesh)
 
     @torch.inference_mode()
     def serve_step(model: Model, caches, tokens, positions):

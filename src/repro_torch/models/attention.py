@@ -4,7 +4,9 @@ One position-mask-driven implementation covers every flavor the
 architectures need:
   * causal full attention (train / prefill),
   * grouped-query attention (no KV head repeat is materialized — the query
-    is reshaped to (B, S, KVH, G, hd) and contractions keep the group dim),
+    is reshaped to (B, S, KVH, G, hd) and contractions keep the group dim;
+    G comes from the tensors, so a rank's block of query heads attends with
+    the KV heads they use),
   * sliding-window attention with an exact ring-buffer KV cache,
   * bidirectional encoder and cross attention (causal=False),
   * single-token decode against a KV cache.
@@ -44,6 +46,14 @@ def _mask(q_pos, k_pos, causal: bool, window: int | None):
     return valid
 
 
+def _group(h: int, kvh: int) -> int:
+    """The query heads a KV head serves, from the local tensors' head
+    counts (a rank's query heads and the KV heads they use)."""
+    if kvh == 0 or h % kvh:
+        raise ValueError(f"{h} query heads do not group over {kvh} KV heads")
+    return h // kvh
+
+
 def mha(
     q: torch.Tensor,  # (B, Sq, H, hd)
     k: torch.Tensor,  # (B, Skv, KVH, hd)
@@ -58,7 +68,7 @@ def mha(
 ) -> torch.Tensor:
     b, sq, h, hd = q.shape
     _, skv, kvh, _ = k.shape
-    g = h // kvh
+    g = _group(h, kvh)
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
 
     chunk = min(kv_chunk, skv)
@@ -105,7 +115,7 @@ def decode_attend(
     """Single-token decode: one fused pass (no chunk loop needed at Sq=1)."""
     b, _, h, hd = q.shape
     kvh = k_cache.shape[2]
-    g = h // kvh
+    g = _group(h, kvh)
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     qg = q.reshape(b, 1, kvh, g, hd).float()
     s = torch.einsum("bqkgd,bckd->bqkgc", qg, k_cache.float()) * scale

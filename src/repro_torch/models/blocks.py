@@ -12,10 +12,21 @@ counterpart of the reference's donated caches.  Parameter leaf names are
 the reference's (``wq``, ``w_gate``, ``router``, ``in_proj``, ...), and
 every parameter is created uninitialized (`repro_torch.models.init`
 fills them).
+
+The constructors take the whole model's sizes.  A rank's model
+(`repro_torch.models.Model` with a ``shard``) holds the planner's block
+of each leaf instead, and the forward reads what it holds from the
+tensors' shapes: a block of the query heads (``wq``/``wo``) or of the
+MLP's ffn dim (``w_gate``/``w_up``/``w_down``) makes a partial sum of
+the output, which one ``all_reduce`` over ``model`` completes
+(Megatron's column- then row-parallel pair; `_row_parallel`); a block of
+the routed experts runs `moe_ffn_sharded`.  ``mesh_info = (mesh,
+batch_axes)`` carries the rank mesh there.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .attention import decode_attend, init_kv_cache, mha, update_kv_cache
@@ -26,12 +37,31 @@ from .moe import moe_ffn, moe_ffn_sharded
 
 __all__ = ["Attention", "MLA", "MLP", "MoE", "Mamba", "DenseBlock", "MoEBlock",
            "SSMBlock", "HybridBlock", "CrossBlock", "EncDecBlock",
-           "EncoderBlock", "cross_kv", "init_block_cache"]
+           "EncoderBlock", "cross_kv", "init_block_cache", "rank_kv_heads"]
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
+
+
+def _row_parallel(x, w, mesh):
+    """``x @ w`` contracting the trailing dims of ``x`` with the leading
+    dims of ``w`` (all but its last), where both hold this rank's block of
+    the contracted dims: the partial product with an f32 output (the
+    GEMM's own accumulator: on the card a bf16 GEMM writing f32, no f32
+    copy of ``w``), summed over ``model`` in f32 and rounded once to
+    ``x``'s dtype, as the unsharded product's accumulator rounds once.
+    The sum's operand is f32: twice the bytes of the bf16 partial sums
+    that XLA's partitioner reduces."""
+    n = w.shape[-1]
+    lead = x.shape[:x.dim() - (w.dim() - 1)]
+    x2, w2 = x.reshape(-1, w[..., 0].numel()), w.reshape(-1, n)
+    if x.is_cuda and x.dtype != torch.float32:
+        part = torch.mm(x2, w2, out_dtype=torch.float32)
+    else:  # f32 already, or the CPU (no GEMM with a wider output there)
+        part = x2.float() @ w2.float()
+    return mesh.all_reduce(part, "model").to(x.dtype).reshape(*lead, n)
 
 
 # -------------------------------------------------------- parameter groups
@@ -68,32 +98,33 @@ class MLA(nn.Module):
 
 
 class MLP(nn.Module):
+    """SwiGLU MLP: w_gate/w_up (D, F), w_down (F, D); a rank holding a
+    block of F sums its partial output over ``model``."""
+
     def __init__(self, d: int, f: int, dtype, device):
         super().__init__()
+        self.d_ff = f
         self.w_gate = _param((d, f), dtype, device)
         self.w_up = _param((d, f), dtype, device)
         self.w_down = _param((f, d), dtype, device)
 
-    def forward(self, x):
-        return swiglu(x, self.w_gate, self.w_up, self.w_down)
+    def forward(self, x, mesh=None):
+        if self.w_down.shape[0] == self.d_ff:
+            return swiglu(x, self.w_gate, self.w_up, self.w_down)
+        h = F.silu(x @ self.w_gate) * (x @ self.w_up)
+        return _row_parallel(h, self.w_down, mesh)
 
 
 class MoE(nn.Module):
-    """Routed experts: router (D, E) in f32, w_gate/w_up (E_loc, D, F),
-    w_down (E_loc, F, D).  ``shard = (i, n)``: the experts ``[e_start,
-    e_start + E_loc)`` with ``E_loc = E / n`` and ``e_start = i·E_loc``,
-    one rank's share of an expert-parallel model; (0, 1): all of them."""
+    """Routed experts: router (D, E) in f32, w_gate/w_up (E, D, F),
+    w_down (E, F, D); a rank of an expert-parallel mesh holds a block of
+    the experts (E / n of them)."""
 
-    def __init__(self, cfg, dtype, device, shard: tuple[int, int] = (0, 1)):
+    def __init__(self, cfg, dtype, device):
         super().__init__()
-        index, count = shard
-        if cfg.num_experts % count or not 0 <= index < count:
-            raise ValueError(f"expert shard {shard} of {cfg.num_experts} experts")
-        d, f = cfg.d_model, cfg.moe_d_ff
-        e = cfg.num_experts // count
-        self.num_experts = cfg.num_experts
-        self.e_start = index * e
-        self.router = _param((d, cfg.num_experts), torch.float32, device)
+        d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+        self.num_experts = e
+        self.router = _param((d, e), torch.float32, device)
         self.w_gate = _param((e, d, f), dtype, device)
         self.w_up = _param((e, d, f), dtype, device)
         self.w_down = _param((e, f, d), dtype, device)
@@ -128,10 +159,38 @@ def _qkv(p: Attention, x, positions, cfg):
     return q, k, v
 
 
+def rank_kv_heads(cfg, q_heads: int, kv_heads: int, index: int):
+    """Which of the ``kv_heads`` KV heads a rank projects its ``q_heads``
+    query heads (the block at ``index`` along ``model``) attend with:
+    query head h uses KV head h // (H / KVH).  All of them where the
+    queries are whole or the KV heads are split with them; where only the
+    queries are split (KVH does not divide the model axis, so the KV
+    projections stay whole), the KV heads that the rank's queries use: a
+    slice where they group evenly, else one index a query head."""
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    if q_heads == h or kv_heads != kvh:
+        return slice(None)
+    g = h // kvh
+    used = [(index * q_heads + j) // g for j in range(q_heads)]
+    first, count = used[0], used[-1] - used[0] + 1
+    per = q_heads // count
+    if q_heads % count == 0 and used == [first + j // per for j in range(q_heads)]:
+        return slice(first, first + count)
+    return used
+
+
 def self_attention(p: Attention, x, positions, cfg, mode: str,
-                   cache: dict | None = None, window=None, kv_chunk: int = 1024):
-    """Returns the attention output; writes ``cache`` in prefill/decode."""
+                   cache: dict | None = None, window=None, kv_chunk: int = 1024,
+                   mesh=None):
+    """Returns the attention output; writes ``cache`` in prefill/decode.
+    A rank holding a block of the query heads (on ``mesh``) attends with
+    the KV heads they use (`rank_kv_heads`; the cache holds only those)
+    and sums its partial output over ``model``."""
     q, k, v = _qkv(p, x, positions, cfg)
+    split = q.shape[2] != cfg.num_heads
+    if split:
+        heads = rank_kv_heads(cfg, q.shape[2], k.shape[2], mesh.coord["model"])
+        k, v = k[:, :, heads], v[:, :, heads]
     if mode == "decode":
         update_kv_cache(cache, k, v, positions)
         out = decode_attend(q, cache["k"], cache["v"], cache["pos"], positions,
@@ -141,6 +200,8 @@ def self_attention(p: Attention, x, positions, cfg, mode: str,
                   kv_chunk=kv_chunk)
         if mode == "prefill":
             update_kv_cache(cache, k, v, positions)
+    if split:
+        return _row_parallel(out, p.wo, mesh)
     return torch.einsum("bshe,hed->bsd", out, p.wo)
 
 
@@ -154,14 +215,14 @@ def _latent_attention(p: MLA, h, positions, cfg, mode, cache, kv_chunk):
     return attn
 
 
-def _attend(blk, x, positions, cfg, mode, cache, window, kv_chunk):
+def _attend(blk, x, positions, cfg, mode, cache, window, kv_chunk, mesh):
     """Pre-norm GQA or MLA attention of a dense/MoE block."""
     h = rms_norm(x, blk.attn_norm, cfg.norm_eps)
     if cfg.use_mla:
         return _latent_attention(blk.attn, h, positions, cfg, mode, cache,
                                  kv_chunk)
     return self_attention(blk.attn, h, positions, cfg, mode, cache, window,
-                          kv_chunk)
+                          kv_chunk, mesh)
 
 
 def _ssm(p: Mamba, h, cfg, mode, cache):
@@ -191,26 +252,28 @@ class DenseBlock(nn.Module):
         self.mlp_norm = _param((cfg.d_model,), dtype, device)
 
     def forward(self, x, positions, mode, cache=None, window=None,
-                kv_chunk: int = 1024):
+                kv_chunk: int = 1024, mesh_info=None):
         cfg = self.cfg
-        x = x + _attend(self, x, positions, cfg, mode, cache, window, kv_chunk)
-        return x + self.mlp(rms_norm(x, self.mlp_norm, cfg.norm_eps))
+        mesh = mesh_info[0] if mesh_info is not None else None
+        x = x + _attend(self, x, positions, cfg, mode, cache, window, kv_chunk,
+                        mesh)
+        return x + self.mlp(rms_norm(x, self.mlp_norm, cfg.norm_eps), mesh)
 
 
 class MoEBlock(nn.Module):
     """Attention (GQA or MLA) + routed-experts FFN (+ shared experts).
 
     With ``mesh_info = (mesh, batch_axes)`` (a mesh of ranks, from
-    `repro_torch.launch.steps`) the routed experts run expert-parallel
-    (`moe_ffn_sharded`) and ``moe`` holds this rank's share of them
-    (``expert_shard``); the attention, norms and shared experts stay whole
-    on every rank (tensor parallelism for them is not ported)."""
+    `repro_torch.launch.steps`) a block of the routed experts runs
+    expert-parallel (`moe_ffn_sharded`), and blocks of the attention heads
+    and of the shared experts' ffn dim run tensor-parallel (see the module
+    docstring)."""
 
-    def __init__(self, cfg, dtype, device, expert_shard: tuple[int, int] = (0, 1)):
+    def __init__(self, cfg, dtype, device):
         super().__init__()
         self.cfg = cfg
         self.attn = (MLA if cfg.use_mla else Attention)(cfg, dtype, device)
-        self.moe = MoE(cfg, dtype, device, expert_shard)
+        self.moe = MoE(cfg, dtype, device)
         self.attn_norm = _param((cfg.d_model,), dtype, device)
         self.mlp_norm = _param((cfg.d_model,), dtype, device)
         if cfg.num_shared_experts:
@@ -221,24 +284,16 @@ class MoEBlock(nn.Module):
                 mesh_info=None):
         """Returns (x, aux_loss)."""
         cfg = self.cfg
-        x = x + _attend(self, x, positions, cfg, mode, cache, None, kv_chunk)
+        mesh = mesh_info[0] if mesh_info is not None else None
+        x = x + _attend(self, x, positions, cfg, mode, cache, None, kv_chunk,
+                        mesh)
         h = rms_norm(x, self.mlp_norm, cfg.norm_eps)
-        if mesh_info is not None:
-            mesh, batch_axes = mesh_info
-            e_loc = self.moe.w_gate.shape[0]
-            if self.moe.e_start != mesh.coord["model"] * e_loc:
-                raise ValueError(
-                    f"this rank's model holds experts from {self.moe.e_start}, "
-                    f"its model coordinate {mesh.coord['model']} those from "
-                    f"{mesh.coord['model'] * e_loc}")
-            out, aux = moe_ffn_sharded(h, self.moe, cfg, mesh, batch_axes)
-        elif self.moe.w_gate.shape[0] != cfg.num_experts:
-            raise ValueError("a model holding a share of the experts runs on "
-                             "a mesh of ranks (mesh_info)")
+        if self.moe.w_gate.shape[0] != cfg.num_experts:
+            out, aux = moe_ffn_sharded(h, self.moe, cfg, mesh, mesh_info[1])
         else:
             out, aux = moe_ffn(h, self.moe, cfg.top_k, cfg.capacity_factor)
         if cfg.num_shared_experts:
-            out = out + self.shared(h)
+            out = out + self.shared(h, mesh)
         return x + out, aux
 
 
@@ -380,14 +435,16 @@ def cross_kv(attn: Attention, enc_states: torch.Tensor) -> dict:
 
 def init_block_cache(cfg, kind: str, batch: int, cache_len: int, dtype,
                      device, window_len: int | None = None,
-                     lead: tuple[int, ...] = ()):
-    """Cache dict of the given kind for ``lead`` stacked layers."""
+                     lead: tuple[int, ...] = (), kv_heads: int | None = None):
+    """Cache dict of the given kind for ``lead`` stacked layers;
+    ``kv_heads``: the KV heads an "attn" cache holds (default all: a rank
+    holds those its query heads use, `rank_kv_heads`)."""
     if kind == "mla":
         return init_mla_cache(batch, cache_len, cfg, dtype, device, lead)
     length = window_len if window_len is not None else cache_len
     if kind == "attn":
-        return init_kv_cache(batch, length, cfg.num_kv_heads, cfg.head_dim,
-                             dtype, device, lead)
+        return init_kv_cache(batch, length, kv_heads or cfg.num_kv_heads,
+                             cfg.head_dim, dtype, device, lead)
     if kind == "ssm":
         return init_mamba_cache(batch, cfg, dtype, device, lead)
     if kind == "hybrid":

@@ -4,10 +4,10 @@ drawn from a ``torch.Generator``.
 Every weight matrix is a standard normal truncated to ±3 times
 fan_in**-0.5 (drawn in f32, cast to its dtype); norms and ``d_skip`` are
 ones, ``dt_bias`` and the cross-attention gates zeros, ``a_log`` is
-log(linspace(1, 16, H)).  A model holding one rank's share of the
-experts (`MoE`'s ``shard``) draws each expert leaf whole and keeps its
-block, so its weights are the unsharded model's block bit for bit.
-Fan-ins follow `init_params` of the reference:
+log(linspace(1, 16, H)).  A rank's model (one holding blocks of its
+leaves, ``Model.blocks``) draws each such leaf whole and keeps its block,
+so its weights are the unsharded model's blocks bit for bit.
+Fan-ins follow `init_params` of the reference, on the whole leaf:
 the leading dim, except the attention output projections (H * hd), the
 token embedding (D) and the routed experts (the dim after E).  jax's
 random stream cannot be reproduced; `repro_torch.interop.model_params_from`
@@ -39,10 +39,15 @@ def _fan_in(owner: nn.Module, leaf: str, shape) -> int:
 
 def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter of ``model`` in place, in ``named_parameters``
-    order, from ``generator`` (on the parameters' device)."""
+    order, from ``generator`` (on the parameters' device); a parameter
+    named in ``model.blocks`` (name -> (whole shape, block)) is that block
+    of the whole leaf's draw."""
+    blocks = getattr(model, "blocks", {})
     with torch.no_grad():
-        for owner in model.modules():
+        for prefix, owner in model.named_modules():
             for leaf, param in owner.named_parameters(recurse=False):
+                whole, block = blocks.get(f"{prefix}.{leaf}" if prefix else leaf,
+                                          (tuple(param.shape), None))
                 if leaf in _ONES:
                     param.fill_(1.0)
                 elif leaf in _ZEROS:
@@ -50,16 +55,8 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 elif leaf == "a_log":
                     h = param.shape[0]
                     param.copy_(torch.log(torch.linspace(1.0, 16.0, h)))
-                elif (isinstance(owner, MoE) and leaf != "router"
-                      and param.shape[0] != owner.num_experts):
-                    whole = torch.empty((owner.num_experts,) + param.shape[1:],
-                                        dtype=param.dtype, device=param.device)
-                    init_dense(whole, generator,
-                               fan_in=_fan_in(owner, leaf, param.shape))
-                    e0 = owner.e_start
-                    param.copy_(whole[e0:e0 + param.shape[0]])
                 else:
                     init_dense(param, generator,
-                               fan_in=_fan_in(owner, leaf, param.shape))
+                               fan_in=_fan_in(owner, leaf, whole), whole=whole,
+                               block=block)
     return model
-

@@ -21,15 +21,23 @@ memory, never values.  The config's ``remat_policy="save_collectives"``
 keeps the tensor-parallel collectives' outputs in the reference; one card
 has no collective, so it recomputes everything, as ``"full"`` does.
 
-Expert parallelism: ``Model(cfg, device, expert_shard=(i, n))`` holds
-one rank's share of each MoE layer's experts (`blocks.MoE`), and
-``forward(..., mesh_info=(mesh, batch_axes))`` on a mesh of ranks runs
-them with `moe.moe_ffn_sharded`, as the reference's ``model.py`` threads
-``mesh_info`` to ``moe_block``.  The embedding, attention, norms, shared
-experts and head stay whole on every rank: tensor parallelism for the
-dense layers is not ported.  A rank's model comes from a seed
-(`build_model`) or from the reference's weights
-(`repro_torch.interop.rank_model_from`).
+A rank of a mesh of ranks: ``Model(cfg, device, shard)`` with
+``shard = ParamShard.of(mesh)`` (the mesh's shape and the rank's
+coordinate) holds, of each leaf, the block that the reference's planner
+gives that position (`repro_torch.sharding.ParamShard.block`: its
+``plan_params`` spec, then `shard_slices`), and
+``forward(..., mesh_info=(mesh, batch_axes))`` on that mesh issues the
+collectives that XLA inserts for those specs: the vocab-parallel
+embedding (`layers.embed_tokens`: one ``all_reduce``), head-parallel
+attention and ffn-parallel MLPs (one ``all_reduce`` each, `blocks`),
+expert-parallel MoE (`moe.moe_ffn_sharded`) and the vocab-parallel head
+(its block of the logits, ``all_gather``ed over ``model``).  This holds
+for the GQA dense and MoE families (`splits_dense`); the others (MLA,
+Mamba, hybrid, VLM, audio) keep their dense leaves whole on every rank
+and split only the routed experts.  ``blocks`` maps each parameter held
+as a block to (its whole shape, the block).  A rank's model comes from a
+seed (`build_model`; each block is the unsharded model's, bit for bit)
+or from the reference's weights (`repro_torch.interop.rank_model_from`).
 """
 from __future__ import annotations
 
@@ -40,16 +48,26 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding.planner import ParamShard
 
 from .attention import init_kv_cache
 from .blocks import (CrossBlock, DenseBlock, EncDecBlock, EncoderBlock,
                      HybridBlock, MoEBlock, SSMBlock, _param, cross_kv,
-                     init_block_cache)
+                     init_block_cache, rank_kv_heads)
 from .config import ArchConfig
 from .init import init_params
-from .layers import DTYPES, cross_entropy_loss, rms_norm
+from .layers import DTYPES, cross_entropy_loss, embed_tokens, rms_norm
 
-__all__ = ["Model", "build_model", "init_params", "reference_path"]
+__all__ = ["Model", "build_model", "init_params", "reference_path",
+           "splits_dense"]
+
+
+def splits_dense(cfg: ArchConfig) -> bool:
+    """Whether a rank's model of ``cfg`` holds the planner's blocks of its
+    dense leaves (embedding, attention, MLPs, head): the GQA dense and
+    MoE families.  The others keep them whole (their tensor-parallel
+    forward is not ported) and split only the routed experts."""
+    return cfg.family in ("dense", "moe") and not cfg.use_mla
 
 
 def reference_path(name: str) -> tuple[tuple[str, ...], tuple[int, ...]]:
@@ -97,11 +115,38 @@ class Model(nn.Module):
     by `init`."""
 
     def __init__(self, cfg: ArchConfig, device: "str | torch.device" = "cuda",
-                 expert_shard: tuple[int, int] = (0, 1)):
+                 shard: ParamShard | None = None):
         super().__init__()
         self.cfg = cfg
-        dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
-        dt = DTYPES[cfg.param_dtype]
+        self.shard = shard or ParamShard()
+        target = (torch.device("meta") if str(device) == "meta"
+                  else resolve_device(device))
+        self._build(cfg, DTYPES[cfg.param_dtype], torch.device("meta"))
+        # Cut each leaf to this position's block while no memory is held.
+        self.blocks: dict[str, tuple[tuple[int, ...], tuple[slice, ...]]] = {}
+        for name, param in list(self.named_parameters()):
+            whole = tuple(param.shape)
+            block = self.leaf_block(reference_path(name)[0], whole)
+            local = tuple(len(range(n)[b]) for n, b in zip(whole, block))
+            if local != whole:
+                self.blocks[name] = (whole, block)
+                path, _, leaf = name.rpartition(".")
+                setattr(self.get_submodule(path), leaf,
+                        _param(local, param.dtype, param.device))
+        if target.type != "meta":
+            self.to_empty(device=target)
+
+    def leaf_block(self, keys, shape) -> tuple[slice, ...]:
+        """The block of the reference tree's leaf at ``keys`` with
+        ``shape`` (one layer's, or stacked: the rules count dimensions
+        from the end) that this model holds: the planner's block for its
+        position (`ParamShard.block`) where `splits_dense` or the leaf is
+        a routed expert's, else the whole leaf."""
+        if splits_dense(self.cfg) or "moe" in keys:
+            return self.shard.block(keys, shape)[1]
+        return tuple(slice(0, n) for n in shape)
+
+    def _build(self, cfg: ArchConfig, dt, dev) -> None:
         d = cfg.d_model
         self.embed = _param((cfg.vocab_size, d), dt, dev)
         self.final_norm = _param((d,), dt, dev)
@@ -111,7 +156,7 @@ class Model(nn.Module):
             self.layers = _stack(cfg.num_layers, lambda: DenseBlock(cfg, dt, dev))
         elif fam == "moe":
             self.layers = _stack(cfg.num_layers - cfg.first_dense_layers,
-                                 lambda: MoEBlock(cfg, dt, dev, expert_shard))
+                                 lambda: MoEBlock(cfg, dt, dev))
             if cfg.first_dense_layers:
                 self.dense0 = _stack(cfg.first_dense_layers,
                                      lambda: DenseBlock(cfg, dt, dev))
@@ -172,6 +217,17 @@ class Model(nn.Module):
         return tree
 
     # ------------------------------------------------------------- caches
+    def _kv_heads(self) -> int:
+        """The KV heads a decoder layer's cache holds: all of them, or the
+        rank's (`rank_kv_heads`)."""
+        cfg = self.cfg
+        if not splits_dense(cfg):
+            return cfg.num_kv_heads
+        attn = self.layers[0].attn
+        q, kv = attn.wq.shape[1], attn.wk.shape[1]
+        heads = rank_kv_heads(cfg, q, kv, self.shard.coord.get("model", 0))
+        return len(range(kv)[heads]) if isinstance(heads, slice) else len(heads)
+
     def init_caches(self, batch: int, cache_len: int) -> Any:
         """Zeroed decode caches on the model's device, stacked per layer
         stack as the reference stacks them (empty slots at position -1)."""
@@ -182,7 +238,7 @@ class Model(nn.Module):
 
         def block(kind, lead, window_len=None):
             return init_block_cache(cfg, kind, batch, cache_len, dt, dev,
-                                    window_len, lead)
+                                    window_len, lead, self._kv_heads())
 
         def cross(lead):  # cross K/V over the frontend's positions
             return init_kv_cache(batch, cfg.frontend_seq, cfg.num_kv_heads,
@@ -226,17 +282,19 @@ class Model(nn.Module):
         """Returns (logits, caches, aux_loss); prefill and decode write
         ``caches`` in place and return it.  ``frontend`` is cast to the
         activation dtype (its cross K/V are cached in it).  ``mesh_info``:
-        ``(mesh, batch_axes)`` on a mesh of ranks, where the MoE blocks run
-        expert-parallel (see the module docstring).  ``remat``: see the
-        module docstring."""
+        ``(mesh, batch_axes)`` on a mesh of ranks (the position this
+        model's ``shard`` is, where it holds blocks of its leaves; see the
+        module docstring).  ``remat``: see the module
+        docstring."""
         cfg = self.cfg
+        mesh = self._rank_mesh(mesh_info)
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, dtype=torch.int32,
                                      device=tokens.device).expand(b, s)
         if frontend is not None:
             frontend = frontend.to(DTYPES[cfg.activation_dtype])
-        x = self.embed[tokens.long()]
+        x = embed_tokens(self.embed, tokens, cfg.vocab_size, mesh)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         fam = cfg.family
         if fam in ("dense", "moe"):
@@ -257,7 +315,21 @@ class Model(nn.Module):
         else:
             raise ValueError(fam)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        return x @ self.lm_head, caches, aux
+        logits = x @ self.lm_head
+        if self.lm_head.shape[1] != cfg.vocab_size:  # this rank's vocab block
+            logits = mesh.all_gather(logits, "model").movedim(0, -2).flatten(-2)
+        return logits, caches, aux
+
+    def _rank_mesh(self, mesh_info):
+        """The rank mesh of ``mesh_info`` (None without one), checked
+        against this model: a model holding blocks runs on the mesh whose
+        position it holds."""
+        mesh = mesh_info[0] if mesh_info is not None else None
+        if self.blocks and (mesh is None or ParamShard.of(mesh) != self.shard):
+            raise ValueError(f"this model holds the blocks of {self.shard}; it "
+                             "runs on that position of its mesh of ranks "
+                             "(mesh_info)")
+        return mesh
 
     # ------------------------------------------------- family sub-forwards
     def _fwd_decoder(self, x, positions, mode, caches, kv_chunk, aux, remat,
@@ -266,7 +338,8 @@ class Model(nn.Module):
         if cfg.first_dense_layers:
             d0 = caches["dense0"] if caches is not None else None
             for i, blk in enumerate(self.dense0):
-                x = blk(x, positions, mode, _index(d0, i), kv_chunk=kv_chunk)
+                x = blk(x, positions, mode, _index(d0, i), kv_chunk=kv_chunk,
+                        mesh_info=mesh_info)
         lc = caches["layers"] if caches is not None else None
         for i, blk in enumerate(self.layers):
             if cfg.is_moe:
@@ -275,7 +348,8 @@ class Model(nn.Module):
                 aux = aux + a
             else:
                 x = _layer(blk, remat, x, positions, mode, _index(lc, i),
-                           window=cfg.sliding_window, kv_chunk=kv_chunk)
+                           window=cfg.sliding_window, kv_chunk=kv_chunk,
+                           mesh_info=mesh_info)
         return x, aux
 
     def _fwd_hybrid(self, x, positions, mode, caches, kv_chunk, remat):
@@ -357,11 +431,11 @@ class Model(nn.Module):
 
 def build_model(cfg: ArchConfig, device: "str | torch.device" = "cuda",
                 seed: int | None = None,
-                expert_shard: tuple[int, int] = (0, 1)) -> Model:
-    """``Model(cfg, device, expert_shard)``; with ``seed``, initialized
-    from a ``torch.Generator`` on that device seeded with it (an expert
-    shard's weights are the unsharded model's block of them)."""
-    model = Model(cfg, device, expert_shard)
+                shard: ParamShard | None = None) -> Model:
+    """``Model(cfg, device, shard)``; with ``seed``, initialized from a
+    ``torch.Generator`` on that device seeded with it (a rank's blocks
+    are the unsharded model's blocks, bit for bit)."""
+    model = Model(cfg, device, shard)
     if seed is not None:
         model.init(torch.Generator(device=model.device).manual_seed(seed))
     return model

@@ -4,10 +4,11 @@ partitioning engine's vertex-block plan (`plan_vertex_shards`) and the
 SNEAP device-layout search (`sneap_device_layout`).
 """
 from .layout import logical_traffic_matrix, sneap_device_layout
-from .planner import (ShardingPlan, VertexShardPlan, plan_batch, plan_caches,
-                      plan_opt_state, plan_params, plan_vertex_shards,
-                      shard_slices, spec_for_param)
+from .planner import (ParamShard, ShardingPlan, VertexShardPlan, plan_batch,
+                      plan_caches, plan_opt_state, plan_params,
+                      plan_vertex_shards, shard_slices, spec_for_param)
 
 __all__ = ["ShardingPlan", "plan_params", "plan_caches", "plan_batch",
-           "plan_opt_state", "spec_for_param", "shard_slices", "VertexShardPlan",
-           "plan_vertex_shards", "logical_traffic_matrix", "sneap_device_layout"]
+           "plan_opt_state", "spec_for_param", "shard_slices", "ParamShard",
+           "VertexShardPlan", "plan_vertex_shards", "logical_traffic_matrix",
+           "sneap_device_layout"]

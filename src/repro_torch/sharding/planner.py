@@ -55,7 +55,7 @@ from repro_torch.device import resolve_device
 
 __all__ = ["ShardingPlan", "plan_params", "plan_caches", "plan_batch",
            "plan_opt_state", "spec_for_param", "shard_slices",
-           "VertexShardPlan", "plan_vertex_shards"]
+           "ParamShard", "VertexShardPlan", "plan_vertex_shards"]
 
 Spec = tuple
 
@@ -179,6 +179,35 @@ def shard_slices(spec: Spec, shape, mesh_shape: dict[str, int],
         block = size // n
         out.append(slice(index * block, (index + 1) * block))
     return tuple(out)
+
+
+@dataclass(frozen=True)
+class ParamShard:
+    """One position of a mesh, as a rank holds the parameters there: the
+    mesh's shape (axis -> size) and the position's index on each axis.
+    The default is a one-position mesh, whose blocks are every leaf
+    whole."""
+    mesh_shape: dict = field(default_factory=lambda: {"model": 1})
+    coord: dict = field(default_factory=lambda: {"model": 0})
+
+    @classmethod
+    def of(cls, mesh) -> "ParamShard":
+        """This rank's position on a rank mesh (``mesh.coord``)."""
+        return cls(dict(mesh.shape), dict(mesh.coord))
+
+    @property
+    def whole(self) -> bool:
+        """Whether every leaf's block is the leaf (a model axis of 1)."""
+        return self.mesh_shape.get("model", 1) == 1
+
+    def block(self, names, leaf) -> tuple[Spec, tuple[slice, ...]]:
+        """The planner's spec of the parameter at path ``names`` with shape
+        ``leaf`` (`spec_for_param`; ``()`` where the leaf stays whole) and
+        the block of it this position holds (`shard_slices`)."""
+        shape = _shape(leaf)
+        spec = () if self.whole else spec_for_param(
+            ShardingPlan(mesh_shape=dict(self.mesh_shape)), names, shape)
+        return spec, shard_slices(spec, shape, self.mesh_shape, self.coord)
 
 
 def plan_params(plan: ShardingPlan, params) -> dict:

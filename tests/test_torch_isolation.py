@@ -1,8 +1,8 @@
 """The port stands alone: it imports torch and numpy, never jax and nothing
 of the reference package, and chip_smoke.py refuses to run off the card.
 What the rank tests' spawned ranks import (the rank meshes, the
-expert-parallel MoE, the island SA and tests/torch_ranks_bodies.py) is
-held to the same rule."""
+expert-parallel MoE, the tensor-parallel model, the island SA and
+tests/torch_ranks_bodies.py) is held to the same rule."""
 import os
 import re
 import shutil
@@ -39,7 +39,10 @@ def test_importing_the_port_loads_no_jax_or_reference_module():
         "repro_torch.configs.shapes, repro_torch.launch.op_analysis, "
         "repro_torch.launch.dryrun, repro_torch.launch.roofline, "
         "repro_torch.launch.hillclimb, repro_torch.launch.report, "
-        "repro_torch.models.moe, repro_torch.core.mapping_device\n"
+        "repro_torch.models.moe, repro_torch.core.mapping_device, "
+        "repro_torch.models.model, repro_torch.models.blocks, "
+        "repro_torch.models.attention, repro_torch.models.layers, "
+        "repro_torch.models.init, repro_torch.sharding.planner\n"
         "[repro_torch.configs.get_config(n) for n in repro_torch.configs.ARCHS]\n"
         "import repro_torch.kernels.lif_step, repro_torch.kernels.gain_eval, "
         "repro_torch.kernels.swap_delta, repro_torch.kernels.link_load, "

@@ -5,9 +5,10 @@ every value preserved — with specs that split leaves over axes larger
 than 1, on (data, model) rank meshes (`run_ranks`, 4 CPU ranks, one job):
 the planner's parameter specs of a reduced qwen3-moe-30b-a3b (experts,
 heads and vocabulary split over ``model``) on model axes of 2 and 4, a
-leaf split over (data, model) 2x2 and over both axes at once, and a move
-of the expert leaves from a 4-rank mesh to a 2-rank mesh (ranks 2 and 3
-drop out).  Each rank's blocks must be its `shard_slices` of the leaf, and
+leaf split over (data, model) 2x2 and over both axes at once, and moves
+of the expert leaves and of the tensor-parallel leaves (embedding, head,
+attention projections) from a 4-rank mesh to a 2-rank mesh (ranks 2 and
+3 drop out).  Each rank's blocks must be its `shard_slices` of the leaf, and
 the blocks gathered back (`Sharded.full`) the original, bit for bit."""
 import dataclasses
 
@@ -48,8 +49,14 @@ def _experts(tree):
                                for k in ("w_gate", "w_up", "w_down")}}}
 
 
+def _dense(tree):
+    attn = tree["layers"]["attn"]
+    return {"embed": tree["embed"], "lm_head": tree["lm_head"],
+            "layers": {"attn": {k: attn[k] for k in ("wq", "wk", "wv", "wo")}}}
+
+
 def _cases(tree):
-    experts = _experts(tree)
+    experts, dense = _experts(tree), _dense(tree)
     return {
         "model2": dict(place=((1, 2), _specs((1, 2), tree))),
         "model4": dict(place=((1, 4), _specs((1, 4), tree))),
@@ -59,11 +66,14 @@ def _cases(tree):
                                            "ids": (None, None)})),
         "four_to_two": dict(place=((1, 4), _specs((1, 4), experts)),
                             move=((1, 2), _specs((1, 2), experts))),
+        "dense_four_to_two": dict(place=((1, 4), _specs((1, 4), dense)),
+                                  move=((1, 2), _specs((1, 2), dense))),
     }
 
 
 TREES = {"model2": "params", "model4": "params", "data_model": "grid",
-         "model_data": "grid", "four_to_two": "experts"}
+         "model_data": "grid", "four_to_two": "experts",
+         "dense_four_to_two": "dense"}
 
 
 @pytest.fixture(scope="module")
@@ -71,7 +81,8 @@ def inputs():
     tree = _tree()
     grid = {"grid": np.arange(8 * 12 * 5, dtype=np.float32).reshape(8, 12, 5),
             "ids": np.arange(16, dtype=np.int64).reshape(16, 1)}
-    return {"params": tree, "grid": grid, "experts": _experts(tree)}, _cases(tree)
+    return ({"params": tree, "grid": grid, "experts": _experts(tree),
+             "dense": _dense(tree)}, _cases(tree))
 
 
 @pytest.fixture(scope="module")
@@ -134,6 +145,11 @@ def test_remesh_splits_what_the_specs_split(inputs):
     specs = cases["model4"]["place"][1]["layers"]
     assert specs["moe"]["w_gate"] == (None, "model", None, None)
     assert specs["attn"]["wq"] == (None, None, "model", None)
+    dense = cases["dense_four_to_two"]
+    # 2 KV heads stay whole on 4 ranks and split over 2.
+    assert dense["place"][1]["layers"]["attn"]["wk"] == ()
+    assert dense["move"][1]["layers"]["attn"]["wk"] == (None, None, "model", None)
+    assert dense["move"][1]["embed"] == ("model", None)
     grid = trees["grid"]["grid"]
     coord = {"data": 1, "model": 0}
     assert shard_slices(("data", "model", None), grid.shape, MESH[(2, 2)],

@@ -12,14 +12,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.mapping_device import island_sa
-from repro_torch.interop import rank_model_from
+from repro_torch.interop import rank_model_from, reference_tree
 from repro_torch.launch.mesh import make_rank_mesh
 from repro_torch.launch.serve import serve_batch
-from repro_torch.launch.steps import expert_shard
 from repro_torch.models import build_model
 from repro_torch.models.moe import moe_ffn_sharded
 from repro_torch.runtime.elastic import Sharded, remesh_params
-from repro_torch.sharding.planner import shard_slices
+from repro_torch.sharding.planner import ParamShard, shard_slices
 
 
 class Experts:
@@ -58,7 +57,9 @@ def serve(cfg, tree: dict, prompts: np.ndarray, gen_len: int,
           shapes: list) -> dict:
     """Greedy `serve_batch` on a (data, model) mesh of each shape, each
     rank's model carried from the reference tree (`rank_model_from`), and
-    this rank's experts of a model built from seed 0 (first layer)."""
+    this rank's experts of a model built from seed 0 (first layer); the
+    expert shard is (index, count): the block the model holds of the
+    experts, and how many such blocks they make."""
     out = {}
     for shape in shapes:
         mesh = make_rank_mesh(shape, device="cpu",
@@ -70,14 +71,49 @@ def serve(cfg, tree: dict, prompts: np.ndarray, gen_len: int,
                           keep_logits=True, print_fn=lambda *_: None,
                           device="cpu")
         seeded = build_model(cfg, "cpu", seed=0,
-                             expert_shard=expert_shard(cfg, mesh)).layers[0].moe
+                             shard=ParamShard.of(mesh)).layers[0].moe
+        e_loc = model.layers[0].moe.w_gate.shape[0]
+        _, block = model.blocks["layers.0.moe.w_gate"]
         out[shape] = dict(
-            coord=mesh.coord, shard=expert_shard(cfg, mesh),
+            coord=mesh.coord,
+            shard=(block[0].start // e_loc, cfg.num_experts // e_loc),
             tokens=res["tokens"], logits=res["logits"].numpy(),
             carried={k: getattr(model.layers[0].moe, k).numpy()
                      for k in ("router", "w_gate", "w_up", "w_down")},
             seeded={k: getattr(seeded, k).numpy()
                     for k in ("router", "w_gate", "w_down")})
+    return out
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    return tree.numpy()
+
+
+def tensor_parallel(cfg, tree, prompts: np.ndarray, gen_len: int,
+                    shapes: list) -> dict:
+    """Greedy `serve_batch` on a (data, model) mesh of each shape, each
+    rank's model carried from the reference tree (`rank_model_from`):
+    this rank's coordinate, tokens, logits and collective tally, and the
+    leaves it holds (as the reference's stacked tree) of the carried model
+    and of a model built from seed 0 for its position."""
+    out = {}
+    for shape in shapes:
+        mesh = make_rank_mesh(shape, device="cpu",
+                              ranks=range(int(np.prod(shape))))
+        if not mesh.is_member:
+            continue
+        model = rank_model_from(cfg, tree, mesh)
+        res = serve_batch(cfg, mesh, prompts, gen_len, model=model,
+                          keep_logits=True, print_fn=lambda *_: None,
+                          device="cpu")
+        seeded = build_model(cfg, "cpu", seed=0, shard=ParamShard.of(mesh))
+        out[shape] = dict(coord=mesh.coord, tokens=res["tokens"],
+                          logits=res["logits"].numpy(),
+                          collectives=res["collectives"],
+                          carried=_numpy(reference_tree(model)),
+                          seeded=_numpy(reference_tree(seeded)))
     return out
 
 
