@@ -97,8 +97,21 @@
    the mesh's tally) and all 32 layers in bf16 on (1, 2), timed beside
    the unsharded model (the prefill's last logits within 5e-2 of
    max|logit|, 66 collectives a decode step, each rank's peak memory at
-   most 0.6 of the unsharded run's).  The ranks launch no TPU kernel;
-   the parent one hop_cost (the islands' avg_hop).
+   most 0.6 of the unsharded run's).  Then training on ranks
+   (``train_ranks_part``): llama3-8b at its published width, 2 layers
+   in f32 on (1, 2) and on (2, 2) with ZeRO-1, and qwen3-moe-30b-a3b, 1
+   layer in f32 on (1, 2), two steps against the unsharded run from the
+   same seed (loss, gradient norm, each leaf's parameters and moments by
+   an estimated relative L2 error; step 2 against the floor the
+   unsharded step reaches with its batch in two micro-batches; the
+   step-1 sign flips of m counted; qwen3-moe's routing recorded and its
+   rerouted tokens' experts named; every block two ranks hold the same
+   on both), then llama3-8b with 8 layers in bf16
+   on (1, 2) beside the unsharded run under both remat policies (step,
+   optimizer and peak; finite, falling losses; each rank's tally equal to
+   a counting mesh's; its profiled matmul FLOPs within 1% of the count).
+   The ranks launch no TPU kernel; the parent one hop_cost (the islands'
+   avg_hop).
 13. Serves the LLM model zoo on the card (``repro_torch.launch.serve_batch``,
    greedy, no TPU kernel on the path: every launch count must stay 0):
    llama3-8b at its full published width and depth in bf16 (8.03 B
@@ -1974,6 +1987,812 @@ def tp_part(card: str) -> dict:
     return {name: sum(r["launches"][name] for r in got) for name in got[0]["launches"]}
 
 
+# The training part of the ranks phase (`train_ranks_part`): llama3-8b at
+# its published width trains on gloo ranks of cuda:0, each rank's model
+# holding its position's blocks from a torch.Generator seeded
+# TR["seed"]: f32 at 2 layers on (1, 2) and on (2, 2) with ZeRO-1, and
+# qwen3-moe-30b-a3b f32 at 1 layer on (1, 2) (expert parallel), held to
+# the unsharded run from the same seed on the same batches; then llama3-8b
+# bf16 at 8 layers on (1, 2), timed beside the unsharded run, under the
+# "full" and "save_collectives" remat policies.  (2, 1) is left out: each
+# of its ranks would send the whole f32 gradient, ~6 GB a step, through
+# gloo's host ring.
+TR = dict(batch=4, seq=256, seed=0)
+TR_PARITY_LAYERS, TR_MOE_LAYERS, TR_TIMING_LAYERS = 2, 1, 8
+TR_PARITY_MESHES = (((1, 2), False), ((2, 2), True))  # (shape, zero1)
+TR_PARITY_STEPS, TR_TIMING_STEPS, TR_SAVE_STEPS = 2, 4, 3
+# Each leaf's parameters and moments are held to the unsharded run's by k
+# sums of their elements times +-1 signs hashed from each element's index
+# in the whole leaf: over the ranks' distinct blocks against the whole
+# leaf, the sums' root-mean-square difference over the leaf's L2 norm
+# estimates the relative L2 error (moving the whole tensors between the
+# processes would carry ~30 GB).  Ranks that hold the same block must
+# give the same sums (TR_SAME_REL of its L2 norm).
+TR_PROJ_K = 4
+TR_SAME_REL = 1e-12
+# After step 1 the ranks differ from the unsharded run by the rounding
+# of sums taken in another order: the moments within TR_TOL.  Adam's
+# first update is lr times about the gradient's sign, so an element
+# whose gradient lies nearer 0 than that rounding moves 2 lr the other
+# way, and step 2 starts from parameters that differ there.  The step-1
+# sign flips are counted on the card (`sign_chunks`: sums of signs of m
+# over chunks of TR_SIGN_CHUNK elements), and what a correct program
+# reaches after step 2 is measured in the same run: the unsharded step
+# with its batch in TR_FLOOR_MICRO micro-batches (`_micro_step`: the sums
+# a data axis takes in another order) against the unsharded step.  Each
+# part's step-2 bound is TR_FLOOR_MULT times that floor, and never below
+# TR_TOL.
+TR_TOL = 1e-5
+TR_METRIC_RTOL = 1e-5  # loss and gradient norm, relative
+TR_SIGN_CHUNK = 4096
+TR_FLOOR_MICRO, TR_FLOOR_MULT = 2, 4
+# qwen3-moe's step 2 routes at its published capacity factor 1.25 from
+# the flipped parameters: a token whose top-8 set or capacity slot
+# changes moves whole rows of its experts' gradients.  Every rank and the
+# unsharded run record each step's routing (`recording_routes`), and
+# each expert's error is read alone (`_pieces`).  The rerouted tokens
+# are held to TR_MOE_MAX_CHANGED of a step's tokens; after step 2 the
+# experts that no rerouted token touches to llama's step-2 bound on
+# their parameters and TR_MOE_EXPERTS on their moments (an expert's
+# leaf is 1/128 of the stacked leaf, so its relative error reads
+# coarser than a whole leaf's); every whole leaf (router, dense leaves,
+# the stacked experts, the touched ones inside) to TR_MOE_STEP2, and the
+# loss and gradient norm to TR_MOE_STEP2["metrics"] relative.  The card
+# read one token rerouted at step 2, its two experts' moments 5.6e-2 and
+# 1.1e-2, the untouched experts' 2.4e-4 at most, the router's 2.8e-3,
+# the loss 6.0e-6 (PERF.md §6): each bound about 4x its reading.
+TR_MOE_MAX_CHANGED = 0.02
+TR_MOE_EXPERTS = 1e-3
+TR_MOE_STEP2 = dict(p=4e-4, moments=1e-2, metrics=3e-5)
+TR_EXPERT_LEAVES = ("moe/w_gate", "moe/w_up", "moe/w_down")
+TR_FLOP_TOL = 0.01  # a rank's profiled matmul FLOPs against its count
+
+
+def tr_config(arch: str, layers: int, dtype: str, policy: str = "full"):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), num_layers=layers,
+                               param_dtype=dtype, activation_dtype=dtype,
+                               remat_policy=policy)
+
+
+def tr_opt(steps: int, timing: bool = False):
+    """The parity runs' schedule (lr 1e-3 from the first step), or the
+    timing run's: the train phase's (`TRAIN`), whose warm-up keeps a
+    random bf16 model's first steps falling (at lr 1e-3 from the first
+    step llama3-8b's loss rose at step 3 on the card)."""
+    from repro_torch.optim import AdamWConfig
+
+    if timing:
+        return AdamWConfig(lr=TRAIN["lr"], warmup_steps=5, total_steps=TRAIN["steps"])
+    return AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=steps)
+
+
+def tr_batches(cfg, steps: int) -> list:
+    from repro_torch.data import DataConfig, SyntheticLMData
+
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=TR["seq"],
+                                      global_batch=TR["batch"], seed=TR["seed"]))
+    return [data.batch(i)["tokens"] for i in range(steps)]
+
+
+def _whole_indices(x, whole: tuple, block: tuple):
+    """(``x``'s elements, their flat indices in the whole leaf of shape
+    ``whole``), a bounded number of rows at a time; ``x`` is the
+    ``block`` (slices in whole coordinates) of that leaf."""
+    import numpy as np
+    import torch
+
+    lens = [len(range(n)[b]) for n, b in zip(whole, block)]
+    strides = np.cumprod([1] + list(whole[::-1]))[::-1][1:].tolist()
+    x = x.detach().reshape(lens if lens else [1])
+    if not lens:
+        lens, strides, block = [1], [1], (slice(0, 1),)
+    dev = x.device
+    rest = torch.zeros((), dtype=torch.int64, device=dev)
+    for d in range(1, len(lens)):
+        idx = torch.arange(block[d].start, block[d].start + lens[d],
+                           dtype=torch.int64, device=dev) * strides[d]
+        rest = rest[..., None] + idx
+    rest = rest.reshape(-1)
+    rows = max(1, (1 << 24) // max(rest.numel(), 1))
+    for r0 in range(0, lens[0], rows):
+        r1 = min(lens[0], r0 + rows)
+        first = torch.arange(block[0].start + r0, block[0].start + r1,
+                             dtype=torch.int64, device=dev) * strides[0]
+        yield x[r0:r1].reshape(-1), (first[:, None] + rest[None, :]).reshape(-1)
+
+
+_HASH_MIX = (-7046029254386353131, -4658895280553007687, -7723592293110705685)
+
+
+def _hash(index, salt: int):
+    """A 64-bit hash of each int64 ``index`` and ``salt``."""
+    import torch
+
+    mix = torch.tensor(_HASH_MIX, dtype=torch.int64, device=index.device)
+    h = index * mix[0] + salt * mix[1]
+    h = h ^ (h >> 31)
+    return h * mix[2]
+
+
+def leaf_projections(x, whole: tuple, block: tuple):
+    """TR_PROJ_K f64 sums of ``x``'s elements, each times +-1 from a hash
+    of (its flat index in the whole leaf of shape ``whole``, the sum's
+    number), then the sum of their squares; ``x`` is the ``block``
+    (slices in whole coordinates) of that leaf."""
+    import torch
+
+    out = torch.zeros(TR_PROJ_K + 1, dtype=torch.float64, device=x.device)
+    for chunk, index in _whole_indices(x, whole, block):
+        chunk = chunk.double()
+        for j in range(TR_PROJ_K):
+            sign = ((_hash(index, j + 1) >> 40) & 1).double() * 2 - 1
+            out[j] += (chunk * sign).sum()
+        out[TR_PROJ_K] += chunk.square().sum()
+    return out.cpu().numpy()
+
+
+def sign_chunks(x, whole: tuple, block: tuple):
+    """int64 sums, one a TR_SIGN_CHUNK elements of the whole leaf in flat
+    order, of each element's sign (-1, 0, 1) times a 20-bit weight hashed
+    from its index: the blocks' sums add up to the whole leaf's exactly,
+    and an element whose sign differs changes its chunk's sum."""
+    import numpy as np
+    import torch
+
+    n = int(np.prod(whole)) if whole else 1
+    out = torch.zeros(-(-n // TR_SIGN_CHUNK), dtype=torch.int64, device=x.device)
+    for chunk, index in _whole_indices(x, whole, block):
+        weight = ((_hash(index, 0) >> 40) & 0xFFFFF) + 1
+        out.index_add_(0, index // TR_SIGN_CHUNK,
+                       torch.sign(chunk).to(torch.int64) * weight)
+    return out.cpu().numpy()
+
+
+def _pieces(path: str, x, whole: tuple, block: tuple, expert_dim: int) -> list:
+    """[(key, tensor, block)] of ``x`` (the ``block`` of a leaf): the
+    block itself, or for an expert leaf one piece an expert, keyed
+    ``<path>/e<expert>``, so that each expert's error reads alone."""
+    if not path.endswith(TR_EXPERT_LEAVES):
+        return [(path, x, block)]
+    x = x.reshape([len(range(n)[b]) for n, b in zip(whole, block)])
+    out = []
+    for j, e in enumerate(range(*block[expert_dim].indices(whole[expert_dim]))):
+        sub = list(block)
+        sub[expert_dim] = slice(e, e + 1)
+        out.append((f"{path}/e{e:03d}", x.narrow(expert_dim, j, 1), tuple(sub)))
+    return out
+
+
+def state_projections(model, state, mesh_info, zero1: bool, parts) -> dict:
+    """{part: {key: [(block key, sums)]}} of ``parts``: "p" the model's
+    parameters (a layer's block each), "m" and "v" its AdamW moments (the
+    leaf's block), each `leaf_projections` in the whole stacked leaf and
+    keyed by leaf path (an expert leaf's by expert, `_pieces`); "s" the
+    `sign_chunks` of m by leaf path."""
+    import numpy as np
+
+    from repro_torch.optim.adamw import rank_leaves
+
+    out = {part: {} for part in parts}
+    params = dict(model.named_parameters())
+    for leaf in rank_leaves(model, mesh_info, zero1):
+        nl = len(leaf.lead)
+        pieces = []
+        if "p" in parts:
+            for i, name in enumerate(leaf.names):
+                index = np.unravel_index(i, leaf.lead) if leaf.lead else ()
+                block = tuple(slice(j, j + 1) for j in index) + leaf.layer_block
+                pieces += [("p", *piece) for piece in
+                           _pieces(leaf.path, params[name], leaf.whole, block, nl)]
+        for part in ("m", "v"):
+            if part in parts:
+                pieces += [(part, *piece) for piece in _pieces(
+                    leaf.path, state[part][leaf.path], leaf.whole,
+                    leaf.moment_block, nl)]
+        for part, key, x, block in pieces:
+            out[part].setdefault(key, []).append(
+                (str(block), leaf_projections(x, leaf.whole, block)))
+        if "s" in parts:
+            out["s"].setdefault(leaf.path, []).append((str(leaf.moment_block), sign_chunks(
+                state["m"][leaf.path], leaf.whole, leaf.moment_block)))
+    return out
+
+
+class recording_routes:
+    """Within it, each call of `repro_torch.models.moe.router_topk` keeps
+    its (T, K) expert ids, on the host, in ``calls``."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self._moe, orig = [], moe, moe.router_topk
+
+        def record(logits, top_k):
+            weights, experts, aux = orig(logits, top_k)
+            self.calls.append(experts.detach().cpu().numpy())
+            return weights, experts, aux
+
+        self._orig, moe.router_topk = orig, record
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.router_topk = self._orig
+
+
+def _micro_step(steps: int, micro: int):
+    """The unsharded train step with the batch's rows in ``micro`` equal
+    micro-batches: each one's loss over ``micro`` backward, the gradients
+    summed in the parameters' ``.grad``, then `adamw_update` with the
+    parity runs' schedule.  The same function as `make_train_step`'s for a
+    dense model, its sums taken in the order a data axis of ``micro``
+    positions takes them."""
+    import torch
+
+    from repro_torch.optim import adamw_update
+
+    opt = tr_opt(steps)
+
+    def step(model, state, batch):
+        tokens = batch["tokens"]
+        rows = tokens.shape[0] // micro
+        model.requires_grad_(True)
+        losses = []
+        for i in range(micro):
+            loss, _ = model.loss({"tokens": tokens[i * rows:(i + 1) * rows]})
+            (loss / micro).backward()
+            losses.append(loss.detach())
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        stats = adamw_update(model, grads, state, opt)
+        model.zero_grad(set_to_none=True)
+        return state, {"loss": torch.stack(losses).mean(), **stats}
+
+    return step
+
+
+def _tr_steps(cfg, model, mesh, zero1: bool, batches: list, remat: bool,
+              track: bool, micro: int = 1) -> dict:
+    """`make_train_step` over ``batches`` on ``mesh`` (a rank mesh, or a
+    one-card mesh; with ``micro`` > 1 `_micro_step` on one card): each
+    step's metrics, host seconds (synchronised) and tally, and with
+    ``track`` the projections of the moments and the signs of m after
+    step 1, of the parameters and moments after the last step, and a MoE
+    layer's routing each step."""
+    import torch
+
+    minfo = (mesh, tuple(a for a in mesh.axis_names if a != "model")) \
+        if mesh.ranks is not None else None
+    bundle = make_train_step_for(cfg, mesh, zero1, remat, len(batches),
+                                 timing=not track)
+    state, step = bundle.init_opt(model), bundle.jit_for(None)
+    if micro > 1:
+        step = _micro_step(len(batches), micro)
+    out = {"metrics": [], "seconds": [], "tallies": [], "proj": [], "routes": []}
+    with recording_routes() as routes:
+        for i, tokens in enumerate(batches):
+            batch = {"tokens": torch.from_numpy(tokens).to(model.device)}
+            mark, calls = mesh.copy_tally(), len(routes.calls)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(model, state, batch)
+            out["metrics"].append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            out["seconds"].append(time.perf_counter() - t0)
+            out["tallies"].append(mesh.tally_since(mark))
+            if track:
+                out["routes"].append(routes.calls[calls:])
+                parts = ("m", "v", "s") if i < len(batches) - 1 else ("p", "m", "v")
+                out["proj"].append(state_projections(model, state, minfo, zero1,
+                                                     parts))
+    out["state"] = state
+    return out
+
+
+def make_train_step_for(cfg, mesh, zero1: bool, remat: bool, steps: int,
+                        timing: bool = False):
+    from repro_torch.launch import make_train_step
+
+    return make_train_step(cfg, mesh, opt=tr_opt(steps, timing), remat=remat,
+                           zero1=zero1)
+
+
+def train_ranks_body(parity: list, moe: list, timing: list) -> dict:
+    """What each of RANKS_WORLD ranks runs for the training part: the f32
+    llama3-8b steps on each of TR_PARITY_MESHES and the f32 qwen3-moe
+    steps on (1, 2), tracked (`_tr_steps`); then on (1, 2) the bf16
+    llama3-8b steps under "full" (timed, peak memory, the optimizer alone,
+    one step profiled for its matmul FLOPs with early stop off) and under
+    "save_collectives".  Returns the results and this process's kernel
+    launch counts."""
+    import torch
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_update
+    from repro_torch.sharding import ParamShard
+
+    counters = launch_counters()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    meshes = {shape: make_rank_mesh(shape, device="cuda",
+                                    ranks=range(shape[0] * shape[1]))
+              for shape in ((1, 2), (2, 2))}
+
+    def build(cfg, mesh):
+        return build_model(cfg, mesh.device, seed=TR["seed"],
+                           shard=ParamShard.of(mesh))
+
+    out = {}
+    runs = [("llama", shape, zero1, tr_config(TP_ARCH, TR_PARITY_LAYERS, "float32"),
+             parity) for shape, zero1 in TR_PARITY_MESHES]
+    runs.append(("moe", (1, 2), False,
+                 tr_config(RANKS_ARCH, TR_MOE_LAYERS, "float32"), moe))
+    for name, shape, zero1, cfg, batches in runs:
+        mesh = meshes[shape]
+        if mesh.is_member:
+            model = build(cfg, mesh)
+            res = _tr_steps(cfg, model, mesh, zero1, batches, remat=False,
+                            track=True)
+            del res["state"], model
+            out[name, shape] = dict(res, coord=mesh.coord)
+        torch.cuda.empty_cache()
+    mesh = meshes[(1, 2)]
+    if mesh.is_member:
+        cfg = tr_config(TP_ARCH, TR_TIMING_LAYERS, "bfloat16")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        model = build(cfg, mesh)
+        res = _tr_steps(cfg, model, mesh, False, timing, remat=True, track=False)
+        torch.cuda.synchronize()
+        res["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        state = res.pop("state")
+        batch = {"tokens": torch.from_numpy(timing[0]).to(mesh.device)}
+        minfo = (mesh, ("data",))
+        model.requires_grad_(True)
+        model.loss({"tokens": batch["tokens"]}, mesh_info=minfo, remat=True)[0].backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        opt = tr_opt(len(timing), timing=True)
+        res["opt_ms"] = cuda_ms(lambda: adamw_update(model, grads, state, opt,
+                                                     mesh_info=minfo),
+                                iters=1, warmup=1, repeats=3)
+        model.zero_grad(set_to_none=True)
+        del grads
+        step = make_train_step_for(cfg, mesh, False, True, len(timing),
+                                   timing=True).jit_for(None)
+        with set_checkpoint_early_stop(False):
+            res["prof_flops"] = profiler_matmul_flops(
+                lambda: step(model, state, batch))
+        del model, state
+        torch.cuda.empty_cache()
+        out["timing_full"] = dict(res, coord=mesh.coord)
+        save_cfg = tr_config(TP_ARCH, TR_TIMING_LAYERS, "bfloat16", "save_collectives")
+        model = build(save_cfg, mesh)
+        res = _tr_steps(save_cfg, model, mesh, False, timing[:TR_SAVE_STEPS],
+                        remat=True, track=False)
+        del res["state"], model
+        torch.cuda.empty_cache()
+        out["timing_save"] = dict(res, coord=mesh.coord)
+    out["launches"] = {name: getattr(mod, attr)
+                       for name, (mod, attr) in counters.items()}
+    return out
+
+
+def _sum_blocks(ranks_proj: list, where: list, what: str) -> dict:
+    """{part: {key: sums over the distinct blocks the ranks hold}}; ranks
+    that hold the same block (a replicated leaf, a data replica's) must
+    give the same sums: integer sums equal, float sums within TR_SAME_REL
+    of the block's L2 norm.  ``where`` names each rank in a failure."""
+    import numpy as np
+
+    out = {}
+    for proj, rank in zip(ranks_proj, where):
+        for part, paths in proj.items():
+            for path, blocks in paths.items():
+                seen = out.setdefault(part, {}).setdefault(path, {})
+                for key, sums in blocks:
+                    sums = np.asarray(sums)
+                    if key not in seen:
+                        seen[key] = (sums, rank)
+                        continue
+                    first, other = seen[key]
+                    same = (np.array_equal(first, sums) if sums.dtype.kind == "i"
+                            else float(np.max(np.abs(first - sums)))
+                            <= TR_SAME_REL * float(np.sqrt(first[-1])))
+                    if not same:
+                        fail(f"{what}: {other} and {rank} hold the block {key} of "
+                             f"{part} {path} with other values")
+    return {part: {path: sum(s for s, _ in d.values()) for path, d in paths.items()}
+            for part, paths in out.items()}
+
+
+def _key_errors(got: dict, want: dict, what: str) -> dict:
+    """{part: {key: estimated relative L2 error}} of the summed projections
+    ``got`` against ``want`` (`_sum_blocks`'s), part "s" left out: the
+    root-mean-square difference of the signed sums over the whole key's
+    L2 norm (a key that is all zeros: 0 where the ranks' is too, else
+    infinite)."""
+    import numpy as np
+
+    def error(g, w):
+        diff = float(np.sqrt(np.mean((g[:TR_PROJ_K] - w[:TR_PROJ_K]) ** 2)))
+        if w[TR_PROJ_K] > 0:
+            return diff / float(np.sqrt(w[TR_PROJ_K]))
+        return 0.0 if g[TR_PROJ_K] == 0 else float("inf")
+
+    out = {}
+    for part, paths in want.items():
+        if part == "s":
+            continue
+        if sorted(got[part]) != sorted(paths):
+            fail(f"{what}: the ranks hold {sorted(got[part])} of {part}, not "
+                 f"{sorted(paths)}")
+        out[part] = {p: error(got[part][p], w) for p, w in paths.items()}
+    return out
+
+
+def _flips(got: dict, want: dict) -> dict:
+    """{leaf path: chunks of TR_SIGN_CHUNK elements whose sign sums
+    differ}: at least the elements of m whose sign differs, and as many
+    where each flip lies in a chunk of its own."""
+    import numpy as np
+
+    return {p: int(np.count_nonzero(got["s"][p] != w)) for p, w in want["s"].items()}
+
+
+def _merged(summed: dict) -> dict:
+    """`_sum_blocks`'s sums with each expert's piece added back into its
+    leaf (the pieces' signed sums add up to the leaf's)."""
+    out = {}
+    for part, keys in summed.items():
+        merged = out[part] = {}
+        for key, sums in keys.items():
+            leaf = key.rpartition("/")[0] if _expert_of(key) is not None else key
+            merged[leaf] = merged[leaf] + sums if leaf in merged else sums
+    return out
+
+
+def _worst(errs: dict, keys=None) -> tuple:
+    """(the largest error, its key) over ``keys`` (default: all)."""
+    keys = list(errs) if keys is None else list(keys)
+    return max(((errs[k], k) for k in keys), default=(0.0, "none"))
+
+
+def _assignment(experts, capacity: int, n_experts: int):
+    """(routed, kept): (T, E) booleans of each token's top-k experts and
+    of those whose capacity slot it gets, as `moe._dispatch_combine`
+    ranks a (token, k) pair within its expert: by token order, then k."""
+    import numpy as np
+
+    t, k = experts.shape
+    flat = experts.reshape(-1)
+    order = np.argsort(flat, kind="stable")
+    counts = np.bincount(flat, minlength=n_experts)
+    starts = np.cumsum(counts) - counts
+    rank = np.empty_like(flat)
+    rank[order] = np.arange(flat.size) - starts[flat[order]]
+    routed = np.zeros((t, n_experts), bool)
+    kept = np.zeros((t, n_experts), bool)
+    rows = np.repeat(np.arange(t), k)
+    routed[rows, flat] = True
+    keep = rank < capacity
+    kept[rows[keep], flat[keep]] = True
+    return routed, kept
+
+
+def _route_changes(got: list, want: list, cfg) -> list:
+    """Per step, over its MoE layers: (tokens whose routed or kept
+    experts differ from the unsharded run's, the experts whose tokens
+    differ), from the recorded (T, K) expert ids."""
+    import numpy as np
+
+    out = []
+    for g_step, w_step in zip(got, want):
+        tokens, experts = 0, set()
+        for g, w in zip(g_step, w_step):
+            t, k = w.shape
+            capacity = max(int(cfg.capacity_factor * t * k / cfg.num_experts), 2 * k)
+            gr, gk = _assignment(g, capacity, cfg.num_experts)
+            wr, wk = _assignment(w, capacity, cfg.num_experts)
+            diff = (gr != wr) | (gk != wk)
+            tokens += int(diff.any(1).sum())
+            experts |= set(np.flatnonzero(diff.any(0)).tolist())
+        out.append((tokens, sorted(experts)))
+    return out
+
+
+def _unsharded_tracked(cfg, batches: list, micro: int = 1) -> dict:
+    """The unsharded f32 run on the card (`_tr_steps`, tracked), with its
+    batch in ``micro`` micro-batches where ``micro`` > 1."""
+    import torch
+
+    from repro_torch.launch import make_local_mesh
+    from repro_torch.models import build_model
+
+    torch.cuda.empty_cache()
+    model = build_model(cfg, "cuda", seed=TR["seed"])
+    res = _tr_steps(cfg, model, make_local_mesh(device="cuda"), False, batches,
+                    remat=False, track=True, micro=micro)
+    del model, res["state"]
+    torch.cuda.empty_cache()
+    return res
+
+
+def _expert_of(key: str):
+    """The expert of a key `_pieces` made for one, else None."""
+    path, _, last = key.rpartition("/")
+    return int(last[1:]) if path.endswith(TR_EXPERT_LEAVES) else None
+
+
+def _fmt_worst(errs: dict) -> str:
+    """Each part's largest error and its key."""
+    return ", ".join(f"{part} {_worst(e)[0]:.2e} ({_worst(e)[1]})"
+                     for part, e in errs.items())
+
+
+def _fmt_flips(flips: dict) -> str:
+    """The step-1 sign flips of m: their total and the leaves with most."""
+    top = sorted(((n, p) for p, n in flips.items() if n), reverse=True)[:3]
+    return (f"{sum(flips.values())} chunks of m's signs differ"
+            + (f" ({', '.join(f'{p} {n}' for n, p in top)})" if top else ""))
+
+
+def train_ranks_part(card: str) -> dict:
+    """The training part of the ranks phase (`train_ranks_body` on
+    RANKS_WORLD processes on cuda:0 over gloo) against the unsharded runs
+    from the same seed on the same batches: f32 parity (every rank's loss
+    and gradient norm within TR_METRIC_RTOL; each leaf's moments after
+    step 1 within TR_TOL and its parameters and moments after step 2
+    within TR_FLOOR_MULT times the floor the unsharded program reaches
+    against itself, relative L2 estimated by `leaf_projections`; every
+    block two ranks hold the same on both; the step-1 sign flips counted;
+    qwen3-moe's routing held to the unsharded run's, its experts that no
+    rerouted token touches to llama's bounds);
+    the bf16 (1, 2) run's step, optimizer and peak beside the unsharded
+    run's, its losses finite and falling, the same first loss under both
+    remat policies; each rank's tally of a train step equal op by op to
+    the count of that position on a counting mesh, under both policies;
+    a rank's profiled matmul FLOPs within TR_FLOP_TOL of its count.
+    Returns the ranks' kernel launch counts."""
+    import numpy as np
+    import torch
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import make_local_mesh
+    from repro_torch.launch.dryrun import count_cell
+    from repro_torch.launch.mesh import make_counting_mesh, run_ranks
+    from repro_torch.launch.op_analysis import collective_bytes
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_update
+
+    t_part = time.perf_counter()
+    llama = tr_config(TP_ARCH, TR_PARITY_LAYERS, "float32")
+    moe = tr_config(RANKS_ARCH, TR_MOE_LAYERS, "float32")
+    timing = tr_config(TP_ARCH, TR_TIMING_LAYERS, "bfloat16")
+    batches = {"llama": tr_batches(llama, TR_PARITY_STEPS),
+               "moe": tr_batches(moe, TR_PARITY_STEPS),
+               "timing": tr_batches(timing, TR_TIMING_STEPS)}
+    want = {"llama": _unsharded_tracked(llama, batches["llama"]),
+            "moe": _unsharded_tracked(moe, batches["moe"]),
+            "floor": _unsharded_tracked(llama, batches["llama"], micro=TR_FLOOR_MICRO)}
+
+    # The unsharded bf16 run, timed as the ranks' is.
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = build_model(timing, "cuda", seed=TR["seed"])
+    one = make_local_mesh(device="cuda")
+    alone = _tr_steps(timing, model, one, False, batches["timing"], remat=True,
+                      track=False)
+    torch.cuda.synchronize()
+    alone_peak = torch.cuda.max_memory_allocated() - base
+    state = alone.pop("state")
+    batch = {"tokens": torch.from_numpy(batches["timing"][0]).cuda()}
+    model.requires_grad_(True)
+    model.loss(batch, remat=True)[0].backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    opt = tr_opt(TR_TIMING_STEPS, timing=True)
+    alone_opt_ms = cuda_ms(lambda: adamw_update(model, grads, state, opt), iters=1,
+                           warmup=1, repeats=3)
+    del model, state, grads
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    got = run_ranks(train_ranks_body, RANKS_WORLD, ROOT / "build" / "train_ranks",
+                    batches["llama"], batches["moe"], batches["timing"],
+                    device="cuda", timeout_s=RANKS_TIMEOUT_S)
+    job_s = time.perf_counter() - t0
+
+    sp = ShapeSpec("train_ranks", TR["seq"], TR["batch"], "train")
+    whole = {name: [_sum_blocks([p], ["the unsharded run"], f"ranks train {name}")
+                    for p in res["proj"]] for name, res in want.items()}
+    # The floor: the unsharded program against itself, its sums in
+    # another order.
+    floor_metrics = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(
+        want["floor"]["metrics"], want["llama"]["metrics"]) for k in ("loss", "grad_norm"))
+    floor1 = _key_errors(whole["floor"][0], whole["llama"][0], "ranks train floor")
+    floor2 = _key_errors(whole["floor"][-1], whole["llama"][-1], "ranks train floor")
+    floor_flips = _flips(whole["floor"][0], whole["llama"][0])
+    step2_bound = {part: max(TR_TOL, TR_FLOOR_MULT * _worst(errs)[0])
+                   for part, errs in floor2.items()}
+    print(f"ranks train floor [{card}]: the unsharded llama3-8b f32 step with its "
+          f"batch in {TR_FLOOR_MICRO} micro-batches against the unsharded step: "
+          f"loss and grad norm {floor_metrics:.2e} relative; after step 1 "
+          f"{_fmt_worst(floor1)}, {_fmt_flips(floor_flips)}; after step "
+          f"{TR_PARITY_STEPS} {_fmt_worst(floor2)}; so the ranks' step-"
+          f"{TR_PARITY_STEPS} bounds are " + ", ".join(
+              f"{k} {v:.3e}" for k, v in step2_bound.items())
+          + f" ({TR_FLOOR_MULT} x the floor, at least {TR_TOL})")
+    problems = [f"the floor's {part} after step 1 is {_worst(errs)[0]!r} from the "
+                f"unsharded run's" for part, errs in floor1.items()
+                if not _worst(errs)[0] <= TR_TOL]
+    for name, shape, zero1 in [("llama", s, z) for s, z in TR_PARITY_MESHES] + [
+            ("moe", (1, 2), False)]:
+        members = [r[name, shape] for r in got if (name, shape) in r]
+        if len(members) != shape[0] * shape[1]:
+            fail(f"ranks train {name} {shape}: {len(members)} ranks answered")
+        what = f"ranks train {name} {shape}"
+        ref = want[name]
+        where = [f"rank {tuple(m['coord'].values())}" for m in members]
+        metric_err = [0.0] * TR_PARITY_STEPS
+        for m in members:
+            for i, (g, w) in enumerate(zip(m["metrics"], ref["metrics"])):
+                tol = TR_MOE_STEP2["metrics"] if name == "moe" and i else TR_METRIC_RTOL
+                for k in ("loss", "grad_norm"):
+                    err = abs(g[k] - w[k]) / abs(w[k])
+                    metric_err[i] = max(metric_err[i], err)
+                    if not err <= tol:
+                        problems.append(f"{what}: step {i + 1}'s {k} {g[k]!r} "
+                                        f"against the unsharded {w[k]!r}")
+        got_steps = [_sum_blocks([m["proj"][i] for m in members], where, what)
+                     for i in range(TR_PARITY_STEPS)]
+        step1 = _key_errors(_merged(got_steps[0]), _merged(whole[name][0]), what)
+        last = _key_errors(got_steps[-1], whole[name][-1], what)
+        last_leaves = _key_errors(_merged(got_steps[-1]), _merged(whole[name][-1]), what)
+        flips = _flips(got_steps[0], whole[name][0])
+        for part, errs in step1.items():
+            err, key = _worst(errs)
+            if not err <= TR_TOL:
+                problems.append(f"{what}: the moments {part} of {key} after step 1 "
+                                f"are {err!r} (relative L2) from the unsharded run's")
+        gates = []  # (label, part, keys, bound, errors) after the last step
+        route = ""
+        if name == "moe":
+            routes = [m["routes"] for m in members]
+            if any(not all(np.array_equal(a, b) for a, b in zip(
+                    sum(r, []), sum(routes[0], []))) for r in routes[1:]):
+                problems.append(f"{what}: the ranks routed the same tokens differently")
+            changes = _route_changes(routes[0], ref["routes"], moe)
+            touched = set().union(*(set(e) for _, e in changes))
+            for i, (n, _) in enumerate(changes):
+                if not n <= TR_MOE_MAX_CHANGED * TR["batch"] * TR["seq"]:
+                    problems.append(f"{what}: step {i + 1} routes {n} tokens otherwise "
+                                    "than the unsharded run")
+            for part, errs in last.items():
+                clean = [k for k in errs if _expert_of(k) not in (None, *touched)]
+                gates.append(("untouched experts", part, clean,
+                              step2_bound[part] if part == "p" else TR_MOE_EXPERTS, errs))
+                gates.append(("whole leaves", part, list(last_leaves[part]),
+                              TR_MOE_STEP2["p" if part == "p" else "moments"],
+                              last_leaves[part]))
+            hit = [k for k in last["m"] if _expert_of(k) in touched]
+            dense = [k for k in last_leaves["m"] if not k.endswith(TR_EXPERT_LEAVES)]
+            route = (f"; tokens routed otherwise than unsharded at each step "
+                     f"{[n for n, _ in changes]} of {TR['batch'] * TR['seq']}, "
+                     f"touching experts {sorted(touched)}; after step {TR_PARITY_STEPS}: "
+                     + "; ".join(f"{label} " + ", ".join(
+                         f"{part} {_worst(errs, keys)[0]:.2e}"
+                         for lab, part, keys, _, errs in gates if lab == label)
+                         for label in dict.fromkeys(g[0] for g in gates))
+                     + f"; the rerouted tokens' experts m {_worst(last['m'], hit)[0]:.2e} "
+                     f"({_worst(last['m'], hit)[1]}); the router p "
+                     f"{last_leaves['p']['layers/moe/router']:.2e}, m "
+                     f"{last_leaves['m']['layers/moe/router']:.2e}, v "
+                     f"{last_leaves['v']['layers/moe/router']:.2e}; the dense leaves m "
+                     f"{_worst(last_leaves['m'], dense)[0]:.2e} "
+                     f"({_worst(last_leaves['m'], dense)[1]})")
+        else:
+            gates = [("every leaf", part, list(errs), step2_bound[part], errs)
+                     for part, errs in last.items()]
+        for label, part, keys, bound, errs in gates:
+            err, key = _worst(errs, keys)
+            if not err <= bound:
+                problems.append(f"{what}: {part} of {key} ({label}) after step "
+                                f"{TR_PARITY_STEPS} is {err!r} (relative L2) from the "
+                                f"unsharded run's, beyond {bound:.3e}")
+        cfg = llama if name == "llama" else moe
+        for m in members:
+            mesh = make_counting_mesh(shape, position=tuple(m["coord"].values()))
+            counted = count_cell(cfg, sp, remat=False, mesh=mesh, zero1=zero1)
+            for tally in m["tallies"]:
+                if tally["count"] != counted["collective_counts"] or \
+                        collective_bytes(tally) != counted["collectives"]:
+                    fail(f"{what}: a rank's tally "
+                         f"{tally['count']} / {collective_bytes(tally)} is not the "
+                         f"counting mesh's {counted['collective_counts']} / "
+                         f"{counted['collectives']}")
+        tally = members[0]["tallies"][0]
+        print(f"ranks train {name} f32 {shape}{' ZeRO-1' if zero1 else ''} [{card}]: "
+              f"{len(members)} ranks, {TR_PARITY_STEPS} steps of {TR['batch']} x "
+              f"{TR['seq']} tokens; losses "
+              f"{[round(x['loss'], 6) for x in members[0]['metrics']]} (unsharded "
+              f"{[round(x['loss'], 6) for x in ref['metrics']]}), loss and grad norm "
+              f"{', '.join(f'{e:.2e}' for e in metric_err)} relative by step; after "
+              f"step 1 {_fmt_worst(step1)} (bound {TR_TOL}), {_fmt_flips(flips)}; "
+              f"after step {TR_PARITY_STEPS} {_fmt_worst(last)}{route}; every block "
+              f"held by two ranks the same on both; a step's collectives "
+              f"{_fmt_tally(tally)}, reduce-scatter "
+              f"{tally['count'].get('reduce-scatter', 0)} "
+              f"({tally['bytes'].get('reduce-scatter', 0)} B); equal to the "
+              "counting mesh's")
+    if problems:
+        fail("; ".join(problems))
+
+    full = [r["timing_full"] for r in got[:2]]
+    save = [r["timing_save"] for r in got[:2]]
+    alone_s = float(np.median(alone["seconds"][1:]))
+    alone_losses = [m["loss"] for m in alone["metrics"]]
+    half = TR_TIMING_STEPS // 2
+    for rank, (f, s) in enumerate(zip(full, save)):
+        # Falling as the train phase holds it: the last half's mean below
+        # the first half's (each step sees another batch).
+        losses = [m["loss"] for m in f["metrics"]]
+        if not (np.isfinite(losses).all()
+                and np.mean(losses[half:]) < np.mean(losses[:half])):
+            fail(f"ranks train bf16: rank {rank}'s losses {losses} are not finite "
+                 "and falling")
+        if s["metrics"][0]["loss"] != f["metrics"][0]["loss"]:
+            fail(f"ranks train bf16: rank {rank}'s first loss under "
+                 "save_collectives differs from full's")
+        for policy, res in (("full", f), ("save_collectives", s)):
+            cfg = tr_config(TP_ARCH, TR_TIMING_LAYERS, "bfloat16", policy)
+            mesh = make_counting_mesh((1, 2), position=tuple(res["coord"].values()))
+            counted = count_cell(cfg, sp, remat=True, mesh=mesh, zero1=False)
+            for tally in res["tallies"]:
+                if tally["count"] != counted["collective_counts"] or \
+                        collective_bytes(tally) != counted["collectives"]:
+                    fail(f"ranks train bf16 {policy}: rank {rank}'s tally "
+                         f"{tally['count']} is not the counting mesh's "
+                         f"{counted['collective_counts']}")
+        with set_checkpoint_early_stop(False):
+            counted = count_cell(timing, sp, remat=True, zero1=False, mesh=make_counting_mesh(
+                (1, 2), position=tuple(f["coord"].values())))["flops_matmul"]
+        ferr = abs(f["prof_flops"] - counted) / counted
+        if not ferr <= TR_FLOP_TOL:
+            fail(f"ranks train bf16: rank {rank}'s profiler matmul FLOPs "
+                 f"{f['prof_flops']} are {ferr:.3e} from its count {counted}")
+        step_s = float(np.median(f["seconds"][1:]))
+        print(f"ranks train bf16 ({TR_TIMING_LAYERS} layers) (1, 2) rank {rank} "
+              f"[{card}]: full remat: step {step_s * 1e3:.3f} ms (median of steps "
+              f"2-{TR_TIMING_STEPS}; unsharded {alone_s * 1e3:.3f} ms), optimizer "
+              f"{f['opt_ms']:.3f} ms alone (unsharded {alone_opt_ms:.3f} ms), peak "
+              f"{f['peak_bytes'] / 2**30:.3f} GiB ({f['peak_bytes'] / alone_peak:.3f} "
+              f"of the unsharded {alone_peak / 2**30:.3f} GiB); losses "
+              f"{[round(m['loss'], 4) for m in f['metrics']]} (unsharded "
+              f"{[round(x, 4) for x in alone_losses]}); a step's "
+              f"collectives {_fmt_tally(f['tallies'][0])}; save_collectives: step "
+              f"{float(np.median(s['seconds'][1:])) * 1e3:.3f} ms (median of steps "
+              f"2-{TR_SAVE_STEPS}), collectives "
+              f"{_fmt_tally(s['tallies'][0])}; profiler matmul FLOPs "
+              f"{f['prof_flops']:.6e}, counted {counted:.6e} ({ferr:.2e} apart, "
+              f"bound {TR_FLOP_TOL})")
+    drop = full[0]["tallies"][0]["count"]["_count"] - save[0]["tallies"][0]["count"]["_count"]
+    if not drop > 0:
+        fail("ranks train bf16: save_collectives issued no fewer collectives "
+             "than full")
+    print(f"ranks train [{card}]: save_collectives issues {drop} collectives a "
+          f"step fewer than full ({full[0]['tallies'][0]['count']['_count']} -> "
+          f"{save[0]['tallies'][0]['count']['_count']}); the rank job "
+          f"{job_s:.1f} s, the part {time.perf_counter() - t_part:.1f} s. One card "
+          "over gloo shows the sharded training's correctness, memory and "
+          "collectives, not what it gains across cards")
+    return {name: sum(r["launches"][name] for r in got) for name in got[0]["launches"]}
+
+
 def ranks_phase(counters, island: dict) -> dict:
     """The rank path on the card (`ranks_body` on RANKS_WORLD processes,
     all on cuda:0 over gloo): qwen3-moe-30b-a3b at full width with 2 layers
@@ -2082,9 +2901,10 @@ def ranks_phase(counters, island: dict) -> dict:
           f"(hop_cost {hop!r}); search {got[0]['island']['seconds']:.3f} s "
           f"against {island['seconds']:.3f} s batched")
     in_tp = tp_part(card)
+    in_train = train_ranks_part(card)
     launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
     in_ranks = {name: sum(r["launches"][name] for r in got) + in_tp[name]
-                for name in launches}
+                + in_train[name] for name in launches}
     print(f"ranks phase [{card}]: {time.perf_counter() - t_phase:.1f} s "
           f"({ranks_s:.1f} s in the expert-parallel rank job); launches here "
           f"{json.dumps(launches)}, in the ranks {json.dumps(in_ranks)}")

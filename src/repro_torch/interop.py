@@ -225,24 +225,39 @@ def reference_tree(model: Model) -> dict:
 
 def opt_state_from(model: Model, ref_opt_state) -> dict:
     """The port's optimizer state for ``model`` (`repro_torch.optim`:
-    moments keyed by parameter name, on the model's device) from the
-    reference's ``{"m": tree, "v": tree, "step"}``, its moment trees shaped
-    as the parameter tree; moment dtypes are kept."""
+    moments keyed by the reference leaf's path, each stacked as the
+    model's leaf, on the model's device) from the reference's ``{"m":
+    tree, "v": tree, "step"}``, its moment trees shaped as the parameter
+    tree; moment dtypes are kept.  Raises ValueError on a missing or extra
+    leaf, or a leaf of another shape."""
+    leaves = model.reference_leaves()
     out: dict = {}
     for part in ("m", "v"):
-        moments = out[part] = {}
-
-        def put(name, param, value, moments=moments):
-            moments[name] = value.to(param.device, copy=True)
-
-        _unstack(model, ref_opt_state[part], put, same_dtype=False)
+        flat = {k: _as_tensor(v) for k, v in _flatten(ref_opt_state[part]).items()}
+        missing, extra = sorted(set(leaves) - set(flat)), sorted(set(flat) - set(leaves))
+        if missing or extra:
+            raise ValueError(f"{part} tree mismatch: missing {missing}, extra {extra}")
+        for keys, (shape, _) in leaves.items():
+            if tuple(flat[keys].shape) != shape:
+                raise ValueError(f"{part} {'/'.join(keys)}: "
+                                 f"{tuple(flat[keys].shape)}, expected {shape}")
+        out[part] = {"/".join(k): flat[k].to(model.device, copy=True)
+                     for k in sorted(leaves)}
     out["step"] = _as_tensor(ref_opt_state["step"]).to(torch.int32).to(model.device)
     return out
 
 
 def reference_opt_state(model: Model, opt_state: dict) -> dict:
     """The reverse of `opt_state_from`: ``{"m", "v"}`` as the reference's
-    stacked trees of CPU tensors and ``step`` as a CPU int32 0-d tensor."""
-    return {"m": _stack(model, lambda name, _p: opt_state["m"][name]),
-            "v": _stack(model, lambda name, _p: opt_state["v"][name]),
-            "step": opt_state["step"].detach().cpu()}
+    stacked trees of CPU tensors (copies, which later updates leave as
+    they are) and ``step`` as a CPU int32 0-d tensor."""
+    out = {"step": opt_state["step"].detach().to("cpu", copy=True)}
+    for part in ("m", "v"):
+        tree = out[part] = {}
+        for path, t in opt_state[part].items():
+            *keys, leaf = path.split("/")
+            node = tree
+            for k in keys:
+                node = node.setdefault(k, {})
+            node[leaf] = t.detach().to("cpu", copy=True)
+    return out

@@ -2,18 +2,33 @@
 
 Where the reference lowers and compiles each cell's jitted, sharded step
 for the 16x16 and 2x16x16 meshes and reads XLA's cost and memory analysis
-and the partitioned HLO, the port runs its own eager step
-(`repro_torch.launch.steps`) on ``Model(cfg, "meta")`` under
-`op_analysis.OpCounter`: the counts are of the UNSHARDED step on one
-device, from every aten op it dispatches, and nothing is allocated.  The
-mesh enters only through the planner: ``plan_notes`` and the per-device
-``memory.argument_size_in_bytes`` (each parameter, optimizer-state and
-input leaf's bytes over the product of the mesh axes its spec names).
-``argument_size_in_bytes_one_card``, ``output_size_in_bytes`` and
-``peak_live_bytes`` are the unsharded step's, and say whether a cell fits
-one card.  Every record says ``"partitioned": false``.  An eager step has
-no rolled loop, so the reference's ``unroll`` has no counterpart.  Results
-append to a JSONL ledger so the sweep is resumable.
+and the partitioned HLO per chip, the port runs its own eager step
+(`repro_torch.launch.steps`) on the meta device under
+`op_analysis.OpCounter`, twice:
+
+* for one position of the production mesh (its first), as a rank runs
+  it: ``Model(cfg, "meta", ParamShard.of(mesh))`` holds the position's
+  block of every leaf, the step takes the position's rows of the batch
+  (and its caches' blocks), and a counting mesh
+  (`repro_torch.launch.mesh.make_abstract_mesh`) records every
+  collective the step would issue.  These are the record's per-chip
+  ``cost`` and ``collectives`` (`op_analysis.collective_bytes`), with
+  ``"partitioned": true``.  Where a rank model keeps leaves whole that
+  the planner splits (MLA, Mamba, hybrid, VLM and audio families; a KV
+  cache the planner shards by sequence), ``notes`` says which.
+* unsharded, on one device: ``cost_one_card``, and the memory keys
+  ``argument_size_in_bytes_one_card``, ``output_size_in_bytes`` and
+  ``peak_live_bytes``, which say whether a cell fits one card.  The
+  report (`repro_torch.launch.report.dryrun_table`) sets the position's
+  FLOPs times ``chips`` (the mesh's size) against ``cost_one_card``'s:
+  1 where the mesh splits all the work, more where positions repeat it.
+
+``memory.argument_size_in_bytes`` is the planner's per-device bytes of
+the step's arguments (each leaf's bytes over the product of the mesh
+axes its spec names), ``argument_size_in_bytes_position`` and
+``peak_live_bytes_position`` the counted position's.  An eager step has
+no rolled loop, so the reference's ``unroll`` has no counterpart.
+Results append to a JSONL ledger so the sweep is resumable.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k --mesh single
@@ -35,12 +50,14 @@ from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.shapes import (SHAPES, ShapeSpec, applicable,
                                         cache_specs, input_specs)
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.model import Model
-from repro_torch.sharding import (ShardingPlan, plan_batch, plan_caches,
-                                  plan_opt_state, plan_params)
+from repro_torch.models.model import Model, reference_path
+from repro_torch.sharding import (ParamShard, ShardingPlan, plan_batch,
+                                  plan_caches, plan_opt_state, plan_params,
+                                  shard_slices)
 
-from .mesh import Mesh, make_abstract_mesh
-from .op_analysis import NO_COLLECTIVES, count_ops, op_census
+from .mesh import Mesh, batch_axes_of, make_abstract_mesh
+from .op_analysis import (NO_COLLECTIVES, collective_bytes, count_ops,
+                          op_census)
 from .steps import (make_plan, make_prefill_step, make_serve_step,
                     make_train_step)
 
@@ -81,33 +98,48 @@ def _inputs(cfg: ArchConfig, sp: ShapeSpec, device: torch.device,
     return out
 
 
+def _rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The rows of ``t`` that the position of ``mesh`` serves (all of them
+    where they do not divide over the batch axes, as ``plan_batch``
+    replicates them)."""
+    axes = batch_axes_of(mesh)
+    if mesh.ranks is None or not axes or t.shape[0] % mesh.size(axes):
+        return t
+    return t[shard_slices((axes,), t.shape, mesh.shape, mesh.coord)[0]]
+
+
 def cell_step(cfg: ArchConfig, sp: ShapeSpec, model: Model, *,
               kv_chunk: int = 1024, remat: bool = True,
-              generator: torch.Generator | None = None,
+              generator: torch.Generator | None = None, mesh: Mesh | None = None,
               **step_kwargs) -> tuple:
     """``(call, args)``: the cell's eager step for ``model`` and its
     arguments on the model's device; ``call()`` runs the step once on
     ``args`` (the train step updates the model in place, the serve step
     its caches).  ``step_kwargs`` go to ``make_*_step`` (``zero1``,
     ``moment_dtype``; ``seq_parallel_decode``, ``shard_head_dim_fallback``).
-    The step is unsharded: it gets a one-device mesh of the model's
-    device."""
+    Without ``mesh`` the step is unsharded: it gets a one-device mesh of
+    the model's device.  With a mesh of ranks or a counting mesh, it is
+    that position's: ``model`` holds its blocks, the train step takes the
+    global batch (it cuts its rows itself), prefill and decode take the
+    position's rows and caches, as `serve_batch` gives them."""
     dev = model.device
-    one = Mesh(("data", "model"), np.array([[dev]], dtype=object))
+    if mesh is None:
+        mesh = Mesh(("data", "model"), np.array([[dev]], dtype=object))
     batch = _inputs(cfg, sp, dev, generator)
     if sp.kind == "train":
-        bundle = make_train_step(cfg, one, remat=remat, kv_chunk=kv_chunk,
+        bundle = make_train_step(cfg, mesh, remat=remat, kv_chunk=kv_chunk,
                                  **step_kwargs)
         args = (model, bundle.init_opt(model), batch)
     elif sp.kind == "prefill":
-        bundle = make_prefill_step(cfg, one, cache_len=sp.seq_len,
+        bundle = make_prefill_step(cfg, mesh, cache_len=sp.seq_len,
                                    kv_chunk=kv_chunk, **step_kwargs)
-        args = (model, batch)
+        args = (model, {k: _rows(v, mesh) for k, v in batch.items()})
     else:
-        bundle = make_serve_step(cfg, one, cache_len=sp.seq_len,
+        bundle = make_serve_step(cfg, mesh, cache_len=sp.seq_len,
                                  kv_chunk=kv_chunk, **step_kwargs)
-        caches = model.init_caches(sp.global_batch, sp.seq_len)
-        args = (model, caches, batch["tokens"], batch["positions"])
+        tokens, positions = _rows(batch["tokens"], mesh), _rows(batch["positions"], mesh)
+        caches = model.init_caches(tokens.shape[0], sp.seq_len)
+        args = (model, caches, tokens, positions)
     step = bundle.jit_for(None)
     return (lambda: step(*args)), args
 
@@ -118,22 +150,37 @@ def _arg_tensors(args) -> list[torch.Tensor]:
 
 
 def count_cell(cfg: ArchConfig, sp: ShapeSpec, *, kv_chunk: int = 1024,
-               remat: bool = True, **step_kwargs) -> dict:
+               remat: bool = True, mesh: Mesh | None = None,
+               **step_kwargs) -> dict:
     """The op counts (`op_analysis.OpCounter.record`) of one call of the
-    cell's step on the meta device, with the unsharded step's memory:
+    cell's step on the meta device, with the step's memory:
     ``argument_size_in_bytes_one_card`` (parameters, optimizer state,
     inputs and caches), ``output_size_in_bytes`` (the returned tensors
     that are not arguments) and ``peak_live_bytes`` (the arguments plus
-    the step's peak allocation)."""
-    model = Model(cfg, "meta")
+    the step's peak allocation), and its ``collectives``
+    (`op_analysis.collective_bytes`).  Unsharded without ``mesh``; with
+    a counting mesh (`make_abstract_mesh`), its position's step, whose
+    memory keys are the position's."""
+    shard = ParamShard.of(mesh) if mesh is not None else None
+    model = Model(cfg, "meta", shard)
     call, args = cell_step(cfg, sp, model, kv_chunk=kv_chunk, remat=remat,
-                           **step_kwargs)
+                           mesh=mesh, **step_kwargs)
     arg_tensors = _arg_tensors(args)
     arg_bytes = sum(_bytes(t) for t in arg_tensors)
     arg_keys = {t.untyped_storage()._cdata for t in arg_tensors}
+    mark = mesh.copy_tally() if mesh is not None else None
     t0 = time.perf_counter()
     out, rec = count_ops(call)
     rec["count_s"] = time.perf_counter() - t0
+    rec["collectives"] = (collective_bytes(mesh.tally_since(mark))
+                          if mesh is not None else dict(NO_COLLECTIVES))
+    # ``collective_counts`` (by operation) and ``collectives_by_dtype``
+    # (bytes by "operation:dtype") with a mesh.
+    if mesh is not None:
+        grew = mesh.tally_since(mark)
+        rec["collective_counts"] = grew["count"]
+        rec["collectives_by_dtype"] = {
+            k: v for k, v in grew["bytes_by_dtype"].items() if k != "_count"}
     rec["num_params"] = sum(p.numel() for p in model.parameters())
     rec["memory"] = {
         "argument_size_in_bytes_one_card": arg_bytes,
@@ -142,6 +189,50 @@ def count_cell(cfg: ArchConfig, sp: ShapeSpec, *, kv_chunk: int = 1024,
             if t.untyped_storage()._cdata not in arg_keys),
         "peak_live_bytes": arg_bytes + rec["peak_live_bytes"]}
     return rec
+
+
+def position_notes(cfg: ArchConfig, sp: ShapeSpec, mesh: Mesh) -> list[str]:
+    """Where the counted position holds more than the planner gives it:
+    the leaves its model keeps whole though their spec splits them (the
+    families whose tensor-parallel forward is not ported), and the cache
+    leaves whose block differs from ``plan_caches``' (a rank holds its KV
+    heads whole in sequence where the planner shards the sequence)."""
+    notes = []
+    shard = ParamShard.of(mesh)
+    model = Model(cfg, "meta", shard)
+    whole = sorted({"/".join(reference_path(name)[0])
+                    for name, p in model.named_parameters()
+                    if name not in model.blocks
+                    and shard.block(reference_path(name)[0], p.shape)[0] != ()})
+    if whole:
+        notes.append(f"position holds whole ({len(whole)} leaves the planner "
+                     f"splits): {', '.join(whole)}")
+    if sp.kind == "train":
+        return notes
+    rows = _rows(torch.empty((sp.global_batch,), device="meta"), mesh).shape[0]
+    held = dict(_flat_shapes(model.init_caches(rows, sp.seq_len)))
+    caches = cache_specs(cfg, sp)
+    specs = plan_caches(make_plan(mesh), caches)
+    for keys, spec in _flat_shapes(specs, leaf=lambda x: isinstance(x, tuple)):
+        leaf = caches
+        for k in keys:
+            leaf = leaf[k]
+        block = tuple(len(range(n)[b]) for n, b in zip(
+            leaf.shape, shard_slices(spec, leaf.shape, mesh.shape, mesh.coord)))
+        if keys in held and tuple(held[keys]) != block:
+            notes.append(f"cache {'/'.join(keys)}: position holds "
+                         f"{tuple(held[keys])}, plan_caches gives {block}")
+    return notes
+
+
+def _flat_shapes(tree, prefix=(), leaf=None):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat_shapes(tree[k], prefix + (k,), leaf)
+    elif leaf is not None:
+        yield prefix, tree
+    else:
+        yield prefix, tuple(tree.shape)
 
 
 def _sharded_bytes(mesh_shape: dict, spec, nbytes: int) -> int:
@@ -205,12 +296,12 @@ def plan_cell(cfg: ArchConfig, sp: ShapeSpec, mesh: Mesh, *,
 def run_cell(arch: str, shape: str, multi_pod: bool, kv_chunk: int = 1024,
              zero1: bool = True, remat: bool = True, verbose: bool = True,
              ssm_chunk: int | None = None) -> dict:
-    """Count one cell on meta and plan it on the mesh; returns the JSONL
-    record."""
+    """Count one cell on meta, for the mesh's first position and on one
+    card, and plan it on the mesh; returns the JSONL record."""
     rec: dict = {"arch": arch, "shape": shape,
                  "mesh": "2x16x16" if multi_pod else "16x16",
                  "kv_chunk": kv_chunk, "zero1": zero1, "remat": remat,
-                 "partitioned": False}
+                 "partitioned": True, "chips": 512 if multi_pod else 256}
     cfg = get_config(arch)
     if ssm_chunk is not None and cfg.ssm_state:
         cfg = dataclasses.replace(cfg, ssm_chunk=ssm_chunk)
@@ -220,26 +311,39 @@ def run_cell(arch: str, shape: str, multi_pod: bool, kv_chunk: int = 1024,
         rec.update(status="skip", reason=reason)
         return rec
     sp = SHAPES[shape]
-    try:
-        plan, per_device = plan_cell(cfg, sp, make_abstract_mesh(multi_pod=multi_pod),
-                                     zero1=zero1)
-        step_kw = {"zero1": zero1} if sp.kind == "train" else {}
-        counts = count_cell(cfg, sp, kv_chunk=kv_chunk, remat=remat, **step_kw)
-        cost = {k: counts[k] for k in (
-            "flops", "bytes accessed", "flops_matmul", "flops_matmul_by_dtype",
+    keys = ("flops", "bytes accessed", "flops_matmul", "flops_matmul_by_dtype",
             "flops_pointwise", "bytes_read", "bytes_written", "host_copies",
-            "host_bytes")}
-        rec.update(status="ok", count_s=round(counts["count_s"], 2), cost=cost,
-                   memory={"argument_size_in_bytes": per_device, **counts["memory"]},
-                   collectives=dict(NO_COLLECTIVES), ops=op_census(counts),
-                   num_params=counts["num_params"], plan_notes=plan.notes[:20])
+            "host_bytes")
+    try:
+        mesh = make_abstract_mesh(multi_pod=multi_pod)
+        plan, per_device = plan_cell(cfg, sp, mesh, zero1=zero1)
+        step_kw = {"zero1": zero1} if sp.kind == "train" else {}
+        one = count_cell(cfg, sp, kv_chunk=kv_chunk, remat=remat, **step_kw)
+        part = count_cell(cfg, sp, kv_chunk=kv_chunk, remat=remat, mesh=mesh,
+                          **step_kw)
+        cost = {k: part[k] for k in keys}
+        rec.update(status="ok", position=dict(mesh.coord),
+                   count_s=round(one["count_s"] + part["count_s"], 2), cost=cost,
+                   collectives=part["collectives"],
+                   collectives_by_dtype=part["collectives_by_dtype"],
+                   cost_one_card={k: one[k] for k in keys},
+                   memory={"argument_size_in_bytes": per_device, **one["memory"],
+                           "argument_size_in_bytes_position":
+                               part["memory"]["argument_size_in_bytes_one_card"],
+                           "peak_live_bytes_position":
+                               part["memory"]["peak_live_bytes"]},
+                   ops=op_census(part), num_params=one["num_params"],
+                   plan_notes=plan.notes[:20],
+                   notes=position_notes(cfg, sp, mesh))
         if verbose:
             print(f"[dryrun] {arch} x {shape} x {rec['mesh']}: OK "
-                  f"(count {rec['count_s']:.1f}s on meta, unpartitioned)")
+                  f"(count {rec['count_s']:.1f}s on meta, position "
+                  f"{rec['position']})")
             print(f"  memory: {rec['memory']}")
-            print(f"  cost: flops={cost['flops']:.4e} "
+            print(f"  cost per chip: flops={cost['flops']:.4e} "
                   f"(matmul {cost['flops_matmul']:.4e}) "
-                  f"bytes={cost['bytes accessed']:.4e}")
+                  f"bytes={cost['bytes accessed']:.4e}; collectives "
+                  f"{rec['collectives']}")
     except Exception as e:  # noqa: BLE001 -- a sweep records the cell's failure
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
                    trace=traceback.format_exc()[-2000:])

@@ -3,11 +3,13 @@ three chosen cells on one H100's roofline, against each cell's baseline in
 ``results/torch_roofline_raw.jsonl``.
 
 Each record is one hypothesis -> change -> count iteration: `measure_cell`
-on the meta device, terms at the H100's data-sheet peaks
-(`repro_torch.launch.roofline`), bounds from counts, not times.  The
-counts are of the unsharded step on one card, so a variant that changes
-only the sharding plan (``zero1``, ``seq_parallel_decode``,
-``shard_head_dim_fallback``) counts what its baseline counts; its record
+on the meta device, per chip at the first position of the 16x16 mesh (a
+counting mesh: the position's blocks, rows and collectives), terms at
+the H100's data-sheet peaks (`repro_torch.launch.roofline`), bounds from
+counts, not times.  A variant that changes only the sharding plan where
+the rank models do not apply it (``seq_parallel_decode``,
+``shard_head_dim_fallback``: sequence-sharded caches and head-dim splits
+are ROADMAP queue 1 item 7) counts what its baseline counts; its record
 says so (``plan_only``) instead of reporting a difference.
 
   python -m repro_torch.launch.hillclimb
@@ -17,32 +19,38 @@ from __future__ import annotations
 import json
 from pathlib import Path
 
-from .roofline import measure_cell, model_flops, roofline_terms
+from .mesh import make_abstract_mesh
+from .roofline import measure_cell, model_flops, roofline_terms, useful_ratio
 
 __all__ = ["VARIANTS", "PLAN_ONLY_KWARGS", "main"]
 
 OUT = Path("results/torch_perf_iterations.jsonl")
 
-# Step kwargs that change only the sharding plan, never the one-card step.
-PLAN_ONLY_KWARGS = frozenset({"zero1", "seq_parallel_decode",
-                              "shard_head_dim_fallback"})
+# Step kwargs that change only the sharding plan, never the counted
+# position's step (its rank model does not apply them).
+PLAN_ONLY_KWARGS = frozenset({"seq_parallel_decode", "shard_head_dim_fallback"})
 
 # (tag, arch, shape, config overrides, step kwargs, hypothesis)
 VARIANTS = [
     ("ds67b.A1_save_collectives", "deepseek-67b", "train_4k",
      {"remat_policy": "save_collectives"}, {},
-     "the reference saves the tensor-parallel collectives' outputs from the "
-     "backward recompute; one card has no collective, so the port "
-     "recomputes everything, as 'full' does: the counts should equal the "
-     "baseline's"),
+     "the backward's recomputation keeps each layer's row-parallel sums "
+     "(attention and MLP outputs) instead of issuing them again: per chip "
+     "the all-reduce bytes fall by 2 x 95 layers' f32 activations of the "
+     "position's rows, the matmul FLOPs by the recomputed wo and w_down "
+     "products, and the collective term with them"),
     ("ds67b.A2_no_zero1", "deepseek-67b", "train_4k",
      {"remat_policy": "save_collectives"}, {"zero1": False},
-     "ZeRO-1 shards the optimizer state over the data axes; replicating it "
-     "changes the plan only, so the one-card counts should equal A1's"),
+     "without ZeRO-1 each data rank holds the moments of its whole model "
+     "block: the optimizer's moment bytes per chip grow 16x, the "
+     "gradients' reduce-scatter becomes an all-reduce of the same operand "
+     "bytes and the parameters' all-gather goes away"),
     ("qwen3moe.B1_save_collectives", "qwen3-moe-30b-a3b", "train_4k",
      {"remat_policy": "save_collectives"}, {},
-     "same as A1 for the MoE stack: no collective to save on one card, so "
-     "the counts should equal the baseline's"),
+     "as A1 for the MoE stack: the recomputation of a MoE layer issues "
+     "only its attention's row-parallel sum again (the experts' sum comes "
+     "after its last saved tensor), so the all-reduce bytes fall by one "
+     "f32 activation a layer and the FLOPs by the wo product's recompute"),
     ("qwen3moe.B2_capacity_1.0", "qwen3-moe-30b-a3b", "train_4k",
      {"remat_policy": "save_collectives", "capacity_factor": 1.0}, {},
      "dispatch buffers scale with capacity; cf 1.25->1.0 should cut the "
@@ -51,8 +59,9 @@ VARIANTS = [
     ("hymba.C1_seq_parallel_decode", "hymba-1.5b", "long_500k",
      {}, {"seq_parallel_decode": True},
      "sequence-parallel decode spreads the global-layer KV cache over the "
-     "idle batch axes; a plan change only, so on one card the counts "
-     "should equal the baseline's"),
+     "idle batch axes; the hybrid family's rank model keeps its leaves and "
+     "caches whole (ROADMAP item 7), so the position's counts should equal "
+     "the baseline's"),
     ("hymba.C0_baseline_relower", "hymba-1.5b", "long_500k",
      {}, {"seq_parallel_decode": False},
      "re-count the paper-faithful baseline layout under the current code "
@@ -72,8 +81,8 @@ VARIANTS = [
     ("hymba.C2_shard_head_dim", "hymba-1.5b", "long_500k",
      {}, {"seq_parallel_decode": True, "shard_head_dim_fallback": True},
      "sharding the head_dim of the projections whose 25 heads do not "
-     "divide the model axis changes the plan only: one card reads every "
-     "projection whole, so the counts should equal C1's"),
+     "divide the model axis changes the plan only: the hybrid rank model "
+     "reads every projection whole, so the counts should equal C1's"),
 ]
 
 
@@ -93,20 +102,20 @@ def main() -> None:
             continue
         print(f"[hillclimb] {tag} ...")
         rec = measure_cell(arch, shape, overrides=overrides or None,
-                           step_kwargs=step_kwargs or None, full=False)
+                           step_kwargs=step_kwargs or None, full=False,
+                           mesh=make_abstract_mesh())
         rec["tag"] = tag
         rec["hypothesis"] = hypothesis
         rec["plan_only"] = sorted(set(step_kwargs) & PLAN_ONLY_KWARGS)
         if rec["status"] == "ok":
             rec["roofline"] = roofline_terms(rec["counters"])
-            mf = model_flops(get_config(arch), shape)
-            flops = rec["counters"]["flops"]
-            rec["useful_ratio"] = mf / flops if flops else None
+            rec["useful_ratio"] = useful_ratio(rec, model_flops(get_config(arch),
+                                                                shape))
         with OUT.open("a") as f:
             f.write(json.dumps(rec) + "\n")
         print(f"[hillclimb] {tag}: {rec['status']} {rec.get('roofline', {})}"
               + (f"; {', '.join(rec['plan_only'])} change the plan only, not "
-                 "the one-card counts" if rec["plan_only"] else ""))
+                 "the position's counts" if rec["plan_only"] else ""))
 
 
 if __name__ == "__main__":

@@ -14,16 +14,43 @@ A rank mesh (`make_rank_mesh`) is the same dataclass bound to the
 processes of a ``torch.distributed`` job, one rank a position: ``ranks``
 holds the rank at each position, and every set of axes has a process
 group (the ranks that differ only along those axes).  A function running
-on a rank reads its coordinate (`Mesh.coord`) and sums or gathers along
-axes (`Mesh.all_reduce`, `Mesh.all_gather`), as the body of the
-reference's ``shard_map`` does with ``axis_index``, ``psum`` and
-``all_gather``.  The mesh keeps a tally of the collectives it issued
-(`Mesh.tally`): the count and the bytes this rank sent, by operation,
-under the keys of the reference's ``hlo_analysis.collective_bytes``.  `run_ranks` starts such a job on this host: ``world``
-processes (``torch.multiprocessing.spawn``) joined through a ``file://``
-store in a directory the caller gives.  `backend_for` fixes the backend:
-gloo for CPU tensors and for ranks that share a card, NCCL where each
-rank has a card of its own (written, not yet run on several cards).
+on a rank reads its coordinate (`Mesh.coord`) and sums, gathers or
+scatters along axes (`Mesh.all_reduce`, `Mesh.all_gather`,
+`Mesh.reduce_scatter`), as the body of the reference's ``shard_map``
+does with ``axis_index``, ``psum`` and ``all_gather``.  The mesh keeps a
+tally of the collectives it issued (`Mesh.tally`): the count and the
+bytes this rank sent, by operation, under the keys of the reference's
+``hlo_analysis.collective_bytes``, and the bytes by operation and dtype.
+`run_ranks` starts such a job on this host: ``world`` processes
+(``torch.multiprocessing.spawn``) joined through a ``file://`` store in
+a directory the caller gives.  `backend_for` fixes the backend: gloo for
+CPU tensors and for ranks that share a card, NCCL where each rank has a
+card of its own (written, not yet run on several cards).
+
+Gradients through the collectives follow one rule, Megatron's: a loss
+is the same on every position along ``model`` and a rank's gradients
+are averaged over the batch axes afterwards (`repro_torch.launch.steps`).
+So the backward of `Mesh.all_reduce` is the identity along ``model``
+and a sum along the batch axes (each rank's loss holds the global
+value, whose share the rank's rows are); `Mesh.copy_to` is the identity
+forward and sums its gradient over ``model`` backward (it goes where a
+replicated activation or weight enters a product that each rank
+computes for its own block); `Mesh.all_gather`'s backward keeps this
+rank's block of the gradient (along ``model`` only: elsewhere it
+raises).  `Mesh.reduce_scatter` has no backward and refuses a tensor
+that needs one.  Collectives issued in a backward pass, or in a
+layer's recomputation, enter the tally as in a forward.
+
+Under `repro_torch.models.remat.KeptCollectives.run` (the
+``"save_collectives"`` remat policy) every collective output is kept in
+the forward and given back, without issuing the collective again, when
+the backward recomputes the layer.
+
+A counting mesh (`make_abstract_mesh`) holds one fixed position of the
+production mesh on ``meta`` devices: its coordinate answers without a
+process group, and its collectives return tensors of the right shape and
+enter its tally without communicating, so that one position's step runs
+on meta as a rank runs it (`repro_torch.launch.dryrun`).
 """
 from __future__ import annotations
 
@@ -38,10 +65,59 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.models.remat import kept
 
-__all__ = ["Mesh", "make_production_mesh", "make_abstract_mesh",
-           "make_local_mesh", "make_mesh_with_layout", "batch_axes_of",
-           "make_rank_mesh", "run_ranks", "backend_for"]
+__all__ = ["Mesh", "make_production_mesh", "make_counting_mesh",
+           "make_abstract_mesh", "make_local_mesh", "make_mesh_with_layout",
+           "batch_axes_of", "make_rank_mesh", "run_ranks", "backend_for"]
+
+MODEL = "model"  # the axis a loss is replicated over (see the docstring)
+
+def _no_grad_needed(t: torch.Tensor, op: str) -> None:
+    if torch.is_grad_enabled() and t.requires_grad:
+        raise NotImplementedError(f"{op} has no backward; call it on tensors "
+                                  "that need no gradient")
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return kept(lambda: mesh._all_reduce(t, axes))
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh = ctx.mesh
+        summed = tuple(a for a in ctx.axes if a != MODEL)
+        if summed and mesh.size(summed) > 1:
+            grad = mesh._all_reduce(grad, summed)
+        return grad, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh._all_reduce(grad, ctx.axes), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return kept(lambda: mesh._all_gather(t, axes))
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.axes != (MODEL,):
+            raise NotImplementedError(
+                f"all_gather over {ctx.axes} has no backward: a loss is "
+                "replicated over 'model' only")
+        return grad[ctx.mesh.coord[MODEL]], None, None
 
 
 @dataclass
@@ -55,16 +131,27 @@ class Mesh:
     groups: dict = field(default_factory=dict, repr=False)
     # The collectives issued on this rank (one over a single position is
     # none): "count" and "bytes" (the operands' bytes), each by operation
-    # ("all-reduce", "all-gather") with "_count" the total count.
-    tally: dict = field(default_factory=lambda: {"count": {"_count": 0},
-                                                 "bytes": {"_count": 0}},
-                        repr=False, compare=False)
+    # ("all-reduce", "all-gather", "reduce-scatter") with "_count" the
+    # total count, and "bytes_by_dtype" by "operation:dtype".
+    tally: dict = field(default_factory=lambda: {
+        "count": {"_count": 0}, "bytes": {"_count": 0},
+        "bytes_by_dtype": {"_count": 0}}, repr=False, compare=False)
+    # A counting mesh's fixed position (`make_abstract_mesh`): its index
+    # on each axis; its collectives communicate nothing.
+    position: tuple[int, ...] | None = None
 
     @property
     def shape(self) -> dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
 
+    @property
+    def counting(self) -> bool:
+        """Whether this is a counting mesh (one fixed position, no ranks)."""
+        return self.position is not None
+
     def _position(self) -> tuple[int, ...]:
+        if self.position is not None:
+            return self.position
         if self.ranks is None:
             raise ValueError("a device mesh is bound to no rank; make_rank_mesh "
                              "builds a mesh of ranks")
@@ -77,6 +164,8 @@ class Mesh:
     @property
     def is_member(self) -> bool:
         """Whether this process's rank holds a position of this rank mesh."""
+        if self.counting:
+            return True
         return self.ranks is not None and bool((self.ranks == dist.get_rank()).any())
 
     @property
@@ -101,9 +190,12 @@ class Mesh:
         return int(np.prod([self.shape[a] for a in self._axes(axes)]))
 
     def _record(self, op: str, t: torch.Tensor) -> None:
-        for part, add in (("count", 1), ("bytes", t.numel() * t.element_size())):
+        size = t.numel() * t.element_size()
+        dtype = str(t.dtype).removeprefix("torch.")
+        for part, key, add in (("count", op, 1), ("bytes", op, size),
+                               ("bytes_by_dtype", f"{op}:{dtype}", size)):
             tally = self.tally[part]
-            tally[op] = tally.get(op, 0) + add
+            tally[key] = tally.get(key, 0) + add
             tally["_count"] += 1
 
     def tally_since(self, mark: dict) -> dict:
@@ -117,26 +209,68 @@ class Mesh:
     def copy_tally(self) -> dict:
         return {part: dict(tally) for part, tally in self.tally.items()}
 
-    def all_reduce(self, t: torch.Tensor, axes) -> torch.Tensor:
-        """The sum of ``t`` over the ranks along ``axes`` (``psum``), as a
-        new tensor with the same bits on every one of them."""
+    def _group(self, axes):
+        return self.groups[self._axes(axes)]
+
+    # The collectives themselves (no autograd): each returns a new tensor.
+    def _all_reduce(self, t: torch.Tensor, axes) -> torch.Tensor:
         out = t.clone()
         if self.size(axes) > 1:
             self._record("all-reduce", out)
-            dist.all_reduce(out, group=self.groups[self._axes(axes)])
+            if not self.counting:
+                dist.all_reduce(out, group=self._group(axes))
         return out
 
-    def all_gather(self, t: torch.Tensor, axes) -> torch.Tensor:
-        """``(n, *t.shape)``: ``t`` of each of the ``n`` ranks along
-        ``axes``, in the order of their positions (row-major over the axes
-        in mesh order, rank-major)."""
+    def _all_gather(self, t: torch.Tensor, axes) -> torch.Tensor:
         n = self.size(axes)
         if n == 1:
             return t[None].clone()
         parts = [torch.empty_like(t) for _ in range(n)]
         self._record("all-gather", t)
-        dist.all_gather(parts, t.contiguous(), group=self.groups[self._axes(axes)])
+        if not self.counting:
+            dist.all_gather(parts, t.contiguous(), group=self._group(axes))
         return torch.stack(parts)
+
+    def all_reduce(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """The sum of ``t`` over the ranks along ``axes`` (``psum``), as a
+        new tensor with the same bits on every one of them.  Backward:
+        the identity along ``model``, a sum along the other axes."""
+        return _AllReduce.apply(t, self, self._axes(axes))
+
+    def copy_to(self, t: torch.Tensor, axes=MODEL) -> torch.Tensor:
+        """``t`` itself, whose gradient is summed over the ranks along
+        ``axes`` in the backward: where a tensor the ranks hold alike
+        enters a computation each rank does for its own block."""
+        if self.size(axes) == 1:
+            return t
+        return _CopyTo.apply(t, self, self._axes(axes))
+
+    def all_gather(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """``(n, *t.shape)``: ``t`` of each of the ``n`` ranks along
+        ``axes``, in the order of their positions (row-major over the axes
+        in mesh order, rank-major).  Backward (along ``model``): this
+        rank's block of the gradient."""
+        return _AllGather.apply(t, self, self._axes(axes))
+
+    def reduce_scatter(self, t: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
+        """This rank's block along ``dim`` of the sum of ``t`` over the
+        ranks along ``axes``: ``dim`` cut into as many equal blocks as
+        they have positions, block i to the i-th position (the order of
+        `all_gather`).  The tally counts the operand, ``t``, as the
+        reference's ``collective_bytes`` does.  No backward."""
+        _no_grad_needed(t, "reduce_scatter")
+        n = self.size(axes)
+        if n == 1:
+            return t.clone()
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                             f"over {axes} ({n} positions)")
+        src = t.movedim(dim, 0).contiguous()
+        out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
+        self._record("reduce-scatter", src)
+        if not self.counting:
+            dist.reduce_scatter_tensor(out, src, group=self._group(axes))
+        return out.movedim(0, dim)
 
 
 def _pod(multi_pod: bool):
@@ -172,12 +306,33 @@ def make_production_mesh(*, multi_pod: bool = False,
     return Mesh(axes, _grid(devices[:n], shape))
 
 
-def make_abstract_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The production mesh's axes and shape over placeholder ``meta``
-    devices: what the planner reads, for planning a cell without its cards
+def make_counting_mesh(shape: tuple[int, ...],
+                       axis_names: tuple[str, ...] = ("data", "model"),
+                       position: tuple[int, ...] | None = None) -> Mesh:
+    """A counting mesh of ``shape`` over placeholder ``meta`` devices, at
+    ``position`` (an index per axis; default the first): its coordinate
+    answers without a process group, and its collectives record in its
+    tally without communicating (see the module docstring)."""
+    shape = tuple(shape)
+    n = int(np.prod(shape))
+    position = tuple(position) if position is not None else (0,) * len(shape)
+    if len(position) != len(shape) or len(axis_names) != len(shape) or not all(
+            0 <= i < k for i, k in zip(position, shape)):
+        raise ValueError(f"position {position} is not on a {tuple(axis_names)} "
+                         f"mesh of shape {shape}")
+    return Mesh(tuple(axis_names), _grid([torch.device("meta")] * n, shape),
+                ranks=np.arange(n, dtype=np.int64).reshape(shape),
+                position=position)
+
+
+def make_abstract_mesh(*, multi_pod: bool = False,
+                       position: tuple[int, ...] | None = None) -> Mesh:
+    """The production mesh's axes and shape as a counting mesh at
+    ``position`` (default the first): what the planner reads, and what
+    one position's step runs on to be counted without its cards
     (`repro_torch.launch.dryrun`)."""
     shape, axes = _pod(multi_pod)
-    return Mesh(axes, _grid([torch.device("meta")] * int(np.prod(shape)), shape))
+    return make_counting_mesh(shape, axes, position)
 
 
 def make_local_mesh(model_parallel: int = 1,

@@ -24,9 +24,15 @@ backward's and the recomputed forward's included) and records
   the caller adds them.
 
 On the ``meta`` device the step runs without allocating, so a full-size
-cell counts on a host in seconds.  The counts are of the unsharded step
-on one device: one card issues no collective, so ``collectives`` is
-``{"_count": 0}``, and nothing here parses a collective.
+cell counts on a host in seconds.  A step on one card issues no
+collective (``NO_COLLECTIVES``); a step of one position of a mesh runs on
+a counting mesh (`repro_torch.launch.mesh.make_abstract_mesh`), whose
+tally records each collective it would issue, forward, backward and
+recomputation alike, and `collective_bytes` gives that tally in the form
+of the reference's ``hlo_analysis.collective_bytes``: the operands'
+bytes by operation and the count of operations.  An op counted here is
+the rank's own work; the collectives' bytes are kept apart from
+``bytes accessed``.
 """
 from __future__ import annotations
 
@@ -38,7 +44,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
-__all__ = ["OpCounter", "count_ops", "op_census", "NO_COLLECTIVES"]
+__all__ = ["OpCounter", "count_ops", "op_census", "collective_bytes",
+           "NO_COLLECTIVES"]
 
 NO_COLLECTIVES = {"_count": 0}
 _COMPOSITE = torch._C.DispatchKey.CompositeImplicitAutograd
@@ -191,3 +198,18 @@ def op_census(record: dict) -> dict[str, int]:
     for name, calls in record["ops"].items():
         census[_CENSUS.get(name, name)] += calls
     return dict(census)
+
+
+def collective_bytes(tally: dict) -> dict[str, int]:
+    """A mesh's tally (`Mesh.tally`, or its growth over a step,
+    `Mesh.tally_since`) as the reference's ``collective_bytes`` returns
+    its module's collectives: ``{"all-reduce": bytes, "all-gather":
+    bytes, "reduce-scatter": bytes, "_count": n}``, each operation's
+    operand bytes summed (one that was not issued is left out) and
+    ``_count`` the operations in all.  XLA's combiners merge some
+    collectives of the reference's module into one; the port issues
+    each, so counts can differ where bytes agree."""
+    out = {op: int(n) for op, n in tally["bytes"].items()
+           if op != "_count" and tally["count"].get(op, 0)}
+    out["_count"] = int(tally["count"]["_count"])
+    return out

@@ -1,8 +1,10 @@
 """Tables of the dry run, the roofline and the hillclimb from the port's
 result ledgers (``results/torch_*.jsonl``), at the H100's data-sheet peaks.
 
-Every time in them is a bound from counts of the unsharded one-card step,
-not a measured time.
+Every time in them is a bound from counts of one position of the
+production mesh (per chip, its collectives' bytes over NVLink's rate for
+the collective term) or of the unsharded one-card step, not a measured
+time.
 
   python -m repro_torch.launch.report [dryrun|roofline|perf|all]
 """
@@ -11,7 +13,8 @@ from __future__ import annotations
 import json
 from pathlib import Path
 
-from .roofline import H100_BF16_FLOPS, H100_HBM_BYTES, model_flops, roofline_terms
+from .roofline import (H100_HBM_BYTES, bound_mfu, model_flops,
+                       roofline_terms, useful_ratio)
 
 __all__ = ["load_jsonl", "dryrun_table", "roofline_table", "perf_table"]
 
@@ -38,17 +41,21 @@ def load_jsonl(path, key=None) -> dict:
 def dryrun_table(path=DRYRUN) -> str:
     cells = load_jsonl(path)
     rows = ["| arch | shape | mesh | status | count s | args GB/device | "
-            "args GB one card | peak GB one card | fits one 80 GB card | notes |",
-            "|---|---|---|---|---|---|---|---|---|---|"]
+            "args GB one card | peak GB one card | fits one 80 GB card | "
+            "FLOPs per chip x chips / one card | notes |",
+            "|---|---|---|---|---|---|---|---|---|---|---|"]
     for (arch, shape, mesh), r in sorted(cells.items()):
         if r["status"] == "skip":
             rows.append(f"| {arch} | {shape} | {mesh} | SKIP | — | — | — | — | — | "
-                        f"{r['reason'][:60]} |")
+                        f"— | {r['reason'][:60]} |")
             continue
         if r["status"] != "ok":
             rows.append(f"| {arch} | {shape} | {mesh} | ERROR | — | — | — | — | — | "
-                        f"{r.get('error', '')[:60]} |")
+                        f"— | {r.get('error', '')[:60]} |")
             continue
+        one = r.get("cost_one_card", {}).get("flops")
+        split = (f"{r['cost']['flops'] * r['chips'] / one:.3f}"
+                 if one and "chips" in r else "—")
         mem = r["memory"]
         peak = mem["peak_live_bytes"]
         note = (r.get("plan_notes") or [""])[0][:40]
@@ -56,7 +63,7 @@ def dryrun_table(path=DRYRUN) -> str:
                     f"{mem['argument_size_in_bytes'] / 1e9:.2f} | "
                     f"{mem['argument_size_in_bytes_one_card'] / 1e9:.2f} | "
                     f"{peak / 1e9:.2f} | {'yes' if peak <= H100_HBM_BYTES else 'no'} | "
-                    f"{note} |")
+                    f"{split} | {note} |")
     return "\n".join(rows)
 
 
@@ -80,8 +87,9 @@ def roofline_table(path=ROOFLINE) -> str:
         rt = roofline_terms(c)
         cfg = get_config(arch)
         mf = model_flops(cfg, shape)
-        ratio = mf / c["flops"] if c.get("flops") else float("nan")
-        frac = (mf / H100_BF16_FLOPS) / rt["bound_s"] if rt["bound_s"] else 0.0
+        ratio = useful_ratio(r, mf)
+        ratio = float("nan") if ratio is None else ratio
+        frac = bound_mfu(r, mf, rt)
         kind = ("train" if shape.startswith("train") else
                 "prefill" if shape.startswith("prefill") else "decode")
         out.append((frac, f"| {arch} | {shape} | {rt['compute_s']:.4g} | "

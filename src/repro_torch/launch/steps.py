@@ -14,12 +14,15 @@ On one card the specs are trivial and nothing applies them.  On a mesh
 of ranks (`repro_torch.launch.mesh.make_rank_mesh`) each rank's model
 holds its blocks of the specs (`repro_torch.models.Model` with
 ``ParamShard.of(mesh)``: the model alone decides which leaves it
-splits), and the prefill and serve steps pass it ``mesh_info = (mesh,
-batch_axes)``; the forward acts on what the model holds.  The train step
-refuses a mesh where the reference runs the expert-parallel MoE
-(`_mesh_info`: a MoE config on a model axis > 1 that divides
-``num_experts``) and a mesh of ranks whose models hold blocks: the
-collectives' backward is not ported.
+splits), and every step passes it ``mesh_info = (mesh, batch_axes)``;
+the forward acts on what the model holds.  The train step takes the
+global batch and runs the loss on the rank's rows (`shard_slices` over
+the batch axes, as `repro_torch.launch.serve.serve_batch` cuts its
+prompts; rows that do not divide stay whole, as ``plan_batch``
+replicates them), then `adamw_update` on the rank (the mean gradient
+over the batch axes, ZeRO-1 with ``zero1``); its reported ``loss`` and
+``ce`` are the global batch's mean, the same on every rank, and ``aux``
+the reference's ``pmean``.
 """
 from __future__ import annotations
 
@@ -33,8 +36,8 @@ import torch
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
-from repro_torch.sharding import (ParamShard, ShardingPlan, plan_opt_state,
-                                 plan_params)
+from repro_torch.sharding import (ShardingPlan, plan_opt_state, plan_params,
+                                  shard_slices)
 
 from .mesh import Mesh, batch_axes_of
 
@@ -71,14 +74,17 @@ def _rank_info(mesh: Mesh):
     return (mesh, batch_axes_of(mesh)) if mesh.ranks is not None else None
 
 
-def _holds_blocks(cfg: ArchConfig, mesh: Mesh) -> bool:
-    """Whether the ranks of ``mesh`` hold blocks of ``cfg``'s leaves
-    (`Model.blocks` of its first position, on meta: every position's
-    blocks have the same shapes)."""
-    if mesh.ranks is None:
-        return False
-    first = ParamShard(dict(mesh.shape), dict.fromkeys(mesh.axis_names, 0))
-    return bool(Model(cfg, "meta", first).blocks)
+def _rank_rows(batch: dict, mesh: Mesh) -> dict:
+    """The rows of each batch tensor that this rank's batch-axes
+    coordinate holds (all of them where they do not divide)."""
+    axes = batch_axes_of(mesh)
+    n = mesh.size(axes) if axes else 1
+    out = {}
+    for k, t in batch.items():
+        if n > 1 and t.shape[0] % n == 0:
+            t = t[shard_slices((axes,), t.shape, mesh.shape, mesh.coord)[0]]
+        out[k] = t
+    return out
 
 
 def _bundle(cfg, mesh, step, **plan_kw) -> StepBundle:
@@ -95,23 +101,11 @@ def make_train_step(cfg: ArchConfig, mesh: Mesh, opt: AdamWConfig | None = None,
     loss's gradients by ``loss.backward()``, then `adamw_update` on the
     model's parameters and ``opt_state`` in place; the gradients are set to
     None after the update.  ``batch`` holds tensors on the model's device
-    (``tokens``; ``frontend`` for vlm/audio).  ``metrics``: ``loss``,
-    ``ce``, ``aux``, ``grad_norm``, ``lr`` as 0-d tensors.
-    ``jit_for(batch)``; ``init_opt(model)`` gives the optimizer state.
-    Raises where `_mesh_info` would shard the experts or where the ranks'
-    models hold blocks (`_holds_blocks`): training there needs the
-    collectives' backward, not ported."""
-    if _mesh_info(cfg, mesh) is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: training on a model axis of {mesh.shape['model']} "
-            "runs the expert-parallel MoE, whose all_reduce backward is not "
-            "ported (ROADMAP queue 1: training with expert parallelism)")
-    if _holds_blocks(cfg, mesh):
-        raise NotImplementedError(
-            f"{cfg.name}: training on a rank mesh of {mesh.shape} whose "
-            "models hold blocks of their leaves (tensor-parallel) needs the "
-            "collectives' backward, not ported (ROADMAP queue 1: "
-            "tensor-parallel training)")
+    (``tokens``; ``frontend`` for vlm/audio), the global batch.
+    ``metrics``: ``loss``, ``ce``, ``aux``, ``grad_norm``, ``lr`` as 0-d
+    tensors.  ``jit_for(batch)``; ``init_opt(model)`` gives the optimizer
+    state.  On a mesh of ranks the step runs the rank's part (module
+    docstring) and ``zero1`` cuts the moments over the batch axes."""
     plan = make_plan(mesh)
     opt = opt or AdamWConfig()
     if moment_dtype is not None:
@@ -120,21 +114,32 @@ def make_train_step(cfg: ArchConfig, mesh: Mesh, opt: AdamWConfig | None = None,
     pspecs = plan_params(plan, shapes)
     ospecs = {"m": plan_opt_state(plan, shapes, zero1),
               "v": plan_opt_state(plan, shapes, zero1), "step": ()}
+    minfo = _rank_info(mesh)
+    zero1 = zero1 and minfo is not None
 
     def train_step(model: Model, opt_state: dict, batch: dict):
+        if minfo is not None:
+            batch = _rank_rows(batch, mesh)
         model.requires_grad_(True)
-        loss, metrics = model.loss(batch, remat=remat, kv_chunk=kv_chunk)
+        loss, metrics = model.loss(batch, mesh_info=minfo, remat=remat,
+                                   kv_chunk=kv_chunk)
         loss.backward()
         grads = {n: p.grad for n, p in model.named_parameters()}
-        stats = adamw_update(model, grads, opt_state, opt)
+        stats = adamw_update(model, grads, opt_state, opt, mesh_info=minfo,
+                             zero1=zero1)
         model.zero_grad(set_to_none=True)
-        return opt_state, {"loss": loss.detach(), "ce": metrics["ce"].detach(),
+        loss, ce = loss.detach(), metrics["ce"].detach()
+        axes = batch_axes_of(mesh)
+        if minfo is not None and axes and mesh.size(axes) > 1:
+            loss, ce = mesh.all_reduce(torch.stack([loss, ce]), axes) / mesh.size(axes)
+        return opt_state, {"loss": loss, "ce": ce,
                            "aux": metrics["aux"].detach(), **stats}
 
     return StepBundle(jit_for=lambda _batch: train_step, plan=plan,
                       param_specs=pspecs, opt_specs=ospecs,
-                      init_opt=functools.partial(init_opt_state,
-                                                 moment_dtype=opt.moment_dtype))
+                      init_opt=functools.partial(
+                          init_opt_state, moment_dtype=opt.moment_dtype,
+                          mesh_info=minfo, zero1=zero1))
 
 
 def make_prefill_step(cfg: ArchConfig, mesh: Mesh, cache_len: int,

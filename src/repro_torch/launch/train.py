@@ -16,6 +16,15 @@ It runs on the card unless ``--device cpu`` is given.  A checkpoint holds
 the reference's tree, ``(params, opt_state)`` with the parameters and
 moments stacked per layer (`repro_torch.interop.reference_tree`,
 `reference_opt_state`), so that either package resumes the other's.
+
+On a mesh of ranks (`repro_torch.launch.mesh.make_rank_mesh`, inside a
+`run_ranks` job) every rank runs `train_loop`: its model holds its
+position's blocks, each step it takes its rows of the same global batch,
+and every rank logs the same loss.  Checkpoints need the state
+replicated (a mesh without a model axis > 1, the moments whole): rank 0
+writes, every rank restores.  Where the ranks hold blocks a checkpoint
+would have to gather them; that is not ported (ROADMAP queue 1:
+checkpoints on rank meshes), and ``ckpt_dir`` raises there.
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ from repro_torch.launch.steps import make_train_step
 from repro_torch.models import Model, build_model
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import CheckpointManager, HeartbeatMonitor
+from repro_torch.sharding import ParamShard
 
 __all__ = ["main", "train_loop"]
 
@@ -52,16 +62,26 @@ def train_loop(cfg, mesh: Mesh, steps: int, batch: int, seq: int, ckpt_dir=None,
     {"losses", "final_loss", "seconds", "model"} — the reference returns
     its params; `repro_torch.interop.reference_tree` gives them — and each
     step's "grad_norms" and "step_seconds" (host clock around the step and
-    its loss read back, which waits for the card)."""
+    its loss read back, which waits for the card).  On a mesh of ranks
+    the device is the rank's and the model holds its blocks (module
+    docstring)."""
     opt_cfg = AdamWConfig(lr=lr, warmup_steps=max(steps // 20, 5), total_steps=steps)
     bundle = make_train_step(cfg, mesh, opt=opt_cfg, remat=remat, zero1=False)
-    device = mesh.devices.flat[0]
+    ranks = mesh.ranks is not None
+    device = mesh.device if ranks else mesh.devices.flat[0]
+    shard = ParamShard.of(mesh) if ranks else None
+    if ckpt_dir and ranks and Model(cfg, "meta", shard).blocks:
+        raise NotImplementedError(
+            f"{cfg.name}: a checkpoint of ranks that hold blocks of their "
+            f"leaves (a model axis of {mesh.shape.get('model', 1)}) is not "
+            "ported (ROADMAP queue 1: checkpoints on rank meshes)")
+    writer = not ranks or mesh.coord == dict.fromkeys(mesh.axis_names, 0)
 
     data = SyntheticLMData(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=seed))
 
     if model is None:
-        model = build_model(cfg, device, seed=seed)
+        model = build_model(cfg, device, seed=seed, shard=shard)
     opt_state = bundle.init_opt(model)
     start_step = 0
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
@@ -109,7 +129,7 @@ def train_loop(cfg, mesh: Mesh, steps: int, batch: int, seq: int, ckpt_dir=None,
                      f"lr {float(metrics['lr']):.2e} "
                      f"gnorm {grad_norms[-1]:8.3f} "
                      f"({time.perf_counter() - t0:.2f}s/step)")
-        if mgr is not None and (step + 1) % ckpt_every == 0:
+        if mgr is not None and writer and (step + 1) % ckpt_every == 0:
             mgr.save_async(step + 1, tree())
         if stop_at is not None and step + 1 >= stop_at:
             if mgr:
@@ -121,7 +141,7 @@ def train_loop(cfg, mesh: Mesh, steps: int, batch: int, seq: int, ckpt_dir=None,
             if mgr:
                 mgr.wait()
             sys.exit(17)
-    if mgr is not None:
+    if mgr is not None and writer:
         mgr.wait()  # drain any in-flight async save before the final commit
         if mgr.latest_step() != steps:
             mgr.save(steps, tree())

@@ -21,7 +21,15 @@ MLP's ffn dim (``w_gate``/``w_up``/``w_down``) makes a partial sum of
 the output, which one ``all_reduce`` over ``model`` completes
 (Megatron's column- then row-parallel pair; `_row_parallel`); a block of
 the routed experts runs `moe_ffn_sharded`.  ``mesh_info = (mesh,
-batch_axes)`` carries the rank mesh there.
+batch_axes)`` carries the rank mesh there.  For training, the input of
+each column-parallel product (the normed ``x`` before ``wq``/``wk``/``wv``
+and before ``w_gate``/``w_up``) passes `Mesh.copy_to`, whose backward
+sums its gradient over ``model``, and so do the replicated weights that
+each rank uses for its own heads only (``wk``/``wv`` where the KV heads
+stay whole, ``q_norm``/``k_norm``).  `_row_parallel`'s output is the
+reference's ``tp_collective_out`` point: under the ``"save_collectives"``
+remat policy (`repro_torch.models.model`) it is kept, and the backward's
+recomputation neither multiplies nor sums it again.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ from .layers import apply_rope, rms_norm, swiglu
 from .mamba2 import init_mamba_cache, mamba_block, mamba_decode
 from .mla import init_mla_cache, mla_attention, mla_decode, update_mla_cache
 from .moe import moe_ffn, moe_ffn_sharded
+from .remat import kept
 
 __all__ = ["Attention", "MLA", "MLP", "MoE", "Mamba", "DenseBlock", "MoEBlock",
            "SSMBlock", "HybridBlock", "CrossBlock", "EncDecBlock",
@@ -45,23 +54,52 @@ def _param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+class _RowParallel(torch.autograd.Function):
+    """``x2 @ w2`` (2-d) summed over ``model``: the partial product with
+    an f32 output, summed in f32 and rounded once to ``x2``'s dtype.
+    Backward: the sum's is the identity (the loss is the same on every
+    rank along ``model``), and ``dx``, ``dw`` are formed in the operands'
+    dtype, as the unsharded product's backward forms them (the card's
+    ``torch.mm(..., out_dtype=...)`` has no derivative).  The output is
+    made through `remat.kept`: a recomputation under
+    ``"save_collectives"`` saves the same operands and gives the kept
+    sum back without multiplying or summing."""
+
+    @staticmethod
+    def forward(ctx, x2, w2, mesh):
+        ctx.save_for_backward(x2, w2)
+
+        def make():
+            if x2.device.type in ("cuda", "meta") and x2.dtype != torch.float32:
+                part = torch.mm(x2, w2, out_dtype=torch.float32)
+            else:  # f32 already, or the CPU (no GEMM with a wider output there)
+                part = x2.float() @ w2.float()
+            return mesh._all_reduce(part, "model").to(x2.dtype)
+
+        return kept(make)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x2, w2 = ctx.saved_tensors
+        grad = grad.to(x2.dtype)
+        dx = grad @ w2.t() if ctx.needs_input_grad[0] else None
+        dw = x2.t() @ grad if ctx.needs_input_grad[1] else None
+        return dx, dw, None
+
+
 def _row_parallel(x, w, mesh):
     """``x @ w`` contracting the trailing dims of ``x`` with the leading
     dims of ``w`` (all but its last), where both hold this rank's block of
     the contracted dims: the partial product with an f32 output (the
     GEMM's own accumulator: on the card a bf16 GEMM writing f32, no f32
     copy of ``w``), summed over ``model`` in f32 and rounded once to
-    ``x``'s dtype, as the unsharded product's accumulator rounds once.
-    The sum's operand is f32: twice the bytes of the bf16 partial sums
-    that XLA's partitioner reduces."""
+    ``x``'s dtype, as the unsharded product's accumulator rounds once
+    (`_RowParallel`).  The sum's operand is f32: twice the bytes of the
+    bf16 partial sums that XLA's partitioner reduces."""
     n = w.shape[-1]
     lead = x.shape[:x.dim() - (w.dim() - 1)]
     x2, w2 = x.reshape(-1, w[..., 0].numel()), w.reshape(-1, n)
-    if x.is_cuda and x.dtype != torch.float32:
-        part = torch.mm(x2, w2, out_dtype=torch.float32)
-    else:  # f32 already, or the CPU (no GEMM with a wider output there)
-        part = x2.float() @ w2.float()
-    return mesh.all_reduce(part, "model").to(x.dtype).reshape(*lead, n)
+    return _RowParallel.apply(x2, w2, mesh).reshape(*lead, n)
 
 
 # -------------------------------------------------------- parameter groups
@@ -111,6 +149,7 @@ class MLP(nn.Module):
     def forward(self, x, mesh=None):
         if self.w_down.shape[0] == self.d_ff:
             return swiglu(x, self.w_gate, self.w_up, self.w_down)
+        x = mesh.copy_to(x)
         h = F.silu(x @ self.w_gate) * (x @ self.w_up)
         return _row_parallel(h, self.w_down, mesh)
 
@@ -147,13 +186,24 @@ class Mamba(nn.Module):
 
 # ---------------------------------------------------------------- attention
 
-def _qkv(p: Attention, x, positions, cfg):
+def _qkv(p: Attention, x, positions, cfg, mesh=None):
+    """Q, K, V of ``x``.  On a rank holding a block of the query heads,
+    ``x`` and the replicated weights it uses for its own heads pass
+    `Mesh.copy_to` (their gradients are summed over ``model``)."""
+    wk, wv = p.wk, p.wv
+    q_norm, k_norm = (p.q_norm, p.k_norm) if cfg.qk_norm else (None, None)
+    if p.wq.shape[1] != cfg.num_heads:
+        x = mesh.copy_to(x)
+        if wk.shape[1] == cfg.num_kv_heads:  # whole: the rank uses some
+            wk, wv = mesh.copy_to(wk), mesh.copy_to(wv)
+        if cfg.qk_norm:
+            q_norm, k_norm = mesh.copy_to(q_norm), mesh.copy_to(k_norm)
     q = torch.einsum("bsd,dhe->bshe", x, p.wq)
-    k = torch.einsum("bsd,dhe->bshe", x, p.wk)
-    v = torch.einsum("bsd,dhe->bshe", x, p.wv)
+    k = torch.einsum("bsd,dhe->bshe", x, wk)
+    v = torch.einsum("bsd,dhe->bshe", x, wv)
     if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm, cfg.norm_eps)
-        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+        q = rms_norm(q, q_norm, cfg.norm_eps)
+        k = rms_norm(k, k_norm, cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -186,7 +236,7 @@ def self_attention(p: Attention, x, positions, cfg, mode: str,
     A rank holding a block of the query heads (on ``mesh``) attends with
     the KV heads they use (`rank_kv_heads`; the cache holds only those)
     and sums its partial output over ``model``."""
-    q, k, v = _qkv(p, x, positions, cfg)
+    q, k, v = _qkv(p, x, positions, cfg, mesh)
     split = q.shape[2] != cfg.num_heads
     if split:
         heads = rank_kv_heads(cfg, q.shape[2], k.shape[2], mesh.coord["model"])

@@ -17,9 +17,21 @@ model it trains.  ``remat=True`` recomputes each layer's activations in
 the backward pass (``torch.utils.checkpoint``, non-reentrant) wherever the
 reference wraps its layer scan in ``jax.checkpoint``: the decoder, SSM,
 Hymba SWA, VLM self-attention and whisper encoder stacks.  It changes
-memory, never values.  The config's ``remat_policy="save_collectives"``
-keeps the tensor-parallel collectives' outputs in the reference; one card
-has no collective, so it recomputes everything, as ``"full"`` does.
+memory, never values.  The config's ``remat_policy`` says what the
+recomputation keeps: ``"full"`` keeps nothing, so on a mesh of ranks
+it issues the layer's collectives again; ``"save_collectives"`` keeps
+the outputs of the collectives inside the layer (the reference's
+``tp_collective_out`` points: the row-parallel attention and MLP
+outputs, the expert-parallel MoE's sums; `remat.KeptCollectives`) and
+gives them back, so the recomputation issues none of them and skips the
+row-parallel products that made them.  Early stop
+(``torch.utils.checkpoint.set_checkpoint_early_stop``, on by default)
+ends a recomputation at the last tensor the backward needs, so
+``"full"`` issues again only the collectives before it: a dense layer's
+two row-parallel sums (the MLP's product saves its operands once it
+has summed), a MoE layer's attention sum.  A model that holds its
+leaves whole issues no collective and keeps nothing: the two policies
+recompute the same.
 
 A rank of a mesh of ranks: ``Model(cfg, device, shard)`` with
 ``shard = ParamShard.of(mesh)`` (the mesh's shape and the rank's
@@ -31,7 +43,10 @@ collectives that XLA inserts for those specs: the vocab-parallel
 embedding (`layers.embed_tokens`: one ``all_reduce``), head-parallel
 attention and ffn-parallel MLPs (one ``all_reduce`` each, `blocks`),
 expert-parallel MoE (`moe.moe_ffn_sharded`) and the vocab-parallel head
-(its block of the logits, ``all_gather``ed over ``model``).  This holds
+(its block of the logits, ``all_gather``ed over ``model``; its input
+passes ``copy_to``, whose backward sums over ``model``).  Each has the
+backward a loss replicated over ``model`` needs
+(`repro_torch.launch.mesh`), so a rank trains its blocks.  This holds
 for the GQA dense and MoE families (`splits_dense`); the others (MLA,
 Mamba, hybrid, VLM, audio) keep their dense leaves whole on every rank
 and split only the routed experts.  ``blocks`` maps each parameter held
@@ -57,6 +72,7 @@ from .blocks import (CrossBlock, DenseBlock, EncDecBlock, EncoderBlock,
 from .config import ArchConfig
 from .init import init_params
 from .layers import DTYPES, cross_entropy_loss, embed_tokens, rms_norm
+from .remat import KeptCollectives
 
 __all__ = ["Model", "build_model", "init_params", "reference_path",
            "splits_dense"]
@@ -100,13 +116,24 @@ def _stack(n: int, make) -> nn.ModuleList:
     return nn.ModuleList([make() for _ in range(n)])
 
 
+REMAT_POLICIES = ("full", "save_collectives")
+
+
 def _layer(blk: nn.Module, remat: bool, *args, **kw):
     """``blk(*args, **kw)``; with ``remat``, its activations are recomputed
-    in the backward pass instead of kept."""
-    if remat:
+    in the backward pass instead of kept, but for what its config's
+    ``remat_policy`` keeps (see the module docstring)."""
+    if not remat:
+        return blk(*args, **kw)
+    policy = blk.cfg.remat_policy
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {policy!r} is not one of {REMAT_POLICIES}")
+    fn = KeptCollectives().run if policy == "save_collectives" else None
+    if fn is None:
         return checkpoint(blk, *args, use_reentrant=False,
                           preserve_rng_state=False, **kw)
-    return blk(*args, **kw)
+    return checkpoint(fn, blk, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
 
 
 class Model(nn.Module):
@@ -315,9 +342,11 @@ class Model(nn.Module):
         else:
             raise ValueError(fam)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        logits = x @ self.lm_head
         if self.lm_head.shape[1] != cfg.vocab_size:  # this rank's vocab block
+            logits = mesh.copy_to(x) @ self.lm_head
             logits = mesh.all_gather(logits, "model").movedim(0, -2).flatten(-2)
+        else:
+            logits = x @ self.lm_head
         return logits, caches, aux
 
     def _rank_mesh(self, mesh_info):

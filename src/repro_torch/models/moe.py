@@ -23,6 +23,8 @@ contributions — the body of the reference's ``shard_map``.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 import torch.nn.functional as F
 
@@ -151,7 +153,13 @@ def moe_ffn_sharded(
     the unsharded MoE drops on the same rows.  ``out`` is summed over
     ``expert_axis`` (the same bits on each of its ranks); ``aux`` is
     averaged over ``expert_axis``, then over ``batch_axes``, whose ranks
-    hold the other rows (the reference's ``pmean``s)."""
+    hold the other rows (the reference's ``pmean``s).
+
+    Backward (`repro_torch.launch.mesh`): ``x`` and the router pass
+    ``copy_to`` over ``expert_axis``, since each rank's gradient of them
+    covers only its experts' combine weights (and its share of ``aux``);
+    the sums' backward is the identity over ``expert_axis`` and a sum
+    over ``batch_axes``."""
     if mesh.ranks is None:
         raise ValueError("moe_ffn_sharded runs on a mesh of ranks "
                          "(repro_torch.launch.mesh.make_rank_mesh)")
@@ -161,6 +169,9 @@ def moe_ffn_sharded(
     if e_glob % n or e_loc * n != e_glob:
         raise ValueError(f"{e_loc} experts a rank do not split {e_glob} over "
                          f"{expert_axis}={n}")
+    x = mesh.copy_to(x, expert_axis)
+    p = SimpleNamespace(router=mesh.copy_to(p.router, expert_axis),
+                        w_gate=p.w_gate, w_up=p.w_up, w_down=p.w_down)
     out, aux = moe_ffn(x, p, cfg.top_k, cfg.capacity_factor,
                        e_start=mesh.coord[expert_axis] * e_loc,
                        num_experts_global=e_glob)

@@ -54,7 +54,7 @@ import torch
 from repro_torch.device import resolve_device
 
 __all__ = ["ShardingPlan", "plan_params", "plan_caches", "plan_batch",
-           "plan_opt_state", "spec_for_param", "shard_slices",
+           "plan_opt_state", "zero1_spec", "spec_for_param", "shard_slices",
            "ParamShard", "VertexShardPlan", "plan_vertex_shards"]
 
 Spec = tuple
@@ -368,6 +368,23 @@ def plan_batch(plan: ShardingPlan, batch) -> dict:
     return _map_sorted(one, batch)
 
 
+def zero1_spec(plan: ShardingPlan, spec: Spec, shape) -> Spec:
+    """``spec``, one entry a dimension, with ZeRO-1's batch-axes entry on
+    the first dimension it leaves free that the batch axes divide (and is
+    at least their size), where there is one; a 0-d leaf's ``spec``
+    unchanged."""
+    shape = _shape(shape)
+    if len(shape) == 0:
+        return spec
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    div = plan.batch_size_divisor
+    for d in range(len(shape)):
+        if entries[d] is None and shape[d] % div == 0 and shape[d] >= div:
+            entries[d] = _batch_entry(plan)
+            break
+    return tuple(entries)
+
+
 def plan_opt_state(plan: ShardingPlan, params, zero1: bool = True) -> dict:
     """Adam m/v: parameter spec + ZeRO-1 data-sharding of the first free dim."""
     pspecs = plan_params(plan, params)
@@ -376,16 +393,7 @@ def plan_opt_state(plan: ShardingPlan, params, zero1: bool = True) -> dict:
         spec = pspecs
         for k in names:
             spec = spec[k]
-        shape = _shape(leaf)
-        if not zero1 or len(shape) == 0:
-            return spec
-        entries = list(spec) + [None] * (len(shape) - len(spec))
-        div = plan.batch_size_divisor
-        for d in range(len(shape)):
-            if entries[d] is None and shape[d] % div == 0 and shape[d] >= div:
-                entries[d] = _batch_entry(plan)
-                break
-        return tuple(entries)
+        return zero1_spec(plan, spec, leaf) if zero1 else spec
 
     return _map_sorted(one, params)
 

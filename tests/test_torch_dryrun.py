@@ -1,8 +1,9 @@
 """The port's dry run (`repro_torch.launch.dryrun`) against the reference's
 planner and model: full-size cells that count fast on the meta device
 (llama3-8b ``decode_32k`` on both meshes, mamba2-780m ``long_500k``,
-qwen3-moe-30b-a3b ``decode_32k``) end ``ok`` with the reference's
-parameter count (``jax.eval_shape`` of its ``init``), the reference
+qwen3-moe-30b-a3b ``decode_32k``) end ``ok`` with per-chip counts of the
+mesh's first position (its collectives from a counting mesh) beside the
+unsharded one-card counts, the reference's parameter count (``jax.eval_shape`` of its ``init``), the reference
 planner's notes (its step bundles on an axis-size stub of the mesh, then
 the batch and cache specs in its ``jit_for`` order) and per-device
 argument bytes equal to a sum over the reference planner's specs; a
@@ -73,11 +74,27 @@ def _reference_decode(arch: str, shape: str, mesh_name: str):
     return n_params, bundle.plan.notes[:20], total
 
 
+# A decode step's collectives at the first position, per cell: llama3-8b
+# sums the embedding and each layer's two row-parallel products and
+# gathers the head's vocabulary blocks (2L + 2); qwen3-moe-30b-a3b sums
+# the attention's product, the experts' output and the load-balance
+# loss over model and over the batch axes (4L + 2); mamba2-780m's rank
+# model keeps every leaf whole: none.
+COLLECTIVES = {"llama3-8b": 2 * 32 + 2, "qwen3-moe-30b-a3b": 4 * 48 + 2,
+               "mamba2-780m": 0}
+
+
 @pytest.mark.parametrize("arch,shape,multi_pod", CELLS)
 def test_run_cell_matches_the_reference_plan_and_params(arch, shape, multi_pod):
+    """The record is the first position's, per chip (``"partitioned":
+    true``): its collectives from the counting mesh, its cost below the
+    one-card cost (``cost_one_card``) where the model splits; the plan's
+    notes, parameter count and per-device argument bytes are the
+    reference's."""
     rec = dryrun.run_cell(arch, shape, multi_pod, verbose=False)
     mesh_name = "2x16x16" if multi_pod else "16x16"
-    assert (rec["status"], rec["mesh"], rec["partitioned"]) == ("ok", mesh_name, False)
+    assert (rec["status"], rec["mesh"], rec["partitioned"]) == ("ok", mesh_name, True)
+    assert rec["position"] == dict.fromkeys(MESHES[mesh_name], 0)
     n_params, notes, per_device = _reference_decode(arch, shape, mesh_name)
     assert rec["num_params"] == n_params
     assert rec["plan_notes"] == notes
@@ -85,11 +102,36 @@ def test_run_cell_matches_the_reference_plan_and_params(arch, shape, multi_pod):
     assert mem["argument_size_in_bytes"] == per_device
     assert mem["argument_size_in_bytes_one_card"] >= per_device
     assert mem["peak_live_bytes"] >= mem["argument_size_in_bytes_one_card"]
-    assert rec["collectives"] == {"_count": 0}
-    cost = rec["cost"]
-    assert cost["flops"] == cost["flops_matmul"] + cost["flops_pointwise"] > 0
-    assert cost["flops_matmul"] == sum(cost["flops_matmul_by_dtype"].values())
+    assert mem["peak_live_bytes_position"] >= mem["argument_size_in_bytes_position"]
+    assert rec["collectives"]["_count"] == COLLECTIVES[arch]
+    for cost in (rec["cost"], rec["cost_one_card"]):
+        assert cost["flops"] == cost["flops_matmul"] + cost["flops_pointwise"] > 0
+        assert cost["flops_matmul"] == sum(cost["flops_matmul_by_dtype"].values())
+    if arch == "mamba2-780m":  # one row, every leaf whole: the one-card step
+        assert rec["cost"] == rec["cost_one_card"]
+        assert rec["notes"][0].startswith("position holds whole")
+        assert "layers/mamba/in_proj" in rec["notes"][0]
+    else:
+        assert mem["argument_size_in_bytes_position"] < \
+            mem["argument_size_in_bytes_one_card"]
+        assert rec["cost"]["flops_matmul"] < rec["cost_one_card"]["flops_matmul"]
+        assert set(rec["collectives"]) == {"all-reduce", "all-gather", "_count"}
     assert rec["ops"]["dot"] > 0 and json.loads(json.dumps(rec)) == rec
+
+
+def test_llama_decode_position_collective_bytes():
+    """llama3-8b ``decode_32k`` at the first position of 16x16: its 8 rows
+    (128 over 16 data positions) of one token; the embedding's bf16 sum,
+    64 f32 row-parallel sums of (8, 1, 4096), and the bf16 head's block
+    of 128,256 / 16 logits gathered."""
+    rec = dryrun.run_cell("llama3-8b", "decode_32k", False, verbose=False)
+    rows, d = 8, 4096
+    assert rec["collectives"] == {
+        "all-reduce": rows * d * 2 + 64 * rows * d * 4,
+        "all-gather": rows * (128_256 // 16) * 2, "_count": 66}
+    assert rec["collectives_by_dtype"] == {
+        "all-reduce:bfloat16": rows * d * 2, "all-reduce:float32": 64 * rows * d * 4,
+        "all-gather:bfloat16": rows * (128_256 // 16) * 2}
 
 
 def test_long_context_cell_gives_the_reference_skip():
@@ -103,13 +145,14 @@ def test_report_tables_build_from_small_ledgers(tmp_path):
           "status": "ok", "count_s": 2.5, "plan_notes": ["a note"],
           "memory": {"argument_size_in_bytes": 4e9,
                      "argument_size_in_bytes_one_card": 5.6e11,
-                     "peak_live_bytes": 5.8e11}}
+                     "peak_live_bytes": 5.8e11},
+          "chips": 256, "cost": {"flops": 1e12}, "cost_one_card": {"flops": 1.28e14}}
     skip = {"arch": "llama3-8b", "shape": "long_500k", "mesh": "16x16",
             "status": "skip", "reason": "full quadratic attention"}
     counters = {"flops": 4e12, "flops_matmul:bfloat16": 2e12,
                 "flops_matmul:float32": 2e12, "flops_pointwise": 1e9, "bytes": 4e12}
     roof = {"arch": "hymba-1.5b", "shape": "long_500k", "status": "ok",
-            "counters": counters, "useful_ratio": 0.5,
+            "counters": counters, "useful_ratio": 0.5, "chips": 1,
             "roofline": {"compute_s": 1.0, "memory_s": 2.0, "collective_s": 0.0}}
     perf = {**roof, "tag": "hymba.C1_seq_parallel_decode",
             "plan_only": ["seq_parallel_decode"]}
@@ -119,9 +162,21 @@ def test_report_tables_build_from_small_ledgers(tmp_path):
         paths[name].write_text("".join(json.dumps(r) + "\n" for r in recs))
     dry = report.dryrun_table(paths["dry"])
     assert "| llama3-8b | decode_32k | 16x16 | OK | 2.5 | 4.00 | 560.00 | 580.00 | no |" in dry
+    # The position's FLOPs times the mesh's 256 chips over one card's.
+    assert "| no | 2.000 | a note |" in dry
     assert "| llama3-8b | long_500k | 16x16 | SKIP |" in dry
     roof_rows = report.roofline_table(paths["roof"]).splitlines()
     assert len(roof_rows) == 3 and roof_rows[2].startswith("| hymba-1.5b | long_500k |")
+    # A per-chip record: 6ND over the count of all its chips.
+    from repro_torch.configs import get_config
+    from repro_torch.launch.roofline import model_flops
+
+    mf = model_flops(get_config("hymba-1.5b"), "long_500k")
+    for chips, want in ((1, "1.000"), (4, "0.250")):
+        rec = {**roof, "chips": chips, "counters": {**counters, "flops": mf}}
+        (tmp_path / "chips.jsonl").write_text(json.dumps(rec) + "\n")
+        rows = report.roofline_table(tmp_path / "chips.jsonl").splitlines()
+        assert rows[2].split("|")[7].strip() == want
     perf_rows = report.perf_table(paths["perf"], paths["roof"]).splitlines()
     assert perf_rows[2].startswith("| **hymba-1.5b × long_500k baseline** |")
     assert "seq_parallel_decode: the plan only, not counted" in perf_rows[3]

@@ -12,7 +12,9 @@ inputs' aux lands one f32 ulp, 1.19e-7, from the reference's).  On the
 model-only meshes it is also held to the port's unsharded `moe_ffn`
 (out within 1e-6 of max|out|, aux within 1e-7): the same experts and the
 same global capacity, so it drops the same tokens, and only the order of
-the shard sum differs."""
+the shard sum differs.  Its backward is held to ``jax.grad`` of the
+reference's on each shape (jax 0.9 differentiates through the
+``shard_map``)."""
 import os
 import subprocess
 import sys
@@ -34,6 +36,7 @@ SHAPES = [(1, 2), (1, 4), (2, 2)]
 OUT_TOL = 1e-6  # of max|out|
 AUX_RTOL = 1e-6  # against the reference
 AUX_TOL = 1e-7  # against the port's unsharded MoE
+GRAD_TOL = 1e-5  # of the leaf's max|grad|, against the reference's jax.grad
 
 ORACLE = """
 import os, sys
@@ -51,10 +54,19 @@ out = {}
 for data, model in ((1, 2), (1, 4), (2, 2)):
     devs = np.array(jax.devices()[:data * model]).reshape(data, model)
     mesh = Mesh(devs, ("data", "model"))
-    y, aux = jax.jit(lambda x, p: moe_ffn_sharded(x, p, cfg, mesh, ("data",)))(
-        inp["x"], p)
+    fn = lambda x, p: moe_ffn_sharded(x, p, cfg, mesh, ("data",))
+    y, aux = jax.jit(fn)(inp["x"], p)
     out[f"out_{data}x{model}"] = np.asarray(y)
     out[f"aux_{data}x{model}"] = np.asarray(aux)
+
+    def scalar(x, p, data=data, fn=fn):
+        y, aux = fn(x, p)
+        return (y * inp["weight"]).sum() / data + 0.01 * aux
+
+    gx, gp = jax.jit(jax.grad(scalar, argnums=(0, 1)))(inp["x"], p)
+    out[f"grad_x_{data}x{model}"] = np.asarray(gx)
+    for k, v in gp.items():
+        out[f"grad_{k}_{data}x{model}"] = np.asarray(v)
 np.savez(sys.argv[2], **out)
 """
 
@@ -66,7 +78,9 @@ def _inputs():
             "router": rng.standard_normal((d, e)).astype(np.float32),
             "w_gate": (0.2 * rng.standard_normal((e, d, f))).astype(np.float32),
             "w_up": (0.2 * rng.standard_normal((e, d, f))).astype(np.float32),
-            "w_down": (0.2 * rng.standard_normal((e, f, d))).astype(np.float32)}
+            "w_down": (0.2 * rng.standard_normal((e, f, d))).astype(np.float32),
+            # the gradients' scalar: sum(out * weight) + 0.01 aux
+            "weight": rng.standard_normal((4, 6, d)).astype(np.float32)}
 
 
 @pytest.fixture(scope="module")
@@ -92,8 +106,9 @@ def reference(inputs, tmp_path_factory):
 def ranks(inputs, tmp_path_factory):
     """Each shape's rows: the whole out (assembled from the ranks' rows,
     each block the same on every model rank) and each rank's aux."""
+    moe_in = {k: v for k, v in inputs.items() if k != "weight"}
     got = run_ranks(bodies.moe, 4, tmp_path_factory.mktemp("moe_ranks"), CFG,
-                    inputs, SHAPES, device="cpu")
+                    moe_in, SHAPES, device="cpu")
     out = {}
     for shape in SHAPES:
         full = np.zeros_like(inputs["x"])
@@ -152,3 +167,43 @@ def test_some_tokens_drop_at_this_capacity(inputs):
     capped, _ = moe_ffn(t["x"], p, CFG.top_k, CFG.capacity_factor)
     roomy, _ = moe_ffn(t["x"], p, CFG.top_k, 8.0)
     assert not torch.allclose(capped, roomy)
+
+
+@pytest.fixture(scope="module")
+def grads(inputs, tmp_path_factory):
+    """Each rank's gradients (`torch_ranks_bodies.moe_grads`), by shape."""
+    moe_in = {k: v for k, v in inputs.items() if k != "weight"}
+    got = run_ranks(bodies.moe_grads, 4, tmp_path_factory.mktemp("moe_grads"),
+                    CFG, moe_in, inputs["weight"], SHAPES, device="cpu")
+    return {shape: [r[shape] for r in got if shape in r] for shape in SHAPES}
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=_key)
+def test_moe_ffn_sharded_gradients_match_the_references_grad(grads, reference,
+                                                             shape):
+    """The backward of the port's expert-parallel MoE against ``jax.grad``
+    of the reference's ``moe_ffn_sharded`` (its ``shard_map`` under
+    ``jit``) on the same mesh shape: the scalar ``sum(out * weight) /
+    data + 0.01 aux``, the mean over the data ranks of each rank's loss.
+    ``x``'s rows, the router (every rank the same) and each rank's
+    experts within 1e-5 of the leaf's max|grad|: the sums run in another
+    order, and the router's gradient is summed over ``model`` from each
+    rank's experts (`Mesh.copy_to`).  On (2, 2) each data rank routes
+    its own rows at its own capacity, as the reference's shards do, so
+    its gradients are not the unsharded MoE's."""
+    key = _key(shape)
+    members = grads[shape]
+    assert len(members) == shape[0] * shape[1]
+    want_x = reference[f"grad_x_{key}"]
+    got_x = np.zeros_like(want_x)
+    for r in members:
+        lo, hi = r["rows"]
+        got_x[lo:hi] = r["x"]
+    assert np.abs(got_x - want_x).max() <= GRAD_TOL * np.abs(want_x).max()
+    for k in ("router", "w_gate", "w_up", "w_down"):
+        want = reference[f"grad_{k}_{key}"]
+        for r in members:
+            block = want if k == "router" else want[slice(*r["experts"])]
+            assert r[k].shape == block.shape
+            err = np.abs(r[k] - block).max()
+            assert err <= GRAD_TOL * np.abs(want).max(), (k, err)

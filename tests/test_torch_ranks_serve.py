@@ -8,7 +8,8 @@ decode) on (data, model) rank meshes of shapes (1, 2), (1, 4) and (2, 2)
 on the same weights: the same greedy tokens, and every step's logits
 within 1e-5 of max|logit| (the shard sum's order is the only
 difference).  Also: the carried and seeded expert shards are the whole
-model's blocks, and the train step refuses an expert-parallel mesh."""
+model's blocks, and the train step runs on an expert-parallel mesh, its
+loss and gradient norm the unsharded step's."""
 import dataclasses
 
 import numpy as np
@@ -56,9 +57,30 @@ def unsharded(tree, prompts):
 
 
 @pytest.fixture(scope="module")
-def ranks(tree, prompts, tmp_path_factory):
+def train_batches():
+    rng = np.random.default_rng(1)
+    return [rng.integers(0, 512, (4, 16)).astype(np.int32) for _ in range(2)]
+
+
+def _train_unsharded(cfg, tree, batches) -> list:
+    """Two steps' metrics of the unsharded train step on the reference
+    tree's weights."""
+    model = model_params_from(cfg, tree, device="cpu")
+    bundle = make_train_step(cfg, make_local_mesh(device="cpu"),
+                             opt=bodies.TRAIN_OPT, remat=False)
+    state, step = bundle.init_opt(model), bundle.jit_for(None)
+    out = []
+    for tokens in batches:
+        state, m = step(model, state, {"tokens": torch.from_numpy(tokens)})
+        out.append({k: float(v) for k, v in m.items()})
+    return out
+
+
+@pytest.fixture(scope="module")
+def ranks(tree, prompts, train_batches, tmp_path_factory):
     return run_ranks(bodies.serve, 4, tmp_path_factory.mktemp("serve_ranks"),
-                     _cfg(get_config), tree, prompts, GEN, SHAPES, device="cpu")
+                     _cfg(get_config), tree, prompts, GEN, SHAPES, train_batches,
+                     device="cpu")
 
 
 def _key(shape):
@@ -101,13 +123,28 @@ def test_rank_models_hold_their_expert_block(ranks, tree, shape):
                                           getattr(seeded, k)[block].numpy())
 
 
-def test_train_step_refuses_an_expert_parallel_mesh():
+def test_train_step_refuses_an_expert_parallel_mesh(ranks, tree, train_batches):
+    """The train step no longer refuses an expert-parallel mesh: on a
+    (1, 2) rank mesh each rank trains its experts (and its heads), and
+    its two steps' loss and gradient norm are the unsharded step's on the
+    same weights within rtol 1e-6 (tests/test_torch_ranks_train.py holds
+    every leaf's moments and parameters, the router's included).  A mesh
+    of devices in one process, and one whose model axis does not divide
+    the experts, train the whole model."""
     cfg = _cfg(get_config)
-    devs = np.empty(2, dtype=object)
-    devs[:] = [torch.device("cpu")] * 2
-    with pytest.raises(NotImplementedError, match="training with expert"):
-        make_train_step(cfg, Mesh(("data", "model"), devs.reshape(1, 2)))
-    devs = np.empty(3, dtype=object)
-    devs[:] = [torch.device("cpu")] * 3
-    # 8 experts do not split over 3: the single-shard MoE, which trains.
-    make_train_step(cfg, Mesh(("data", "model"), devs.reshape(1, 3)))
+    want = _train_unsharded(cfg, tree, train_batches)
+    got = [r[(1, 2)] for r in ranks if (1, 2) in r]
+    assert len(got) == 2
+    for r in got:
+        for m, ref in zip(r["trained"], want):
+            for k in ("loss", "grad_norm", "lr"):
+                np.testing.assert_allclose(m[k], ref[k], rtol=1e-6, err_msg=k)
+    for n in (2, 3):  # 8 experts split over 2, not over 3
+        devs = np.empty(n, dtype=object)
+        devs[:] = [torch.device("cpu")] * n
+        bundle = make_train_step(cfg, Mesh(("data", "model"), devs.reshape(1, n)),
+                                 opt=bodies.TRAIN_OPT, remat=False)
+        model = model_params_from(cfg, tree, device="cpu")
+        _, m = bundle.jit_for(None)(model, bundle.init_opt(model),
+                                    {"tokens": torch.from_numpy(train_batches[0])})
+        np.testing.assert_allclose(float(m["loss"]), want[0]["loss"], rtol=1e-6)

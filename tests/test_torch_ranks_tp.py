@@ -12,8 +12,9 @@ the KV projections whole, and each rank attends with the KV head its
 query head uses.  Also: each rank holds the block of every leaf that the
 reference planner's spec gives its position, a seeded rank's leaves are
 the seeded unsharded model's blocks bit for bit, a decode step issues
-2L + 1 ``all_reduce``s and one ``all_gather``, and the train step refuses
-a tensor-parallel mesh."""
+2L + 1 ``all_reduce``s and one ``all_gather``, and the train step runs
+on a tensor-parallel mesh, its loss and gradient norm the unsharded
+step's."""
 import dataclasses
 
 import numpy as np
@@ -80,9 +81,30 @@ def unsharded(tree, prompts):
 
 
 @pytest.fixture(scope="module")
-def ranks(tree, prompts, tmp_path_factory):
+def train_batches():
+    rng = np.random.default_rng(1)
+    return [rng.integers(0, 512, (4, 16)).astype(np.int32) for _ in range(2)]
+
+
+def _train_unsharded(cfg, tree, batches) -> list:
+    """Two steps' metrics of the unsharded train step on the reference
+    tree's weights."""
+    model = model_params_from(cfg, tree, device="cpu")
+    bundle = make_train_step(cfg, make_local_mesh(device="cpu"),
+                             opt=bodies.TRAIN_OPT, remat=False)
+    state, step = bundle.init_opt(model), bundle.jit_for(None)
+    out = []
+    for tokens in batches:
+        state, m = step(model, state, {"tokens": torch.from_numpy(tokens)})
+        out.append({k: float(v) for k, v in m.items()})
+    return out
+
+
+@pytest.fixture(scope="module")
+def ranks(tree, prompts, train_batches, tmp_path_factory):
     return run_ranks(bodies.tensor_parallel, 4, tmp_path_factory.mktemp("tp_ranks"),
-                     _cfg(get_config), tree, prompts, GEN, SHAPES, device="cpu")
+                     _cfg(get_config), tree, prompts, GEN, SHAPES, train_batches,
+                     device="cpu")
 
 
 def _members(ranks, shape):
@@ -276,16 +298,28 @@ def test_rank_models_of_the_slice_hold_the_reference_planners_blocks(arch):
     assert len(got) == len(jax.tree.leaves(params))
 
 
-def test_train_step_refuses_a_tensor_parallel_rank_mesh():
-    cfg = get_config("llama3-8b")
+def test_train_step_refuses_a_tensor_parallel_rank_mesh(ranks, tree, train_batches):
+    """The train step no longer refuses a tensor-parallel rank mesh: on
+    (1, 2) each rank trains its blocks, and its two steps' loss and
+    gradient norm are the unsharded step's on the same weights within
+    rtol 1e-6 (tests/test_torch_ranks_train.py holds every leaf's
+    moments and parameters).  A mesh of devices in one process trains
+    the whole model."""
+    cfg = _cfg(get_config)
+    want = _train_unsharded(cfg, tree, train_batches)
+    for r in _members(ranks, (1, 2)):
+        assert len(r["trained"]) == len(want)
+        for got, ref in zip(r["trained"], want):
+            for k in ("loss", "grad_norm", "lr"):
+                np.testing.assert_allclose(got[k], ref[k], rtol=1e-6, err_msg=k)
     devs = np.empty(2, dtype=object)
     devs[:] = [torch.device("cpu")] * 2
-    ranks = Mesh(("data", "model"), devs.reshape(1, 2),
-                 ranks=np.arange(2).reshape(1, 2))
-    with pytest.raises(NotImplementedError, match="tensor-parallel training"):
-        make_train_step(cfg, ranks)
-    # A mesh of devices in one process plans only: the train step builds.
-    make_train_step(cfg, Mesh(("data", "model"), devs.reshape(1, 2)))
+    bundle = make_train_step(cfg, Mesh(("data", "model"), devs.reshape(1, 2)),
+                             opt=bodies.TRAIN_OPT, remat=False)
+    model = model_params_from(cfg, tree, device="cpu")
+    _, m = bundle.jit_for(None)(model, bundle.init_opt(model),
+                                {"tokens": torch.from_numpy(train_batches[0])})
+    np.testing.assert_allclose(float(m["loss"]), want[0]["loss"], rtol=1e-6)
 
 
 def test_a_rank_model_defaults_to_the_card():

@@ -74,6 +74,15 @@ def test_roofline_terms_on_hand_set_counters():
     half = roofline.roofline_terms({**c, "bytes": 3.35e12}, chips=2)
     assert half["compute_s"] == pytest.approx(1.5, rel=1e-12)
     assert (half["dominant"], half["bound_s"]) == ("compute_s", half["compute_s"])
+    # Per-chip collectives: their bytes over NVLink's 450 GB/s, never
+    # divided by chips.
+    coll = {**c, "coll:all-reduce": 4 * 450e9, "coll:all-gather": 2 * 450e9}
+    t = roofline.roofline_terms(coll)
+    assert t["collective_s"] == pytest.approx(6.0, rel=1e-12)
+    assert (t["dominant"], t["bound_s"], t["coll_bytes"]) == (
+        "collective_s", t["collective_s"], 6 * 450e9)
+    assert roofline.roofline_terms(coll, chips=2)["collective_s"] == t["collective_s"]
+    assert roofline.H100_NVLINK_BYTES_PER_S == 450e9
     with pytest.raises(ValueError, match="int8"):
         roofline.roofline_terms({"flops_matmul:int8": 1.0})
     with pytest.raises(ValueError, match="chips"):
@@ -133,3 +142,46 @@ def test_reduced_llama_forward_matmul_flops_closed_form():
                  + 3 * 2 * b * s * d * f)  # gate, up, down
     want = cfg.num_layers * per_layer + 2 * b * s * d * cfg.vocab_size
     assert rec["flops_matmul_by_dtype"] == {"float32": want}
+
+
+def test_measure_cell_extrapolates_the_collectives_per_chip():
+    """Per chip at a (1, 2) position (a counting mesh): the ``coll:*``
+    counters extrapolate from 1 and 2 layers to the full depth's count,
+    exactly, and give the collective term."""
+    from repro_torch.launch.mesh import make_counting_mesh
+
+    cfg = get_config("llama3-8b").reduced()
+    rec = roofline.measure_cell(cfg, SMALL["train"], n1=1, n2=2, verbose=False,
+                                mesh=make_counting_mesh((1, 2)))
+    assert rec["status"] == "ok" and rec["partitioned"]
+    assert rec["counters"] == rec["full_counters"]
+    c = rec["counters"]
+    assert c["coll:all-reduce"] > 0 and c["coll:all-gather"] > 0
+    terms = roofline.roofline_terms(c)
+    assert terms["coll_bytes"] == c["coll:all-reduce"] + c["coll:all-gather"]
+    assert terms["collective_s"] == terms["coll_bytes"] / 450e9
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
+def test_per_chip_ratio_and_fraction_count_every_chip(kind, shape):
+    """A per-chip record's ``useful_ratio`` sets the whole batch's 6ND
+    against its count times its ``chips``: on a reduced llama, whose
+    heads split over ``model``, it reads as the unsharded record's within
+    the work the positions repeat (norms, replicated leaves' updates), not
+    ``chips`` times it, and its ``bound_mfu`` stays below 1."""
+    from repro_torch.launch.mesh import make_counting_mesh
+
+    cfg = get_config("llama3-8b").reduced()
+    sp = ShapeSpec(f"small_{kind}", 16, 4, kind)
+    mf = roofline.model_flops(cfg, sp)
+    one = roofline.measure_cell(cfg, sp, n1=1, n2=2, verbose=False, full=False)
+    part = roofline.measure_cell(cfg, sp, n1=1, n2=2, verbose=False, full=False,
+                                 mesh=make_counting_mesh(shape))
+    assert (one["chips"], part["chips"]) == (1, shape[0] * shape[1])
+    whole = roofline.useful_ratio(one, mf)
+    assert 0.5 < whole <= 1.0
+    assert roofline.useful_ratio(part, mf) == pytest.approx(whole, rel=0.1)
+    for rec in (one, part):
+        frac = roofline.bound_mfu(rec, mf, roofline.roofline_terms(rec["counters"]))
+        assert 0.0 < frac <= 1.0

@@ -8,6 +8,9 @@ the meshes that hold it.
 """
 from __future__ import annotations
 
+import dataclasses
+from pathlib import Path
+
 import numpy as np
 import torch
 
@@ -15,7 +18,11 @@ from repro_torch.core.mapping_device import island_sa
 from repro_torch.interop import rank_model_from, reference_tree
 from repro_torch.launch.mesh import make_rank_mesh
 from repro_torch.launch.serve import serve_batch
+from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.train import train_loop
 from repro_torch.models import build_model
+from repro_torch.optim import AdamWConfig
+from repro_torch.optim.adamw import rank_leaves
 from repro_torch.models.moe import moe_ffn_sharded
 from repro_torch.runtime.elastic import Sharded, remesh_params
 from repro_torch.sharding.planner import ParamShard, shard_slices
@@ -53,13 +60,65 @@ def moe(cfg, inputs: dict, shapes: list) -> dict:
     return out
 
 
+def _trained(cfg, tree: dict, mesh, batches: list) -> list:
+    """The metrics of `make_train_step` over ``batches`` (global (B, S)
+    int32 tokens) on ``mesh``, the rank's model carried from ``tree``."""
+    model = rank_model_from(cfg, tree, mesh)
+    bundle = make_train_step(cfg, mesh, opt=TRAIN_OPT, remat=False, zero1=False)
+    state, step = bundle.init_opt(model), bundle.jit_for(None)
+    out = []
+    for tokens in batches:
+        state, m = step(model, state, {"tokens": torch.from_numpy(tokens)})
+        out.append({k: float(v) for k, v in m.items()})
+    return out
+
+
+def moe_grads(cfg, inputs: dict, weight: np.ndarray, shapes: list) -> dict:
+    """The gradients of ``mean over the data rows' blocks of sum(out *
+    weight) + 0.01 aux`` through `moe_ffn_sharded` on a (data, model) mesh
+    of each shape in ``shapes``: each rank's loss is its rows' sum plus
+    0.01 aux, its gradients averaged over ``data`` (as the train step
+    averages them), so ``x``'s rows take the rank's gradient over the
+    data ranks' count.  Returns by shape this rank's coordinate, rows,
+    experts and the gradients of x (its rows), the router and its
+    experts' weights."""
+    t = {k: torch.from_numpy(v) for k, v in inputs.items()}
+    out = {}
+    for shape in shapes:
+        mesh = make_rank_mesh(shape, device="cpu",
+                              ranks=range(int(np.prod(shape))))
+        if not mesh.is_member:
+            continue
+        coord = mesh.coord
+        rows = shard_slices(("data",), t["x"].shape, mesh.shape, coord)[0]
+        experts = shard_slices(("model",), t["w_gate"].shape, mesh.shape,
+                               coord)[0]
+        x = t["x"][rows].clone().requires_grad_(True)
+        p = Experts(t["router"].clone().requires_grad_(True),
+                    *(t[k][experts].clone().requires_grad_(True)
+                      for k in ("w_gate", "w_up", "w_down")))
+        y, aux = moe_ffn_sharded(x, p, cfg, mesh, ("data",))
+        loss = (y * torch.from_numpy(weight)[rows]).sum() + 0.01 * aux
+        loss.backward()
+        n = shape[0]
+        grads = {}
+        with torch.no_grad():
+            for k in ("router", "w_gate", "w_up", "w_down"):
+                grads[k] = (mesh.all_reduce(getattr(p, k).grad, ("data",)) / n).numpy()
+        out[shape] = dict(coord=coord, rows=(rows.start, rows.stop),
+                          experts=(experts.start, experts.stop),
+                          x=(x.grad / n).numpy(), **grads)
+    return out
+
+
 def serve(cfg, tree: dict, prompts: np.ndarray, gen_len: int,
-          shapes: list) -> dict:
+          shapes: list, train_batches: list = ()) -> dict:
     """Greedy `serve_batch` on a (data, model) mesh of each shape, each
     rank's model carried from the reference tree (`rank_model_from`), and
     this rank's experts of a model built from seed 0 (first layer); the
     expert shard is (index, count): the block the model holds of the
-    experts, and how many such blocks they make."""
+    experts, and how many such blocks they make.  On the (1, 2) mesh,
+    ``"trained"``: the metrics of `_trained` over ``train_batches``."""
     out = {}
     for shape in shapes:
         mesh = make_rank_mesh(shape, device="cpu",
@@ -82,6 +141,8 @@ def serve(cfg, tree: dict, prompts: np.ndarray, gen_len: int,
                      for k in ("router", "w_gate", "w_up", "w_down")},
             seeded={k: getattr(seeded, k).numpy()
                     for k in ("router", "w_gate", "w_down")})
+        if shape == (1, 2) and train_batches:
+            out[shape]["trained"] = _trained(cfg, tree, mesh, train_batches)
     return out
 
 
@@ -92,12 +153,14 @@ def _numpy(tree):
 
 
 def tensor_parallel(cfg, tree, prompts: np.ndarray, gen_len: int,
-                    shapes: list) -> dict:
+                    shapes: list, train_batches: list = ()) -> dict:
     """Greedy `serve_batch` on a (data, model) mesh of each shape, each
     rank's model carried from the reference tree (`rank_model_from`):
     this rank's coordinate, tokens, logits and collective tally, and the
     leaves it holds (as the reference's stacked tree) of the carried model
-    and of a model built from seed 0 for its position."""
+    and of a model built from seed 0 for its position.  On the (1, 2)
+    mesh, ``"trained"``: the metrics of `_trained` over
+    ``train_batches``."""
     out = {}
     for shape in shapes:
         mesh = make_rank_mesh(shape, device="cpu",
@@ -114,6 +177,8 @@ def tensor_parallel(cfg, tree, prompts: np.ndarray, gen_len: int,
                           collectives=res["collectives"],
                           carried=_numpy(reference_tree(model)),
                           seeded=_numpy(reference_tree(seeded)))
+        if shape == (1, 2) and train_batches:
+            out[shape]["trained"] = _trained(cfg, tree, mesh, train_batches)
     return out
 
 
@@ -177,4 +242,106 @@ def islands(traffic: np.ndarray, num_cores: int, mesh_w: int,
                         mesh=mesh, axis="data", **kw)
         out[seed] = dict(placement=res.placement, avg_hop=res.avg_hop,
                          evaluations=res.evaluations)
+    return out
+
+
+# Two steps reach the schedule's warm-up: lr 1e-3 and 2e-3.
+TRAIN_OPT = AdamWConfig(lr=1e-2, warmup_steps=10, total_steps=100)
+
+
+def train(cfg, batches: list, cases: dict) -> dict:
+    """`make_train_step` on a (data, model) rank mesh for each case (name
+    -> dict of ``shape``, ``zero1``, ``remat``, ``policy``), the rank's
+    model built from seed 0, over ``batches`` (each the global (B, S)
+    int32 tokens): this rank's coordinate, each step's metrics, collective
+    tally and moments (by leaf path), and after the last step its
+    parameters (by name), the blocks it holds (`Model.blocks`) and the
+    block of the stacked whole leaf each moment is (`moment_blocks`)."""
+    meshes = {}
+    out = {}
+    for name, case in cases.items():
+        shape = tuple(case["shape"])
+        if shape not in meshes:
+            meshes[shape] = make_rank_mesh(shape, device="cpu",
+                                           ranks=range(int(np.prod(shape))))
+        mesh = meshes[shape]
+        if not mesh.is_member:
+            continue
+        c = dataclasses.replace(cfg, remat_policy=case.get("policy", "full"))
+        model = build_model(c, "cpu", seed=0, shard=ParamShard.of(mesh))
+        bundle = make_train_step(c, mesh, opt=TRAIN_OPT, remat=case["remat"],
+                                 zero1=case["zero1"])
+        state, step = bundle.init_opt(model), bundle.jit_for(None)
+        metrics, tallies, moments = [], [], []
+        for tokens in batches:
+            mark = mesh.copy_tally()
+            state, m = step(model, state, {"tokens": torch.from_numpy(tokens)})
+            tallies.append(mesh.tally_since(mark))
+            metrics.append({k: float(v) for k, v in m.items()})
+            moments.append({part: {k: t.numpy().copy() for k, t in state[part].items()}
+                            for part in ("m", "v")})
+        out[name] = dict(
+            coord=mesh.coord, metrics=metrics, tallies=tallies, moments=moments,
+            params={n: p.detach().numpy() for n, p in model.named_parameters()},
+            blocks=dict(model.blocks),
+            moment_blocks=moment_blocks(model, mesh, case["zero1"]))
+    return out
+
+
+def moment_blocks(model, mesh, zero1: bool) -> dict:
+    """Each moment's block of its stacked whole leaf (by leaf path): the
+    stack dims whole, a layer's block as the model holds it, and the
+    ZeRO-1 dimension cut to the rank's block (`RankLeaf.moment_block`)."""
+    batch_axes = tuple(a for a in mesh.axis_names if a != "model")
+    return {leaf.path: leaf.moment_block
+            for leaf in rank_leaves(model, (mesh, batch_axes), zero1)}
+
+
+def train_loops(cfg, store: str, kw: dict) -> dict:
+    """`train_loop` (``kw``: steps, batch, seq, lr) on a (2, 1) mesh of the
+    job's two ranks: a straight run, and the same run stopped after half
+    its steps with a checkpoint (rank 0 writes) and resumed by both; on
+    (1, 2), whose ranks hold blocks, the error a checkpoint raises.
+    Returns this rank's losses of each and the error's text."""
+    data = make_rank_mesh((2, 1), device="cpu")
+    tp = make_rank_mesh((1, 2), device="cpu")
+    kw = dict(kw, print_fn=lambda *_: None)
+    straight = train_loop(cfg, data, **kw)["losses"]
+    ckpt = Path(store) / "ckpt"
+    half = kw["steps"] // 2
+    first = train_loop(cfg, data, ckpt_dir=ckpt, ckpt_every=half, stop_at=half,
+                       **kw)["losses"]
+    torch.distributed.barrier()  # rank 0's checkpoint is on disk
+    rest = train_loop(cfg, data, ckpt_dir=ckpt, ckpt_every=half, resume=True,
+                      **kw)["losses"]
+    try:
+        train_loop(cfg, tp, ckpt_dir=Path(store) / "tp", **kw)
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    return dict(straight=straight, resumed=first + rest, refused=refused)
+
+
+def step_tallies(cfg, specs: dict, shapes: list) -> dict:
+    """The collective tally of one call of each cell step (`dryrun.
+    cell_step`; ``specs``: name -> (ShapeSpec, remat policy)) on a (data,
+    model) mesh of each shape, the rank's model built from seed 0: by
+    (shape, name), this rank's position and tally."""
+    from repro_torch.launch.dryrun import cell_step
+
+    out = {}
+    for shape in shapes:
+        mesh = make_rank_mesh(shape, device="cpu",
+                              ranks=range(int(np.prod(shape))))
+        if not mesh.is_member:
+            continue
+        for name, (sp, policy) in specs.items():
+            c = dataclasses.replace(cfg, remat_policy=policy)
+            model = build_model(c, "cpu", seed=0, shard=ParamShard.of(mesh))
+            call, _ = cell_step(c, sp, model, mesh=mesh,
+                                generator=torch.Generator().manual_seed(0))
+            mark = mesh.copy_tally()
+            call()
+            out[shape, name] = dict(position=tuple(mesh.coord.values()),
+                                    tally=mesh.tally_since(mark))
     return out
