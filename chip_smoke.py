@@ -1859,7 +1859,8 @@ def _check_tally(name: str, tally: dict, layers: int) -> None:
 
 
 def _fmt_tally(tally: dict) -> str:
-    return ", ".join(f"{op} {tally['count'][op]} ({tally['bytes'][op]} B)"
+    return ", ".join(f"{op} {tally['count'].get(op, 0)} "
+                     f"({tally['bytes'].get(op, 0)} B)"
                      for op in ("all-reduce", "all-gather"))
 
 
@@ -2793,6 +2794,332 @@ def train_ranks_part(card: str) -> dict:
     return {name: sum(r["launches"][name] for r in got) for name in got[0]["launches"]}
 
 
+# The families part of the ranks phase (`tp_families_part`): the MLA,
+# Mamba-2, hybrid, VLM and audio families at their published widths, each
+# with its depth cut (deepseek-v2-lite: its dense layer and one MoE
+# layer; mamba2-780m: 2 of 48 layers; hymba-1.5b: one SWA and one global
+# layer; llama-3.2-vision-11b: one self and one cross layer;
+# whisper-medium: 2 encoder and 2 decoder layers), f32, from a
+# torch.Generator seeded FAM["seed"], served on gloo ranks of cuda:0 on
+# (1, 4) and (1, 2): every leaf and every cache leaf the planner's block
+# (the KV caches of a 40-slot cache split by sequence where the KV heads
+# do not divide the model axis: hymba's 5, the VLM's 8 on 4 ranks; the
+# MLA latents always), against the unsharded model from the same seed;
+# then one f32 train step of deepseek-v2-lite and mamba2-780m on (1, 2).
+FAM_ARCHS = {
+    "deepseek-v2-lite-16b": dict(num_layers=2, first_dense_layers=1),
+    "mamba2-780m": dict(num_layers=2),
+    "hymba-1.5b": dict(num_layers=2, global_attn_layers=(1,)),
+    "llama-3.2-vision-11b": dict(num_layers=2, cross_attn_every=1),
+    "whisper-medium": dict(num_layers=2, encoder_layers=2),
+}
+FAM_MESHES = ((1, 4), (1, 2))
+FAM_TRAIN = ("deepseek-v2-lite-16b", "mamba2-780m")  # one step on (1, 2)
+FAM = dict(batch=4, prompt_len=32, gen_len=8, train_seq=128, seed=0)
+FAM_TOL = 1e-5  # of max|logit|, as RANKS_TOL
+FAM_TRAIN_RTOL = 1e-5  # loss and gradient norm, relative
+# Where the unsharded model's own floor is higher, the bounds are this
+# many times it: the unsharded run against itself with its weights moved
+# by one rounding (`_perturb`), measured in the same run.  A random
+# Mamba-2 stack is that sensitive from 4 layers on: its f32 gradient norm
+# moves by ~6e-6 under one rounding of one weight, as much as the ranks'
+# other order of sums moves it (`tools/probe_tp_conditioning.py`); at 2
+# layers, 100x less.
+FAM_FLOOR_MULT = 4
+
+
+def fam_config(arch: str):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), param_dtype="float32",
+                               activation_dtype="float32", **FAM_ARCHS[arch])
+
+
+def _fam_inputs(cfg) -> dict:
+    """A family's serve prompts (and frontend) and its train batch."""
+    import numpy as np
+
+    prompts, frontend = serve_prompts(cfg, FAM["batch"], FAM["prompt_len"],
+                                      FAM["seed"])
+    rng = np.random.default_rng(FAM["seed"] + 1)
+    train = {"tokens": rng.integers(0, cfg.vocab_size, (FAM["batch"], FAM["train_seq"]))
+             .astype(np.int32)}
+    if frontend is not None:
+        train["frontend"] = rng.standard_normal(frontend.shape).astype(np.float32)
+    return dict(prompts=prompts, frontend=frontend, train=train)
+
+
+def _fam_train(cfg, model, mesh, train: dict) -> dict:
+    """One f32 train step's loss and gradient norm."""
+    import torch
+
+    from repro_torch.launch.steps import make_train_step
+
+    bundle = make_train_step(cfg, mesh, opt=tr_opt(1), remat=False, zero1=False)
+    batch = {k: torch.as_tensor(v, device=model.device) for k, v in train.items()}
+    _, m = bundle.jit_for(None)(model, bundle.init_opt(model), batch)
+    return {k: float(m[k]) for k in ("loss", "grad_norm")}
+
+
+def tp_families_body(inputs: dict) -> dict:
+    """What each of RANKS_WORLD ranks runs for the families part: each
+    family's model served on each of FAM_MESHES that holds the rank
+    (`_served`, the collectives' tally, the rank's peak memory and the
+    bytes of its parameters and caches), then one train step of each of
+    FAM_TRAIN on (1, 2).  Returns the results and this process's kernel
+    launch counts."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import serve_batch
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.models import build_model
+    from repro_torch.sharding import ParamShard
+
+    counters = launch_counters()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    meshes = {shape: make_rank_mesh(shape, device="cuda",
+                                    ranks=range(shape[0] * shape[1]))
+              for shape in FAM_MESHES}
+    kw = dict(keep_logits=True, print_fn=lambda *_: None)
+    cache_len = FAM["prompt_len"] + FAM["gen_len"]
+    out = {}
+    for arch in FAM_ARCHS:
+        cfg, inp = fam_config(arch), inputs[arch]
+        for shape, mesh in meshes.items():
+            if not mesh.is_member:
+                continue
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            model = build_model(cfg, mesh.device, seed=FAM["seed"],
+                                shard=ParamShard.of(mesh))
+            res = serve_batch(cfg, mesh, inp["prompts"], FAM["gen_len"],
+                              frontend=inp["frontend"], model=model, **kw)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            caches = model.init_caches(FAM["batch"], cache_len)
+            out[arch, shape] = dict(
+                _served(res, mesh), coord=mesh.coord, collectives=res["collectives"],
+                peak_bytes=peak, param_bytes=nbytes(*model.parameters()),
+                cache_bytes=nbytes(*_tree_leaves(caches)))
+            del model, res, caches
+            torch.cuda.empty_cache()
+        mesh = meshes[(1, 2)]
+        if arch in FAM_TRAIN and mesh.is_member:
+            model = build_model(cfg, mesh.device, seed=FAM["seed"],
+                                shard=ParamShard.of(mesh))
+            out[arch, "train"] = _fam_train(cfg, model, mesh, inp["train"])
+            del model
+            torch.cuda.empty_cache()
+    out["launches"] = {name: getattr(mod, attr)
+                       for name, (mod, attr) in counters.items()}
+    return out
+
+
+def _tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    return [tree]
+
+
+def _planned_bytes(cfg, shape, coord: dict) -> tuple[int, int]:
+    """The bytes of the planner's blocks at ``coord`` of a (data, model)
+    mesh of ``shape``: of every parameter leaf (``plan_params``) and of
+    every cache leaf of the serve's caches (``plan_caches``), each block
+    cut by `shard_slices`."""
+    import math
+
+    from repro_torch.models import Model
+    from repro_torch.sharding import (ShardingPlan, plan_caches, plan_params,
+                                      shard_slices)
+
+    mesh_shape = {"data": shape[0], "model": shape[1]}
+    meta = Model(cfg, "meta")
+
+    def total(specs, leaves) -> int:
+        if isinstance(leaves, dict):
+            return sum(total(specs[k], leaves[k]) for k in leaves)
+        block = shard_slices(specs, leaves.shape, mesh_shape, coord)
+        return math.prod(len(range(n)[b]) for n, b in
+                         zip(leaves.shape, block)) * leaves.element_size()
+
+    import torch
+
+    params: dict = {}
+    for keys, (whole, items) in meta.reference_leaves().items():
+        node = params
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = torch.empty(whole, dtype=items[0][1].dtype, device="meta")
+    plan = ShardingPlan(mesh_shape=mesh_shape)
+    caches = meta.init_caches(FAM["batch"], FAM["prompt_len"] + FAM["gen_len"])
+    return (total(plan_params(plan, params), params),
+            total(plan_caches(ShardingPlan(mesh_shape=mesh_shape), caches), caches))
+
+
+def _perturb(model) -> None:
+    """Move each weight of ``model`` by about one f32 rounding: times 1 +
+    2^-24 x a standard normal drawn from a generator seeded FAM["seed"]
+    (about a third of the elements move by one unit in the last place)."""
+    import torch
+
+    gen = torch.Generator(device=model.device).manual_seed(FAM["seed"])
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(1 + 2.0 ** -24 * torch.randn(p.shape, generator=gen,
+                                                 device=p.device))
+
+
+def _fam_counted(cfg, inp: dict, shape, coord: dict) -> dict:
+    """The tally of the serve's prefill and of a decode step at ``coord``
+    on a counting mesh (the meta device)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_counting_mesh
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import Model
+    from repro_torch.sharding import ParamShard
+
+    mesh = make_counting_mesh(shape, position=(coord["data"], coord["model"]))
+    model = Model(cfg, "meta", ParamShard.of(mesh))
+    batch = {"tokens": torch.empty(inp["prompts"].shape, dtype=torch.int32,
+                                   device="meta")}
+    if inp["frontend"] is not None:
+        batch["frontend"] = torch.empty(inp["frontend"].shape, device="meta")
+    cache_len = FAM["prompt_len"] + FAM["gen_len"]
+    mark = mesh.copy_tally()
+    _, caches = make_prefill_step(cfg, mesh, cache_len).jit_for(None)(model, batch)
+    prefill = mesh.tally_since(mark)
+    tok = torch.empty((FAM["batch"], 1), dtype=torch.int32, device="meta")
+    mark = mesh.copy_tally()
+    make_serve_step(cfg, mesh, cache_len).jit_for(None)(model, caches, tok, tok)
+    return {"prefill": prefill, "decode": mesh.tally_since(mark)}
+
+
+def tp_families_part(card: str) -> dict:
+    """The families part of the ranks phase (`tp_families_body` on
+    RANKS_WORLD processes on cuda:0 over gloo) against the unsharded model
+    of each family from the same seed: on each of FAM_MESHES, tokens
+    equal and logits within FAM_TOL of max|logit| (or FAM_FLOOR_MULT
+    times the unsharded model's floor, where that is higher); each rank's parameter
+    and cache bytes the sum of the planner's blocks at its position
+    (`_planned_bytes`); each rank's tally of the prefill and of a decode
+    step equal op by op to a counting mesh's at its position; prefill,
+    decode and peak memory printed beside the unsharded run's.  One
+    train step of each of FAM_TRAIN on (1, 2): loss and gradient norm
+    within FAM_TRAIN_RTOL of the unsharded step's (or FAM_FLOOR_MULT
+    times its floor).  Returns the ranks' kernel launch counts."""
+    import torch
+
+    from repro_torch.launch import make_local_mesh, serve_batch
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import build_model
+
+    t_part = time.perf_counter()
+    one = make_local_mesh(device="cuda")
+    kw = dict(keep_logits=True, print_fn=lambda *_: None)
+    inputs, want = {}, {}
+    for arch in FAM_ARCHS:
+        cfg = fam_config(arch)
+        inputs[arch] = inp = _fam_inputs(cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        model = build_model(cfg, "cuda", seed=FAM["seed"])
+        res = serve_batch(cfg, one, inp["prompts"], FAM["gen_len"],
+                          frontend=inp["frontend"], model=model, **kw)
+        torch.cuda.synchronize()
+        want[arch] = w = dict(res, peak_bytes=torch.cuda.max_memory_allocated() - base,
+                              param_bytes=nbytes(*model.parameters()))
+        if arch in FAM_TRAIN:
+            w["train"] = _fam_train(cfg, model, one, inp["train"])
+        del model
+        # The floor: the same runs with the weights moved by one rounding.
+        model = build_model(cfg, "cuda", seed=FAM["seed"])
+        _perturb(model)
+        moved = serve_batch(cfg, one, inp["prompts"], FAM["gen_len"],
+                            frontend=inp["frontend"], model=model, **kw)["logits"]
+        w["floor"] = float((moved - res["logits"]).abs().max()
+                           / res["logits"].abs().max())
+        w["tol"] = max(FAM_TOL, FAM_FLOOR_MULT * w["floor"])
+        if arch in FAM_TRAIN:
+            step = _fam_train(cfg, model, one, inp["train"])
+            w["train_floor"] = max(abs(step[k] - w["train"][k]) / abs(w["train"][k])
+                                   for k in ("loss", "grad_norm"))
+            w["train_tol"] = max(FAM_TRAIN_RTOL, FAM_FLOOR_MULT * w["train_floor"])
+        del model, res
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    got = run_ranks(tp_families_body, RANKS_WORLD, ROOT / "build" / "fam_ranks",
+                    inputs, device="cuda", timeout_s=RANKS_TIMEOUT_S)
+    job_s = time.perf_counter() - t0
+
+    for arch in FAM_ARCHS:
+        cfg, w = fam_config(arch), want[arch]
+        print(f"ranks families {arch} ({cfg.num_layers} layers, f32) unsharded "
+              f"[{card}]: prefill {w['prefill_s'] * 1e3:.3f} ms ({FAM['batch']} x "
+              f"{FAM['prompt_len']} tokens); decode {w['decode_s_per_tok'] * 1e3:.3f} "
+              f"ms a token; peak memory {w['peak_bytes'] / 2**30:.3f} GiB; "
+              f"parameters {w['param_bytes'] / 2**30:.3f} GiB; its floor (the "
+              f"weights moved by one rounding) {w['floor']:.3e} of max|logit|, "
+              f"so the bound {w['tol']:.3e}")
+        for shape in FAM_MESHES:
+            members = [r[arch, shape] for r in got if (arch, shape) in r]
+            if len(members) != shape[0] * shape[1]:
+                fail(f"ranks families {arch} {shape}: {len(members)} ranks answered")
+            _held_to(f"families {arch} {shape}", card, members, w, w["tol"])
+            for m in members:
+                params, caches = _planned_bytes(cfg, shape, m["coord"])
+                if (m["param_bytes"], m["cache_bytes"]) != (params, caches):
+                    fail(f"ranks families {arch} {shape} {m['coord']}: holds "
+                         f"{m['param_bytes']} B of parameters and "
+                         f"{m['cache_bytes']} B of caches, the planner's blocks "
+                         f"{params} and {caches}")
+                counted = _fam_counted(cfg, inputs[arch], shape, m["coord"])
+                if m["collectives"] != counted:
+                    fail(f"ranks families {arch} {shape} {m['coord']}: the tally "
+                         f"{m['collectives']} is not the counting mesh's {counted}")
+            m = members[0]
+            print(f"ranks families {arch} {shape} rank 0 [{card}]: prefill "
+                  f"{m['prefill_s'] * 1e3:.3f} ms; decode "
+                  f"{m['decode_s_per_tok'] * 1e3:.3f} ms a token; peak memory "
+                  f"{m['peak_bytes'] / 2**30:.3f} GiB "
+                  f"({m['peak_bytes'] / w['peak_bytes']:.3f} of unsharded); "
+                  f"parameters {m['param_bytes'] / 2**30:.3f} GiB, caches "
+                  f"{m['cache_bytes'] / 2**20:.3f} MiB, the planner's blocks; "
+                  f"tallies equal the counting mesh's; a decode step: "
+                  f"{_fmt_tally(m['collectives']['decode'])}; the prefill: "
+                  f"{_fmt_tally(m['collectives']['prefill'])}")
+        if arch in FAM_TRAIN:
+            ref = w["train"]
+            for r in got[:2]:
+                step = r[arch, "train"]
+                for k in ("loss", "grad_norm"):
+                    rel = abs(step[k] - ref[k]) / abs(ref[k])
+                    if not rel <= w["train_tol"]:
+                        fail(f"ranks families {arch} train (1, 2): {k} "
+                             f"{step[k]!r} is {rel:.3e} from the unsharded "
+                             f"{ref[k]!r}, beyond {w['train_tol']:.3e}")
+            step = got[0][arch, "train"]
+            rel = max(abs(step[k] - ref[k]) / abs(ref[k]) for k in ("loss", "grad_norm"))
+            print(f"ranks families {arch} train (1, 2) [{card}]: loss "
+                  f"{step['loss']!r} (unsharded {ref['loss']!r}), gradient norm "
+                  f"{step['grad_norm']!r} (unsharded {ref['grad_norm']!r}): "
+                  f"{rel:.3e} relative; the floor (the weights moved by one "
+                  f"rounding) {w['train_floor']:.3e}, so the bound "
+                  f"{w['train_tol']:.3e}")
+    print(f"ranks families [{card}]: the rank job {job_s:.1f} s, the part "
+          f"{time.perf_counter() - t_part:.1f} s")
+    return {name: sum(r["launches"][name] for r in got) for name in got[0]["launches"]}
+
+
 def ranks_phase(counters, island: dict) -> dict:
     """The rank path on the card (`ranks_body` on RANKS_WORLD processes,
     all on cuda:0 over gloo): qwen3-moe-30b-a3b at full width with 2 layers
@@ -2902,9 +3229,10 @@ def ranks_phase(counters, island: dict) -> dict:
           f"against {island['seconds']:.3f} s batched")
     in_tp = tp_part(card)
     in_train = train_ranks_part(card)
+    in_families = tp_families_part(card)
     launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
     in_ranks = {name: sum(r["launches"][name] for r in got) + in_tp[name]
-                + in_train[name] for name in launches}
+                + in_train[name] + in_families[name] for name in launches}
     print(f"ranks phase [{card}]: {time.perf_counter() - t_phase:.1f} s "
           f"({ranks_s:.1f} s in the expert-parallel rank job); launches here "
           f"{json.dumps(launches)}, in the ranks {json.dumps(in_ranks)}")

@@ -13,9 +13,9 @@ and the partitioned HLO per chip, the port runs its own eager step
   (`repro_torch.launch.mesh.make_abstract_mesh`) records every
   collective the step would issue.  These are the record's per-chip
   ``cost`` and ``collectives`` (`op_analysis.collective_bytes`), with
-  ``"partitioned": true``.  Where a rank model keeps leaves whole that
-  the planner splits (MLA, Mamba, hybrid, VLM and audio families; a KV
-  cache the planner shards by sequence), ``notes`` says which.
+  ``"partitioned": true``.  ``notes`` (`position_notes`) would name a
+  leaf or cache leaf the position holds other than the planner's block:
+  every family holds the planner's blocks, so it is empty.
 * unsharded, on one device: ``cost_one_card``, and the memory keys
   ``argument_size_in_bytes_one_card``, ``output_size_in_bytes`` and
   ``peak_live_bytes``, which say whether a cell fits one card.  The
@@ -119,9 +119,10 @@ def cell_step(cfg: ArchConfig, sp: ShapeSpec, model: Model, *,
     ``moment_dtype``; ``seq_parallel_decode``, ``shard_head_dim_fallback``).
     Without ``mesh`` the step is unsharded: it gets a one-device mesh of
     the model's device.  With a mesh of ranks or a counting mesh, it is
-    that position's: ``model`` holds its blocks, the train step takes the
-    global batch (it cuts its rows itself), prefill and decode take the
-    position's rows and caches, as `serve_batch` gives them."""
+    that position's: ``model`` holds its blocks, the train and prefill
+    steps take the global batch (they cut its rows themselves), decode
+    takes the position's rows and its block of the caches, as
+    `serve_batch` gives them."""
     dev = model.device
     if mesh is None:
         mesh = Mesh(("data", "model"), np.array([[dev]], dtype=object))
@@ -133,12 +134,13 @@ def cell_step(cfg: ArchConfig, sp: ShapeSpec, model: Model, *,
     elif sp.kind == "prefill":
         bundle = make_prefill_step(cfg, mesh, cache_len=sp.seq_len,
                                    kv_chunk=kv_chunk, **step_kwargs)
-        args = (model, {k: _rows(v, mesh) for k, v in batch.items()})
+        args = (model, batch)
     else:
         bundle = make_serve_step(cfg, mesh, cache_len=sp.seq_len,
                                  kv_chunk=kv_chunk, **step_kwargs)
         tokens, positions = _rows(batch["tokens"], mesh), _rows(batch["positions"], mesh)
-        caches = model.init_caches(tokens.shape[0], sp.seq_len)
+        caches = model.init_caches(sp.global_batch, sp.seq_len,
+                                   step_kwargs.get("seq_parallel_decode", True))
         args = (model, caches, tokens, positions)
     step = bundle.jit_for(None)
     return (lambda: step(*args)), args
@@ -192,11 +194,11 @@ def count_cell(cfg: ArchConfig, sp: ShapeSpec, *, kv_chunk: int = 1024,
 
 
 def position_notes(cfg: ArchConfig, sp: ShapeSpec, mesh: Mesh) -> list[str]:
-    """Where the counted position holds more than the planner gives it:
-    the leaves its model keeps whole though their spec splits them (the
-    families whose tensor-parallel forward is not ported), and the cache
-    leaves whose block differs from ``plan_caches``' (a rank holds its KV
-    heads whole in sequence where the planner shards the sequence)."""
+    """Where the counted position holds other than the planner gives it:
+    the leaves its model keeps whole though their spec splits them, and
+    the cache leaves whose block differs from ``plan_caches``' (read
+    through `ParamShard.cache_blocks` on `cache_specs`' tree).  Empty
+    where the position's step is the reference planner's program."""
     notes = []
     shard = ParamShard.of(mesh)
     model = Model(cfg, "meta", shard)
@@ -209,19 +211,13 @@ def position_notes(cfg: ArchConfig, sp: ShapeSpec, mesh: Mesh) -> list[str]:
                      f"splits): {', '.join(whole)}")
     if sp.kind == "train":
         return notes
-    rows = _rows(torch.empty((sp.global_batch,), device="meta"), mesh).shape[0]
-    held = dict(_flat_shapes(model.init_caches(rows, sp.seq_len)))
-    caches = cache_specs(cfg, sp)
-    specs = plan_caches(make_plan(mesh), caches)
-    for keys, spec in _flat_shapes(specs, leaf=lambda x: isinstance(x, tuple)):
-        leaf = caches
-        for k in keys:
-            leaf = leaf[k]
-        block = tuple(len(range(n)[b]) for n, b in zip(
-            leaf.shape, shard_slices(spec, leaf.shape, mesh.shape, mesh.coord)))
-        if keys in held and tuple(held[keys]) != block:
+    held = dict(_flat_shapes(model.init_caches(sp.global_batch, sp.seq_len)))
+    caches = dict(_flat_shapes(cache_specs(cfg, sp)))
+    for keys, (_spec, block) in shard.cache_blocks(cache_specs(cfg, sp)).items():
+        want = tuple(len(range(n)[b]) for n, b in zip(caches[keys], block))
+        if tuple(held.get(keys, ())) != want:
             notes.append(f"cache {'/'.join(keys)}: position holds "
-                         f"{tuple(held[keys])}, plan_caches gives {block}")
+                         f"{held.get(keys)}, plan_caches gives {want}")
     return notes
 
 

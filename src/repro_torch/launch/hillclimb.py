@@ -7,10 +7,11 @@ on the meta device, per chip at the first position of the 16x16 mesh (a
 counting mesh: the position's blocks, rows and collectives), terms at
 the H100's data-sheet peaks (`repro_torch.launch.roofline`), bounds from
 counts, not times.  A variant that changes only the sharding plan where
-the rank models do not apply it (``seq_parallel_decode``,
-``shard_head_dim_fallback``: sequence-sharded caches and head-dim splits
-are ROADMAP queue 1 item 7) counts what its baseline counts; its record
-says so (``plan_only``) instead of reporting a difference.
+the rank models do not apply it (``shard_head_dim_fallback``: head-dim
+splits are ROADMAP queue 1 item 7.4) counts what its baseline counts;
+its record says so (``plan_only``) instead of reporting a difference.
+``seq_parallel_decode`` is applied: the position's caches are the
+planner's blocks under it (`repro_torch.models.Model.init_caches`).
 
   python -m repro_torch.launch.hillclimb
 """
@@ -28,7 +29,7 @@ OUT = Path("results/torch_perf_iterations.jsonl")
 
 # Step kwargs that change only the sharding plan, never the counted
 # position's step (its rank model does not apply them).
-PLAN_ONLY_KWARGS = frozenset({"seq_parallel_decode", "shard_head_dim_fallback"})
+PLAN_ONLY_KWARGS = frozenset({"shard_head_dim_fallback"})
 
 # (tag, arch, shape, config overrides, step kwargs, hypothesis)
 VARIANTS = [
@@ -59,9 +60,9 @@ VARIANTS = [
     ("hymba.C1_seq_parallel_decode", "hymba-1.5b", "long_500k",
      {}, {"seq_parallel_decode": True},
      "sequence-parallel decode spreads the global-layer KV cache over the "
-     "idle batch axes; the hybrid family's rank model keeps its leaves and "
-     "caches whole (ROADMAP item 7), so the position's counts should equal "
-     "the baseline's"),
+     "idle batch axes: each chip holds 1/256 of its 524,288 slots instead "
+     "of 1/16, so the attention's bytes fall 16x and each global layer "
+     "adds its partial softmax's max and sum over all 256 chips"),
     ("hymba.C0_baseline_relower", "hymba-1.5b", "long_500k",
      {}, {"seq_parallel_decode": False},
      "re-count the paper-faithful baseline layout under the current code "
@@ -82,7 +83,8 @@ VARIANTS = [
      {}, {"seq_parallel_decode": True, "shard_head_dim_fallback": True},
      "sharding the head_dim of the projections whose 25 heads do not "
      "divide the model axis changes the plan only: the hybrid rank model "
-     "reads every projection whole, so the counts should equal C1's"),
+     "holds them whole (the fallback is not applied), so the counts "
+     "should equal C1's"),
 ]
 
 

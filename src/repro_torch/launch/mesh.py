@@ -15,7 +15,7 @@ processes of a ``torch.distributed`` job, one rank a position: ``ranks``
 holds the rank at each position, and every set of axes has a process
 group (the ranks that differ only along those axes).  A function running
 on a rank reads its coordinate (`Mesh.coord`) and sums, gathers or
-scatters along axes (`Mesh.all_reduce`, `Mesh.all_gather`,
+scatters along axes (`Mesh.all_reduce`, `Mesh.all_max`, `Mesh.all_gather`,
 `Mesh.reduce_scatter`), as the body of the reference's ``shard_map``
 does with ``axis_index``, ``psum`` and ``all_gather``.  The mesh keeps a
 tally of the collectives it issued (`Mesh.tally`): the count and the
@@ -236,6 +236,20 @@ class Mesh:
         new tensor with the same bits on every one of them.  Backward:
         the identity along ``model``, a sum along the other axes."""
         return _AllReduce.apply(t, self, self._axes(axes))
+
+    def all_max(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """The elementwise maximum of ``t`` over the ranks along ``axes``
+        (``pmax``; the tally counts it as an ``all-reduce``), as a new
+        tensor.  No backward: a sequence-sharded decode's softmax takes
+        its row maximum with it."""
+        _no_grad_needed(t, "all_max")
+        out = t.clone()
+        if self.size(axes) > 1:
+            self._record("all-reduce", out)
+            if not self.counting:
+                dist.all_reduce(out, op=dist.ReduceOp.MAX,
+                                group=self._group(axes))
+        return out
 
     def copy_to(self, t: torch.Tensor, axes=MODEL) -> torch.Tensor:
         """``t`` itself, whose gradient is summed over the ranks along

@@ -10,11 +10,10 @@ temperature sampling; reports prefill and per-token decode latency:
 
 On a mesh of ranks (`repro_torch.launch.mesh.make_rank_mesh`) every rank
 calls `serve_batch`: each holds its blocks of the planner's parameter
-specs (`repro_torch.sharding.ParamShard`: the experts of an
-expert-parallel MoE, and the heads, ffn and vocabulary blocks of a GQA
-dense or MoE model over a model axis) and the rows of the batch of its
-batch-axes coordinate, and every rank returns the whole batch's tokens
-(gathered over the batch axes) and the collectives it issued.
+and cache specs (`repro_torch.sharding.ParamShard`) and the rows of the
+batch of its batch-axes coordinate (all of them where they do not
+divide), and every rank returns the whole batch's tokens (gathered over
+the batch axes) and the collectives it issued.
 """
 from __future__ import annotations
 
@@ -56,9 +55,11 @@ def serve_batch(cfg, mesh, prompts: np.ndarray, gen_len: int,
     On a mesh of ranks ``device`` is this rank's (``mesh.device``), a
     model built here holds the rank's blocks (``ParamShard.of(mesh)``),
     and the rank serves the rows of ``prompts`` (and ``frontend``) of its
-    batch-axes coordinate; tokens and logits are gathered back over those
-    axes, and ``"collectives"`` holds the rank's tally (`Mesh.tally`) of
-    the prefill and of the first decode step.
+    batch-axes coordinate (all of them where they do not divide, as
+    ``plan_batch`` replicates them); tokens and logits are gathered back
+    over those axes where they were cut, and ``"collectives"`` holds the
+    rank's tally (`Mesh.tally`) of the prefill and of the first decode
+    step.
     """
     ranks = mesh.ranks is not None
     if model is None:
@@ -66,18 +67,19 @@ def serve_batch(cfg, mesh, prompts: np.ndarray, gen_len: int,
                             shard=ParamShard.of(mesh) if ranks else None)
     dev = model.device
     batch_axes = batch_axes_of(mesh)
-    if ranks:
-        rows = shard_slices((batch_axes,), prompts.shape, mesh.shape,
-                            mesh.coord)[0]
-        prompts = prompts[rows]
-        frontend = None if frontend is None else frontend[rows]
+    # The prefill step takes the global batch and cuts the rank's rows.
+    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    if frontend is not None:
+        batch["frontend"] = torch.as_tensor(frontend, device=dev)
+    n_rows = mesh.size(batch_axes) if ranks and batch_axes else 1
+    cut = n_rows > 1 and prompts.shape[0] % n_rows == 0
+    if cut:
+        prompts = prompts[shard_slices((batch_axes,), prompts.shape, mesh.shape,
+                                       mesh.coord)[0]]
     b, plen = prompts.shape
     cache_len = plen + gen_len
     prefill = make_prefill_step(cfg, mesh, cache_len=cache_len).jit_for(prompts.shape)
     decode = make_serve_step(cfg, mesh, cache_len=cache_len).jit_for(b)
-    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
-    if frontend is not None:
-        batch["frontend"] = torch.as_tensor(frontend, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
 
     def pick(last):  # (B, V) -> (B, 1) int32
@@ -117,8 +119,9 @@ def serve_batch(cfg, mesh, prompts: np.ndarray, gen_len: int,
            "decode_s_per_tok": t_decode / gen_len}
     if keep_logits:
         res["logits"] = torch.stack(kept).float()
-    if ranks:  # the batch axes' rows, in their order
+    if ranks:
         res["collectives"] = tally
+    if cut:  # the batch axes' rows, in their order
         res["tokens"] = mesh.all_gather(torch.as_tensor(out, device=dev),
                                         batch_axes).flatten(0, 1).cpu().numpy()
         if keep_logits:

@@ -17,9 +17,8 @@ holds its blocks of the specs (`repro_torch.models.Model` with
 splits), and every step passes it ``mesh_info = (mesh, batch_axes)``;
 the forward acts on what the model holds.  The train step takes the
 global batch and runs the loss on the rank's rows (`shard_slices` over
-the batch axes, as `repro_torch.launch.serve.serve_batch` cuts its
-prompts; rows that do not divide stay whole, as ``plan_batch``
-replicates them), then `adamw_update` on the rank (the mean gradient
+the batch axes; rows that do not divide stay whole, as ``plan_batch``
+replicates them; the prefill step cuts them so too), then `adamw_update` on the rank (the mean gradient
 over the batch axes, ZeRO-1 with ``zero1``); its reported ``loss`` and
 ``ce`` are the global batch's mean, the same on every rank, and ``aux``
 the reference's ``pmean``.
@@ -146,13 +145,19 @@ def make_prefill_step(cfg: ArchConfig, mesh: Mesh, cache_len: int,
                       kv_chunk: int = 1024,
                       seq_parallel_decode: bool = True) -> StepBundle:
     """prefill_step(model, batch) -> (last-position logits (B, 1, V),
-    caches of ``cache_len``); ``jit_for(batch)``."""
+    caches of ``cache_len``); ``jit_for(batch)``.  On a mesh of ranks
+    ``batch`` is the global batch: the step runs the rank's rows (as the
+    train step does) and returns their logits and the rank's block of
+    the global batch's caches (`Model.init_caches`)."""
     minfo = _rank_info(mesh)
 
     @torch.inference_mode()
     def prefill_step(model: Model, batch: dict):
+        caches = model.init_caches(batch["tokens"].shape[0], cache_len,
+                                   seq_parallel_decode)
+        if minfo is not None:
+            batch = _rank_rows(batch, mesh)
         tokens = batch["tokens"]
-        caches = model.init_caches(tokens.shape[0], cache_len)
         logits, caches, _ = model(tokens, mode="prefill", caches=caches,
                                   frontend=batch.get("frontend"),
                                   mesh_info=minfo, kv_chunk=kv_chunk)
@@ -168,7 +173,8 @@ def make_serve_step(cfg: ArchConfig, mesh: Mesh, cache_len: int,
                     shard_head_dim_fallback: bool = False) -> StepBundle:
     """serve_step(model, caches, tokens, positions): one new token per
     sequence against the decode cache, written in place;
-    ``jit_for(batch_size)``."""
+    ``jit_for(batch_size)``.  On a mesh of ranks, the rank's rows and its
+    block of the caches (the prefill step's)."""
     minfo = _rank_info(mesh)
 
     @torch.inference_mode()

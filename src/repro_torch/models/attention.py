@@ -22,13 +22,25 @@ upcast (bf16 products are exact in f32), and ``p`` is rounded to the value
 dtype first, where the reference rounds it.  A fully masked chunk scores
 ``NEG_INF = -1e30`` (not ``-inf``): its weights are exp(0) = 1 until the
 next chunk's correction exp(m - m_new) takes them to 0.
+
+A rank of a mesh of ranks may hold a block of a cache's sequence slots
+(`SeqBlock`: the planner's ``seq`` mode, `repro_torch.sharding.ParamShard.
+cache_blocks`).  It writes only the slots of its block (`write_slots`)
+and attends over them with a partial softmax (`seq_softmax`): the row
+maximum over the slot holders (one ``all_max``), the weights against it,
+and their sum and weighted values summed over the holders (one
+``all_reduce`` of both), divided once at the end.  The max and the sums
+are f32.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["mha", "decode_attend", "init_kv_cache", "update_kv_cache"]
+__all__ = ["mha", "decode_attend", "init_kv_cache", "update_kv_cache",
+           "SeqBlock", "write_slots", "seq_softmax", "gather_heads"]
 
 NEG_INF = -1e30
 
@@ -102,6 +114,39 @@ def mha(
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
+@dataclass(frozen=True)
+class SeqBlock:
+    """A rank's block of a cache's sequence slots: slots ``[start, start +
+    n)`` of ``whole`` (n the cache tensor's own length), the other blocks
+    held by the ranks along ``axes``."""
+    axes: tuple[str, ...]
+    start: int
+    whole: int
+
+
+def seq_softmax(s: torch.Tensor, ok: torch.Tensor, values, mesh,
+                seq: SeqBlock | None) -> torch.Tensor:
+    """softmax(s) over the last dim, masked by ``ok``, applied by
+    ``values(p)`` (the f32 weighted sum of the values, its last dim the
+    value dim, the slot dim contracted).  Over a whole cache, the
+    softmax (``p`` rounded as ``values`` rounds it); over a `SeqBlock`,
+    the partial softmax combined over ``seq.axes`` (module docstring)."""
+    s = torch.where(ok, s, NEG_INF)
+    if seq is None:
+        return values(torch.softmax(s, dim=-1))
+    m = mesh.all_max(torch.amax(s, dim=-1), seq.axes)
+    p = torch.where(ok, torch.exp(s - m[..., None]), 0.0)
+    both = torch.cat([values(p), p.sum(-1)[..., None]], dim=-1)
+    both = mesh.all_reduce(both, seq.axes)
+    return both[..., :-1] / torch.clamp(both[..., -1:], min=1e-30)
+
+
+def gather_heads(t: torch.Tensor, mesh) -> torch.Tensor:
+    """(..., h, e) of this rank's block of heads -> (..., n h, e): the
+    blocks of the ``n`` ranks along ``model``, in their order."""
+    return mesh.all_gather(t, "model").movedim(0, -3).flatten(-3, -2)
+
+
 def decode_attend(
     q: torch.Tensor,  # (B, 1, H, hd)
     k_cache: torch.Tensor,  # (B, S, KVH, hd)
@@ -111,19 +156,23 @@ def decode_attend(
     *,
     window: int | None = None,
     softmax_scale: float | None = None,
+    causal: bool = True,
+    mesh=None,
+    seq: SeqBlock | None = None,
 ) -> torch.Tensor:
-    """Single-token decode: one fused pass (no chunk loop needed at Sq=1)."""
+    """Single-token decode: one fused pass (no chunk loop needed at Sq=1);
+    over a `SeqBlock` of the cache, the partial softmax combined over
+    ``seq.axes`` on ``mesh`` (`seq_softmax`)."""
     b, _, h, hd = q.shape
     kvh = k_cache.shape[2]
     g = _group(h, kvh)
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     qg = q.reshape(b, 1, kvh, g, hd).float()
     s = torch.einsum("bqkgd,bckd->bqkgc", qg, k_cache.float()) * scale
-    ok = _mask(q_pos, cache_pos, True, window)
-    s = torch.where(ok[:, :, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bqkgc,bckd->bqkgd", p.to(v_cache.dtype).float(),
-                       v_cache.float())
+    ok = _mask(q_pos, cache_pos, causal, window)[:, :, None, None, :]
+    out = seq_softmax(s, ok, lambda p: torch.einsum(
+        "bqkgc,bckd->bqkgd", p.to(v_cache.dtype).float(), v_cache.float()),
+        mesh, seq)
     return out.reshape(b, 1, h, hd).to(q.dtype)
 
 
@@ -137,27 +186,60 @@ def init_kv_cache(batch: int, length: int, kvh: int, hd: int, dtype,
     }
 
 
+def write_slots(cache: dict, new: dict, positions: torch.Tensor,
+                seq: SeqBlock | None = None) -> dict:
+    """Write each ``new[name]`` (B, S_new, ...) and the positions (as
+    ``cache["pos"]``) at slot ``position % length`` of ``cache`` in
+    place, ``length`` the whole cache's; with a `SeqBlock` only the
+    tokens whose slot lies in this rank's block, at its offset there.
+    If more tokens arrive than the cache holds (SWA prefill), only the
+    trailing ``length`` are written, so every (b, slot) pair is written
+    once and the newest entries deterministically win."""
+    length = seq.whole if seq is not None else cache["pos"].shape[-1]
+    new = dict(new, pos=positions.to(torch.int32))
+    if positions.shape[1] > length:
+        new = {k: v[:, -length:] for k, v in new.items()}
+        positions = positions[:, -length:]
+    b, s_new = positions.shape
+    b_idx = torch.arange(b, device=positions.device)[:, None]
+    slots = (positions % length).long()
+    if seq is None:
+        for k, v in new.items():
+            cache[k][b_idx, slots] = v.to(cache[k].dtype)
+        return cache
+    n = cache["pos"].shape[-1]
+    local = slots - seq.start
+    inside = (local >= 0) & (local < n)
+    if s_new == 1:  # one slot a row: keep what the slot holds where outside
+        at = local.clamp(0, n - 1)
+        for k, v in new.items():
+            old = cache[k][b_idx, at]
+            keep = inside.reshape(inside.shape + (1,) * (v.dim() - 2))
+            cache[k][b_idx, at] = torch.where(keep, v.to(old.dtype), old)
+        return cache
+    # Which token each local slot takes, if any: the tokens outside the
+    # block go to a spare slot n, dropped.
+    src = torch.full((b, n + 1), -1, dtype=torch.long, device=positions.device)
+    src.scatter_(1, torch.where(inside, local, n),
+                 torch.arange(s_new, device=positions.device).expand(b, s_new))
+    src = src[:, :n]
+    took = src >= 0
+    src = src.clamp(min=0)
+    for k, v in new.items():
+        keep = took.reshape(took.shape + (1,) * (v.dim() - 2))
+        cache[k].copy_(torch.where(keep, v[b_idx, src].to(cache[k].dtype),
+                                   cache[k]))
+    return cache
+
+
 def update_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                    positions: torch.Tensor) -> dict:
+                    positions: torch.Tensor, seq: SeqBlock | None = None) -> dict:
     """Write new K/V at their positions, modulo the cache length, in place.
 
     Full caches (length >= max position) see the identity mapping; shorter
-    (sliding-window) caches behave as ring buffers.  If more tokens arrive
-    than the cache holds (SWA prefill), only the trailing `length` tokens
-    are written, so every (b, slot) pair is written once and the newest
-    entries deterministically win.
+    (sliding-window) caches behave as ring buffers (`write_slots`; a
+    `SeqBlock` writes this rank's slots only).
 
     k_new/v_new: (B, S_new, KVH, hd); positions: (B, S_new).
     """
-    length = cache["k"].shape[1]
-    s_new = k_new.shape[1]
-    if s_new > length:
-        k_new = k_new[:, -length:]
-        v_new = v_new[:, -length:]
-        positions = positions[:, -length:]
-    slots = (positions % length).long()
-    b_idx = torch.arange(k_new.shape[0], device=k_new.device)[:, None]
-    cache["k"][b_idx, slots] = k_new.to(cache["k"].dtype)
-    cache["v"][b_idx, slots] = v_new.to(cache["v"].dtype)
-    cache["pos"][b_idx, slots] = positions.to(torch.int32)
-    return cache
+    return write_slots(cache, {"k": k_new, "v": v_new}, positions, seq)

@@ -15,21 +15,35 @@ fills them).
 
 The constructors take the whole model's sizes.  A rank's model
 (`repro_torch.models.Model` with a ``shard``) holds the planner's block
-of each leaf instead, and the forward reads what it holds from the
-tensors' shapes: a block of the query heads (``wq``/``wo``) or of the
-MLP's ffn dim (``w_gate``/``w_up``/``w_down``) makes a partial sum of
-the output, which one ``all_reduce`` over ``model`` completes
-(Megatron's column- then row-parallel pair; `_row_parallel`); a block of
-the routed experts runs `moe_ffn_sharded`.  ``mesh_info = (mesh,
+of each leaf instead, in every family, and the forward reads what it
+holds from the tensors' shapes: a block of the query heads (``wq``/``wo``,
+MLA's ``w_q``/``w_uk``/``w_uv``/``w_o``; self, cross and encoder
+attention) or of the MLP's ffn dim (``w_gate``/``w_up``/``w_down``) makes
+a partial sum of the output, which one ``all_reduce`` over ``model``
+completes (Megatron's column- then row-parallel pair;
+`layers.row_parallel`); a block of the routed experts runs
+`moe_ffn_sharded`; a block of Mamba-2's ``in_proj`` / ``out_proj`` runs
+the mixer over its inner dim (`mamba2`).  ``mesh_info = (mesh,
 batch_axes)`` carries the rank mesh there.  For training, the input of
 each column-parallel product (the normed ``x`` before ``wq``/``wk``/``wv``
 and before ``w_gate``/``w_up``) passes `Mesh.copy_to`, whose backward
 sums its gradient over ``model``, and so do the replicated weights that
 each rank uses for its own heads only (``wk``/``wv`` where the KV heads
-stay whole, ``q_norm``/``k_norm``).  `_row_parallel`'s output is the
-reference's ``tp_collective_out`` point: under the ``"save_collectives"``
-remat policy (`repro_torch.models.model`) it is kept, and the backward's
+stay whole, ``q_norm``/``k_norm``, MLA's ``w_dkv``/``w_kpe``).
+`layers.row_parallel`'s output is the reference's ``tp_collective_out``
+point: under the ``"save_collectives"`` remat policy
+(`repro_torch.models.model`) it is kept, and the backward's
 recomputation neither multiplies nor sums it again.
+
+A rank's cache holds the planner's block (``plan_caches``): its KV
+heads, or every KV head over a block of the slots (`attention.SeqBlock`:
+where the KV heads do not divide the model axis, or the batch does not
+divide the batch axes), or all of it.  Over a block of the slots a
+rank writes the tokens whose slot it holds (`write_kv`; the new K/V of
+every head gathered over ``model`` where the projections hold a block of
+them), and attends with the queries of every head gathered over
+``model`` against its slots, the partial softmax combined over the slot
+holders; it keeps its heads' output for ``wo`` (`_attend_cache`).
 """
 from __future__ import annotations
 
@@ -37,69 +51,26 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .attention import decode_attend, init_kv_cache, mha, update_kv_cache
-from .layers import apply_rope, rms_norm, swiglu
+from .attention import (SeqBlock, decode_attend, gather_heads, init_kv_cache,
+                        mha, update_kv_cache)
+from .layers import apply_rope, rms_norm, row_parallel, swiglu
 from .mamba2 import init_mamba_cache, mamba_block, mamba_decode
 from .mla import init_mla_cache, mla_attention, mla_decode, update_mla_cache
 from .moe import moe_ffn, moe_ffn_sharded
-from .remat import kept
 
 __all__ = ["Attention", "MLA", "MLP", "MoE", "Mamba", "DenseBlock", "MoEBlock",
            "SSMBlock", "HybridBlock", "CrossBlock", "EncDecBlock",
-           "EncoderBlock", "cross_kv", "init_block_cache", "rank_kv_heads"]
+           "EncoderBlock", "cross_kv", "cross_attention", "write_kv",
+           "init_block_cache", "rank_kv_heads"]
+
+
+def _mesh(mesh_info):
+    return mesh_info[0] if mesh_info is not None else None
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
-
-
-class _RowParallel(torch.autograd.Function):
-    """``x2 @ w2`` (2-d) summed over ``model``: the partial product with
-    an f32 output, summed in f32 and rounded once to ``x2``'s dtype.
-    Backward: the sum's is the identity (the loss is the same on every
-    rank along ``model``), and ``dx``, ``dw`` are formed in the operands'
-    dtype, as the unsharded product's backward forms them (the card's
-    ``torch.mm(..., out_dtype=...)`` has no derivative).  The output is
-    made through `remat.kept`: a recomputation under
-    ``"save_collectives"`` saves the same operands and gives the kept
-    sum back without multiplying or summing."""
-
-    @staticmethod
-    def forward(ctx, x2, w2, mesh):
-        ctx.save_for_backward(x2, w2)
-
-        def make():
-            if x2.device.type in ("cuda", "meta") and x2.dtype != torch.float32:
-                part = torch.mm(x2, w2, out_dtype=torch.float32)
-            else:  # f32 already, or the CPU (no GEMM with a wider output there)
-                part = x2.float() @ w2.float()
-            return mesh._all_reduce(part, "model").to(x2.dtype)
-
-        return kept(make)
-
-    @staticmethod
-    def backward(ctx, grad):
-        x2, w2 = ctx.saved_tensors
-        grad = grad.to(x2.dtype)
-        dx = grad @ w2.t() if ctx.needs_input_grad[0] else None
-        dw = x2.t() @ grad if ctx.needs_input_grad[1] else None
-        return dx, dw, None
-
-
-def _row_parallel(x, w, mesh):
-    """``x @ w`` contracting the trailing dims of ``x`` with the leading
-    dims of ``w`` (all but its last), where both hold this rank's block of
-    the contracted dims: the partial product with an f32 output (the
-    GEMM's own accumulator: on the card a bf16 GEMM writing f32, no f32
-    copy of ``w``), summed over ``model`` in f32 and rounded once to
-    ``x``'s dtype, as the unsharded product's accumulator rounds once
-    (`_RowParallel`).  The sum's operand is f32: twice the bytes of the
-    bf16 partial sums that XLA's partitioner reduces."""
-    n = w.shape[-1]
-    lead = x.shape[:x.dim() - (w.dim() - 1)]
-    x2, w2 = x.reshape(-1, w[..., 0].numel()), w.reshape(-1, n)
-    return _RowParallel.apply(x2, w2, mesh).reshape(*lead, n)
 
 
 # -------------------------------------------------------- parameter groups
@@ -151,7 +122,7 @@ class MLP(nn.Module):
             return swiglu(x, self.w_gate, self.w_up, self.w_down)
         x = mesh.copy_to(x)
         h = F.silu(x @ self.w_gate) * (x @ self.w_up)
-        return _row_parallel(h, self.w_down, mesh)
+        return row_parallel(h, self.w_down, mesh)
 
 
 class MoE(nn.Module):
@@ -229,62 +200,135 @@ def rank_kv_heads(cfg, q_heads: int, kv_heads: int, index: int):
     return used
 
 
-def self_attention(p: Attention, x, positions, cfg, mode: str,
-                   cache: dict | None = None, window=None, kv_chunk: int = 1024,
-                   mesh=None):
-    """Returns the attention output; writes ``cache`` in prefill/decode.
-    A rank holding a block of the query heads (on ``mesh``) attends with
-    the KV heads they use (`rank_kv_heads`; the cache holds only those)
-    and sums its partial output over ``model``."""
-    q, k, v = _qkv(p, x, positions, cfg, mesh)
-    split = q.shape[2] != cfg.num_heads
-    if split:
-        heads = rank_kv_heads(cfg, q.shape[2], k.shape[2], mesh.coord["model"])
-        k, v = k[:, :, heads], v[:, :, heads]
-    if mode == "decode":
-        update_kv_cache(cache, k, v, positions)
-        out = decode_attend(q, cache["k"], cache["v"], cache["pos"], positions,
-                            window=window)
-    else:
-        out = mha(q, k, v, positions, positions, causal=True, window=window,
-                  kv_chunk=kv_chunk)
-        if mode == "prefill":
-            update_kv_cache(cache, k, v, positions)
-    if split:
-        return _row_parallel(out, p.wo, mesh)
+def _used_kv(k, v, q_heads: int, cfg, mesh):
+    """``k``, ``v`` (B, S, KVH, hd) narrowed to the KV heads that a rank's
+    ``q_heads`` query heads use (`rank_kv_heads`): where only the queries
+    are split, the KV heads being whole."""
+    if q_heads == cfg.num_heads or k.shape[2] != cfg.num_kv_heads:
+        return k, v
+    heads = rank_kv_heads(cfg, q_heads, k.shape[2], mesh.coord["model"])
+    return k[:, :, heads], v[:, :, heads]
+
+
+def _heads_out(p: Attention, out, cfg, mesh):
+    """``wo``'s product of the heads' ``out``: summed over ``model`` where
+    ``p`` holds a block of the heads."""
+    if p.wq.shape[1] != cfg.num_heads:
+        return row_parallel(out, p.wo, mesh)
     return torch.einsum("bshe,hed->bsd", out, p.wo)
 
 
-def _latent_attention(p: MLA, h, positions, cfg, mode, cache, kv_chunk):
+def write_kv(cache: dict, k, v, positions, mesh=None,
+             seq: SeqBlock | None = None) -> None:
+    """``k``, ``v`` (this rank's KV heads, or all) into ``cache``, whose
+    KV heads are those or all of them (the latter ``all_gather``ed over
+    ``model``); a `SeqBlock` writes this rank's slots only.  Self
+    attention's new tokens, and prefill's cross K/V (`cross_kv`, at
+    their positions) into a cross cache."""
+    if cache["k"].shape[-2] != k.shape[2]:
+        k, v = gather_heads(k, mesh), gather_heads(v, mesh)
+    update_kv_cache(cache, k, v, positions, seq)
+
+
+def _attend_cache(q, cache: dict, q_pos, cfg, mesh, seq: SeqBlock | None,
+                  window=None, causal: bool = True):
+    """One query token of this rank's heads against ``cache``.  Over the
+    whole sequence, the cache's KV heads that they use; over a
+    `SeqBlock` (every KV head, a block of the slots) the queries of every
+    head are gathered over ``model``, attend over the rank's slots, the
+    partial softmax is combined over ``seq.axes`` and the rank keeps its
+    heads."""
+    if seq is None:
+        k, v = _used_kv(cache["k"], cache["v"], q.shape[2], cfg, mesh)
+        return decode_attend(q, k, v, cache["pos"], q_pos, window=window,
+                             causal=causal)
+    h = q.shape[2]
+    gather = h != cfg.num_heads
+    out = decode_attend(gather_heads(q, mesh) if gather else q, cache["k"],
+                        cache["v"], cache["pos"], q_pos, window=window,
+                        causal=causal, mesh=mesh, seq=seq)
+    if gather:
+        i = mesh.coord["model"]
+        out = out[:, :, i * h:(i + 1) * h]
+    return out
+
+
+def self_attention(p: Attention, x, positions, cfg, mode: str,
+                   cache: dict | None = None, window=None, kv_chunk: int = 1024,
+                   mesh=None, seq: SeqBlock | None = None):
+    """Returns the attention output; writes ``cache`` in prefill/decode.
+    A rank holding a block of the query heads (on ``mesh``) attends with
+    the KV heads they use (`rank_kv_heads` where the KV projections are
+    whole) and sums its partial output over ``model``.  Its cache holds
+    the planner's block (`repro_torch.sharding.ParamShard.cache_blocks`):
+    its KV heads, or every KV head over a block of the slots (``seq``,
+    `_attend_cache`), or the whole cache."""
+    q, k, v = _qkv(p, x, positions, cfg, mesh)
     if mode == "decode":
-        attn, _ = mla_decode(p, h, cache, positions, cfg)
+        write_kv(cache, k, v, positions, mesh, seq)
+        out = _attend_cache(q, cache, positions, cfg, mesh, seq, window)
+    else:
+        ku, vu = _used_kv(k, v, q.shape[2], cfg, mesh)
+        out = mha(q, ku, vu, positions, positions, causal=True, window=window,
+                  kv_chunk=kv_chunk)
+        if mode == "prefill":
+            write_kv(cache, k, v, positions, mesh, seq)
+    return _heads_out(p, out, cfg, mesh)
+
+
+def cross_attention(p: Attention, h, enc_kv: dict, cfg, mode: str, mesh=None,
+                    seq: SeqBlock | None = None, kv_chunk: int = 1024):
+    """Bidirectional attention of ``h``'s queries over ``enc_kv`` (the
+    encoder's K/V of this rank's KV heads or all; at decode, the cross
+    cache, over a block of its positions with ``seq``)."""
+    if p.wq.shape[1] != cfg.num_heads:
+        h = mesh.copy_to(h)
+    q = torch.einsum("bsd,dhe->bshe", h, p.wq)
+    zeros = torch.zeros(q.shape[:2], dtype=torch.int32, device=q.device)
+    if mode == "decode" and seq is not None:
+        out = _attend_cache(q, enc_kv, zeros, cfg, mesh, seq, causal=False)
+    else:
+        k, v = _used_kv(enc_kv["k"], enc_kv["v"], q.shape[2], cfg, mesh)
+        out = mha(q, k, v, zeros, enc_kv["pos"], causal=False, kv_chunk=kv_chunk)
+    return _heads_out(p, out, cfg, mesh)
+
+
+def _latent_attention(p: MLA, h, positions, cfg, mode, cache, kv_chunk,
+                      mesh=None, seq=None):
+    if mode == "decode":
+        attn, _ = mla_decode(p, h, cache, positions, cfg, mesh, seq)
         return attn
-    attn, new = mla_attention(p, h, positions, cfg, kv_chunk)
+    attn, new = mla_attention(p, h, positions, cfg, kv_chunk, mesh)
     if mode == "prefill":
-        update_mla_cache(cache, new["c_kv"], new["k_pe"], positions)
+        update_mla_cache(cache, new["c_kv"], new["k_pe"], positions, seq)
     return attn
 
 
-def _attend(blk, x, positions, cfg, mode, cache, window, kv_chunk, mesh):
+def _attend(blk, x, positions, cfg, mode, cache, window, kv_chunk, mesh, seq):
     """Pre-norm GQA or MLA attention of a dense/MoE block."""
     h = rms_norm(x, blk.attn_norm, cfg.norm_eps)
     if cfg.use_mla:
         return _latent_attention(blk.attn, h, positions, cfg, mode, cache,
-                                 kv_chunk)
+                                 kv_chunk, mesh, seq)
     return self_attention(blk.attn, h, positions, cfg, mode, cache, window,
-                          kv_chunk, mesh)
+                          kv_chunk, mesh, seq)
 
 
-def _ssm(p: Mamba, h, cfg, mode, cache):
+def _ssm(p: Mamba, h, cfg, mode, cache, mesh=None):
     """The Mamba-2 mixer of an SSM/hybrid block; prefill replaces the
-    cache's state and conv tail, decode advances them."""
+    cache's state and conv tail (a rank's cache: the block of the tail's
+    channels it holds), decode advances them."""
     if mode == "decode":
-        out, _ = mamba_decode(p, h, cfg, cache)
+        out, _ = mamba_decode(p, h, cfg, cache, mesh)
         return out
-    out, new = mamba_block(p, h, cfg)
+    out, new = mamba_block(p, h, cfg, mesh=mesh)
     if mode == "prefill":
+        conv, n = new["conv"], cache["conv"].shape[-1]
+        if n != conv.shape[-1]:
+            i = mesh.coord["model"]
+            conv = conv[..., i * n:(i + 1) * n]
         cache["state"].copy_(new["state"])
-        cache["conv"].copy_(new["conv"])
+        cache["conv"].copy_(conv)
     return out
 
 
@@ -302,11 +346,11 @@ class DenseBlock(nn.Module):
         self.mlp_norm = _param((cfg.d_model,), dtype, device)
 
     def forward(self, x, positions, mode, cache=None, window=None,
-                kv_chunk: int = 1024, mesh_info=None):
+                kv_chunk: int = 1024, mesh_info=None, seq=None):
         cfg = self.cfg
-        mesh = mesh_info[0] if mesh_info is not None else None
+        mesh = _mesh(mesh_info)
         x = x + _attend(self, x, positions, cfg, mode, cache, window, kv_chunk,
-                        mesh)
+                        mesh, seq)
         return x + self.mlp(rms_norm(x, self.mlp_norm, cfg.norm_eps), mesh)
 
 
@@ -331,12 +375,12 @@ class MoEBlock(nn.Module):
                               dtype, device)
 
     def forward(self, x, positions, mode, cache=None, kv_chunk: int = 1024,
-                mesh_info=None):
+                mesh_info=None, seq=None):
         """Returns (x, aux_loss)."""
         cfg = self.cfg
-        mesh = mesh_info[0] if mesh_info is not None else None
+        mesh = _mesh(mesh_info)
         x = x + _attend(self, x, positions, cfg, mode, cache, None, kv_chunk,
-                        mesh)
+                        mesh, seq)
         h = rms_norm(x, self.mlp_norm, cfg.norm_eps)
         if self.moe.w_gate.shape[0] != cfg.num_experts:
             out, aux = moe_ffn_sharded(h, self.moe, cfg, mesh, mesh_info[1])
@@ -356,9 +400,9 @@ class SSMBlock(nn.Module):
         self.mamba = Mamba(cfg, dtype, device)
         self.pre_norm = _param((cfg.d_model,), dtype, device)
 
-    def forward(self, x, positions, mode, cache=None):
+    def forward(self, x, positions, mode, cache=None, mesh_info=None):
         h = rms_norm(x, self.pre_norm, self.cfg.norm_eps)
-        return x + _ssm(self.mamba, h, self.cfg, mode, cache)
+        return x + _ssm(self.mamba, h, self.cfg, mode, cache, _mesh(mesh_info))
 
 
 class HybridBlock(nn.Module):
@@ -378,25 +422,28 @@ class HybridBlock(nn.Module):
         self.mlp_norm = _param((d,), dtype, device)
 
     def forward(self, x, positions, mode, cache=None, window=None,
-                kv_chunk: int = 1024):
+                kv_chunk: int = 1024, mesh_info=None, seq=None):
         cfg = self.cfg
+        mesh = _mesh(mesh_info)
         h = rms_norm(x, self.attn_norm, cfg.norm_eps)
         attn = self_attention(self.attn, h, positions, cfg, mode,
                               cache["attn"] if cache is not None else None,
-                              window, kv_chunk)
+                              window, kv_chunk, mesh, seq)
         ssm = _ssm(self.mamba, h, cfg, mode,
-                   cache["ssm"] if cache is not None else None)
+                   cache["ssm"] if cache is not None else None, mesh)
         mixed = 0.5 * (rms_norm(attn, self.attn_out_norm, cfg.norm_eps)
                        + rms_norm(ssm, self.ssm_out_norm, cfg.norm_eps))
         x = x + mixed
-        return x + self.mlp(rms_norm(x, self.mlp_norm, cfg.norm_eps))
+        return x + self.mlp(rms_norm(x, self.mlp_norm, cfg.norm_eps), mesh)
 
 
 class CrossBlock(nn.Module):
     """Cross-attention + MLP with tanh gates (the vlm image layers).
 
     ``enc_kv``: {"k": (B,Se,KVH,hd), "v": ..., "pos": (B,Se)} — precomputed
-    from the encoder states (static during decode).
+    from the encoder states (static during decode); at decode on a rank,
+    the cross cache's block (``seq`` where it is a block of the
+    positions, `cross_attention`).
     """
 
     def __init__(self, cfg, dtype, device):
@@ -409,18 +456,16 @@ class CrossBlock(nn.Module):
         self.gate_attn = _param((), torch.float32, device)
         self.gate_mlp = _param((), torch.float32, device)
 
-    def forward(self, x, enc_kv: dict):
+    def forward(self, x, enc_kv: dict, mode: str = "train", mesh_info=None,
+                seq=None):
         cfg = self.cfg
+        mesh = _mesh(mesh_info)
         h = rms_norm(x, self.attn_norm, cfg.norm_eps)
-        q = torch.einsum("bsd,dhe->bshe", h, self.attn.wq)
-        out = mha(q, enc_kv["k"], enc_kv["v"],
-                  torch.zeros(q.shape[:2], dtype=torch.int32, device=q.device),
-                  enc_kv["pos"], causal=False, kv_chunk=1024)
-        attn = torch.einsum("bshe,hed->bsd", out, self.attn.wo)
+        attn = cross_attention(self.attn, h, enc_kv, cfg, mode, mesh, seq)
         # Gated residual (llama-3.2 style tanh gate, initialized near zero).
         x = x + torch.tanh(self.gate_attn).to(x.dtype) * attn
         h2 = rms_norm(x, self.mlp_norm, cfg.norm_eps)
-        return x + torch.tanh(self.gate_mlp).to(x.dtype) * self.mlp(h2)
+        return x + torch.tanh(self.gate_mlp).to(x.dtype) * self.mlp(h2, mesh)
 
 
 class EncDecBlock(nn.Module):
@@ -438,18 +483,17 @@ class EncDecBlock(nn.Module):
         self.mlp_norm = _param((d,), dtype, device)
 
     def forward(self, x, positions, enc_kv: dict, mode: str, cache=None,
-                kv_chunk: int = 1024):
+                kv_chunk: int = 1024, mesh_info=None, seq=None, cross_seq=None):
         cfg = self.cfg
+        mesh = _mesh(mesh_info)
         x = x + self_attention(self.self_attn,
                                rms_norm(x, self.self_norm, cfg.norm_eps),
-                               positions, cfg, mode, cache, None, kv_chunk)
+                               positions, cfg, mode, cache, None, kv_chunk,
+                               mesh, seq)
         h = rms_norm(x, self.cross_norm, cfg.norm_eps)
-        q = torch.einsum("bsd,dhe->bshe", h, self.cross_attn.wq)
-        out = mha(q, enc_kv["k"], enc_kv["v"],
-                  torch.zeros(q.shape[:2], dtype=torch.int32, device=q.device),
-                  enc_kv["pos"], causal=False, kv_chunk=kv_chunk)
-        x = x + torch.einsum("bshe,hed->bsd", out, self.cross_attn.wo)
-        return x + self.mlp(rms_norm(x, self.mlp_norm, cfg.norm_eps))
+        x = x + cross_attention(self.cross_attn, h, enc_kv, cfg, mode, mesh,
+                                cross_seq, kv_chunk)
+        return x + self.mlp(rms_norm(x, self.mlp_norm, cfg.norm_eps), mesh)
 
 
 class EncoderBlock(nn.Module):
@@ -463,19 +507,30 @@ class EncoderBlock(nn.Module):
         self.attn_norm = _param((cfg.d_model,), dtype, device)
         self.mlp_norm = _param((cfg.d_model,), dtype, device)
 
-    def forward(self, x, positions, kv_chunk: int = 1024):
+    def forward(self, x, positions, kv_chunk: int = 1024, mesh_info=None):
         cfg = self.cfg
+        mesh = _mesh(mesh_info)
         h = rms_norm(x, self.attn_norm, cfg.norm_eps)
-        q, k, v = _qkv(self.attn, h, positions, cfg)
+        q, k, v = _qkv(self.attn, h, positions, cfg, mesh)
+        k, v = _used_kv(k, v, q.shape[2], cfg, mesh)
         out = mha(q, k, v, positions, positions, causal=False, kv_chunk=kv_chunk)
-        x = x + torch.einsum("bshe,hed->bsd", out, self.attn.wo)
-        return x + self.mlp(rms_norm(x, self.mlp_norm, cfg.norm_eps))
+        x = x + _heads_out(self.attn, out, cfg, mesh)
+        return x + self.mlp(rms_norm(x, self.mlp_norm, cfg.norm_eps), mesh)
 
 
-def cross_kv(attn: Attention, enc_states: torch.Tensor) -> dict:
-    """Precompute cross-attention K/V from encoder states."""
-    k = torch.einsum("bsd,dhe->bshe", enc_states, attn.wk)
-    v = torch.einsum("bsd,dhe->bshe", enc_states, attn.wv)
+def cross_kv(attn: Attention, enc_states: torch.Tensor, cfg=None,
+             mesh=None) -> dict:
+    """Precompute cross-attention K/V from encoder states; on a rank
+    holding a block of the query heads (``cfg``, ``mesh``), of its KV heads
+    (or all, where they are whole; then they pass `Mesh.copy_to`, as the
+    states do)."""
+    wk, wv = attn.wk, attn.wv
+    if cfg is not None and attn.wq.shape[1] != cfg.num_heads:
+        enc_states = mesh.copy_to(enc_states)
+        if wk.shape[1] == cfg.num_kv_heads:
+            wk, wv = mesh.copy_to(wk), mesh.copy_to(wv)
+    k = torch.einsum("bsd,dhe->bshe", enc_states, wk)
+    v = torch.einsum("bsd,dhe->bshe", enc_states, wv)
     b, s = enc_states.shape[:2]
     pos = torch.arange(s, dtype=torch.int32, device=enc_states.device).expand(b, s)
     return {"k": k, "v": v, "pos": pos}
@@ -485,16 +540,14 @@ def cross_kv(attn: Attention, enc_states: torch.Tensor) -> dict:
 
 def init_block_cache(cfg, kind: str, batch: int, cache_len: int, dtype,
                      device, window_len: int | None = None,
-                     lead: tuple[int, ...] = (), kv_heads: int | None = None):
-    """Cache dict of the given kind for ``lead`` stacked layers;
-    ``kv_heads``: the KV heads an "attn" cache holds (default all: a rank
-    holds those its query heads use, `rank_kv_heads`)."""
+                     lead: tuple[int, ...] = ()):
+    """Cache dict of the given kind for ``lead`` stacked layers."""
     if kind == "mla":
         return init_mla_cache(batch, cache_len, cfg, dtype, device, lead)
     length = window_len if window_len is not None else cache_len
     if kind == "attn":
-        return init_kv_cache(batch, length, kv_heads or cfg.num_kv_heads,
-                             cfg.head_dim, dtype, device, lead)
+        return init_kv_cache(batch, length, cfg.num_kv_heads, cfg.head_dim,
+                             dtype, device, lead)
     if kind == "ssm":
         return init_mamba_cache(batch, cfg, dtype, device, lead)
     if kind == "hybrid":

@@ -1,13 +1,15 @@
 """Shared building blocks: norms, rotary embeddings, SwiGLU MLP, the
-(vocab-parallel) embedding lookup."""
+(vocab-parallel) embedding lookup, the row-parallel product."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .remat import kept
+
 __all__ = ["rms_norm", "rope_freqs", "apply_rope", "swiglu", "embed_tokens",
-           "init_dense", "cross_entropy_loss", "DTYPES"]
+           "init_dense", "cross_entropy_loss", "row_parallel", "DTYPES"]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -100,3 +102,51 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+class _RowParallel(torch.autograd.Function):
+    """``x2 @ w2`` (2-d) summed over ``model``: the partial product with
+    an f32 output, summed in f32 and rounded once to ``x2``'s dtype.
+    Backward: the sum's is the identity (the loss is the same on every
+    rank along ``model``), and ``dx``, ``dw`` are formed in the operands'
+    dtype, as the unsharded product's backward forms them (the card's
+    ``torch.mm(..., out_dtype=...)`` has no derivative).  The output is
+    made through `remat.kept`: a recomputation under
+    ``"save_collectives"`` saves the same operands and gives the kept
+    sum back without multiplying or summing."""
+
+    @staticmethod
+    def forward(ctx, x2, w2, mesh):
+        ctx.save_for_backward(x2, w2)
+
+        def make():
+            if x2.device.type in ("cuda", "meta") and x2.dtype != torch.float32:
+                part = torch.mm(x2, w2, out_dtype=torch.float32)
+            else:  # f32 already, or the CPU (no GEMM with a wider output there)
+                part = x2.float() @ w2.float()
+            return mesh._all_reduce(part, "model").to(x2.dtype)
+
+        return kept(make)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x2, w2 = ctx.saved_tensors
+        grad = grad.to(x2.dtype)
+        dx = grad @ w2.t() if ctx.needs_input_grad[0] else None
+        dw = x2.t() @ grad if ctx.needs_input_grad[1] else None
+        return dx, dw, None
+
+
+def row_parallel(x, w, mesh):
+    """``x @ w`` contracting the trailing dims of ``x`` with the leading
+    dims of ``w`` (all but its last), where both hold this rank's block of
+    the contracted dims: the partial product with an f32 output (the
+    GEMM's own accumulator: on the card a bf16 GEMM writing f32, no f32
+    copy of ``w``), summed over ``model`` in f32 and rounded once to
+    ``x``'s dtype, as the unsharded product's accumulator rounds once
+    (`_RowParallel`).  The sum's operand is f32: twice the bytes of the
+    bf16 partial sums that XLA's partitioner reduces."""
+    n = w.shape[-1]
+    lead = x.shape[:x.dim() - (w.dim() - 1)]
+    x2, w2 = x.reshape(-1, w[..., 0].numel()), w.reshape(-1, n)
+    return _RowParallel.apply(x2, w2, mesh).reshape(*lead, n)

@@ -10,13 +10,32 @@ Layout: x (B, S, H, P) head-split inner activations, B/C (B, S, N) with a
 single B/C group, dt (B, S, H), A (H,) negative reals.  ``p`` is the
 mixer module holding ``in_proj``, ``conv_w``, ``dt_bias``, ``a_log``,
 ``d_skip``, ``norm`` and ``out_proj``.
+
+A rank of a mesh of ranks (``mesh``) may hold the planner's blocks:
+``in_proj``'s columns, ``out_proj``'s rows (a block of ``d_inner``), and
+in its decode cache a block of the state's heads and of the conv tail's
+channels; ``conv_w``, ``dt_bias``, ``a_log``, ``d_skip`` and ``norm``
+are whole (`_Rank`).  ``in_proj``'s columns pack ``[gate | xs | B | C |
+dt]``, so a contiguous block of them is no piece of the mixer: the rank's
+product is ``all_gather``ed over ``model`` into the whole projection.
+The causal conv runs whole (a decode over a block of the conv tail runs
+the block's channels and ``all_gather``s them).  Where ``out_proj``'s row
+block covers whole heads (``H`` divides the model axis: mamba2-780m), the
+rank runs the scan for those heads only, with the state block, and the
+gated RMSNorm over all of ``d_inner`` sums its squares over ``model``
+(f32 ``all_reduce``); where it cuts a head (Hymba: 25 heads), the rank
+runs every head and keeps its rows' channels.  Either way ``out_proj``'s
+product is summed over ``model`` (`layers.row_parallel`).  For training,
+where a rank runs its own heads, the whole projection and the whole
+weights it reads for its heads pass `Mesh.copy_to`; where it runs every
+head, the normed output does before the rank keeps its channels.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .layers import rms_norm
+from .layers import rms_norm, row_parallel
 
 __all__ = ["ssd_scan", "ssd_decode_step", "mamba_block", "mamba_decode",
            "init_mamba_cache"]
@@ -137,51 +156,125 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, cache: torch.Tensor | None):
     return F.silu(out), new_cache
 
 
-def _mixer_in(p, x, cfg, conv_cache):
+class _Rank:
+    """What a rank holding ``p``'s blocks runs (the module docstring):
+    whether ``in_proj`` holds a block of columns and ``out_proj`` one of
+    rows; the rows' channels of ``d_inner``; the heads it scans (its
+    rows' heads where they cover whole heads, ``aligned``, else all)."""
+
+    def __init__(self, p, cfg, mesh):
+        di, hp, h = cfg.d_inner, cfg.ssm_head_dim, cfg.ssm_heads
+        rows = p.out_proj.shape[0]
+        self.mesh = mesh
+        self.split_in = p.in_proj.shape[1] != 2 * di + 2 * cfg.ssm_state + h
+        self.split_out = rows != di
+        i = mesh.coord["model"] if self.split_out else 0
+        self.channels = slice(i * rows, (i + 1) * rows)
+        self.aligned = self.split_out and rows % hp == 0
+        self.heads = (slice(i * rows // hp, (i + 1) * rows // hp)
+                      if self.aligned else slice(0, h))
+        # The whole weights a rank reads for its own heads only.
+        self.w = {k: getattr(p, k) for k in ("conv_w", "dt_bias", "a_log",
+                                              "d_skip", "norm")}
+        if self.aligned:
+            self.w = {k: mesh.copy_to(v) for k, v in self.w.items()}
+
+
+def _rank(p, cfg, mesh):
+    return _Rank(p, cfg, mesh) if mesh is not None else None
+
+
+def _conv(conv_in, conv_w, cache, r):
+    """The causal conv of ``conv_in``; where ``cache`` holds a block of the
+    conv tail's channels (a rank's decode cache), the block's channels
+    with it, ``all_gather``ed over ``model``, and the block's new tail."""
+    c = conv_in.shape[-1]
+    if cache is None or cache.shape[-1] == c:
+        return _causal_conv(conv_in, conv_w, cache)
+    n, i = cache.shape[-1], r.mesh.coord["model"]
+    blk = slice(i * n, (i + 1) * n)
+    out, cache = _causal_conv(conv_in[..., blk], conv_w[:, blk], cache)
+    return r.mesh.all_gather(out, "model").movedim(0, -2).flatten(-2), cache
+
+
+def _mixer_in(p, x, cfg, conv_cache, r=None):
     """in_proj, the causal conv and the dt/A transforms shared by the
-    sequence and decode paths."""
+    sequence and decode paths; with a `_Rank`, its heads' xs, dt and A
+    (module docstring)."""
     n = cfg.ssm_state
-    z = x @ p.in_proj
+    w = r.w if r is not None else {k: getattr(p, k) for k in ("conv_w", "dt_bias",
+                                                               "a_log")}
+    if r is not None and r.split_in:
+        z = r.mesh.copy_to(x) @ p.in_proj
+        z = r.mesh.all_gather(z, "model").movedim(0, -2).flatten(-2)
+    else:
+        z = x @ p.in_proj
+    if r is not None and r.aligned:
+        z = r.mesh.copy_to(z)
     gate, xs, b_in, c_in, dt = _split_proj(z, cfg)
     conv_in = torch.cat([xs, b_in, c_in], dim=-1)
-    conv_out, conv_cache = _causal_conv(conv_in, p.conv_w, conv_cache)
+    conv_out, conv_cache = _conv(conv_in, w["conv_w"], conv_cache, r)
     xs, b_in, c_in = torch.split(conv_out, [cfg.d_inner, n, n], dim=-1)
-    dt = F.softplus(dt.float() + p.dt_bias)
-    a = -torch.exp(p.a_log.float())
+    dt = F.softplus(dt.float() + w["dt_bias"])
+    a = -torch.exp(w["a_log"].float())
+    if r is not None and r.aligned:
+        gate, xs = gate[..., r.channels], xs[..., r.channels]
+        dt, a = dt[..., r.heads], a[r.heads]
     return gate, xs, b_in, c_in, dt, a, conv_cache
 
 
-def _mixer_out(p, y, xh, gate, cfg):
+def _mixer_out(p, y, xh, gate, cfg, r=None):
     b, s = y.shape[:2]
-    y = y + xh * p.d_skip.to(xh.dtype)[None, None, :, None]
-    y = y.reshape(b, s, cfg.d_inner)
-    y = rms_norm(y * F.silu(gate), p.norm, cfg.norm_eps)
-    return y @ p.out_proj
+    if r is None or not r.split_out:
+        y = y + xh * p.d_skip.to(xh.dtype)[None, None, :, None]
+        y = y.reshape(b, s, cfg.d_inner)
+        y = rms_norm(y * F.silu(gate), p.norm, cfg.norm_eps)
+        return y @ p.out_proj
+    mesh = r.mesh
+    d_skip = r.w["d_skip"][r.heads]
+    y = y + xh * d_skip.to(xh.dtype)[None, None, :, None]
+    y = y.reshape(b, s, -1) * F.silu(gate)
+    if not r.aligned:  # every head: keep this rank's rows' channels
+        y = rms_norm(y, r.w["norm"], cfg.norm_eps)
+        return row_parallel(mesh.copy_to(y)[..., r.channels], p.out_proj, mesh)
+    # RMSNorm over all of d_inner: the squares summed over model, in f32.
+    yf = y.float()
+    sq = mesh.copy_to(mesh.all_reduce(torch.sum(yf * yf, dim=-1, keepdim=True),
+                                      "model"))
+    y = (yf * torch.rsqrt(sq / cfg.d_inner + cfg.norm_eps)
+         * r.w["norm"][r.channels].float()).to(y.dtype)
+    return row_parallel(y, p.out_proj, mesh)
 
 
 def mamba_block(
     p, x: torch.Tensor, cfg,
     init_state: torch.Tensor | None = None,
     conv_cache: torch.Tensor | None = None,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict]:
-    """Full Mamba-2 mixer over a sequence. x: (B, S, D)."""
+    """Full Mamba-2 mixer over a sequence. x: (B, S, D).  On a rank
+    (``mesh``), the state is that of the heads it runs and the conv tail
+    whole (module docstring)."""
     b, s, _ = x.shape
-    gate, xs, b_in, c_in, dt, a, conv_cache = _mixer_in(p, x, cfg, conv_cache)
-    xh = xs.reshape(b, s, cfg.ssm_heads, cfg.ssm_head_dim)
+    r = _rank(p, cfg, mesh)
+    gate, xs, b_in, c_in, dt, a, conv_cache = _mixer_in(p, x, cfg, conv_cache, r)
+    xh = xs.reshape(b, s, -1, cfg.ssm_head_dim)
     y, state = ssd_scan(xh, dt, a, b_in, c_in, cfg.ssm_chunk, init_state)
-    return _mixer_out(p, y, xh, gate, cfg), {"state": state, "conv": conv_cache}
+    return _mixer_out(p, y, xh, gate, cfg, r), {"state": state, "conv": conv_cache}
 
 
-def mamba_decode(p, x: torch.Tensor, cfg, cache: dict) -> tuple[torch.Tensor, dict]:
+def mamba_decode(p, x: torch.Tensor, cfg, cache: dict,
+                 mesh=None) -> tuple[torch.Tensor, dict]:
     """Single-token decode. x: (B, 1, D); cache {state, conv}, updated in
-    place."""
+    place; on a rank (``mesh``), its blocks of them (module docstring)."""
     b = x.shape[0]
-    gate, xs, b_in, c_in, dt, a, conv = _mixer_in(p, x, cfg, cache["conv"])
-    xh = xs.reshape(b, 1, cfg.ssm_heads, cfg.ssm_head_dim)
+    r = _rank(p, cfg, mesh)
+    gate, xs, b_in, c_in, dt, a, conv = _mixer_in(p, x, cfg, cache["conv"], r)
+    xh = xs.reshape(b, 1, -1, cfg.ssm_head_dim)
     y, state = ssd_decode_step(xh, dt, a, b_in, c_in, cache["state"])
     cache["state"].copy_(state)
     cache["conv"].copy_(conv)
-    return _mixer_out(p, y, xh, gate, cfg), cache
+    return _mixer_out(p, y, xh, gate, cfg, r), cache
 
 
 def init_mamba_cache(batch: int, cfg, dtype, device,

@@ -11,14 +11,27 @@ so the per-head K/V are never materialized during decode.  ``p`` is the
 attention module holding ``w_q``, ``w_dkv``, ``w_kpe``, ``w_uk``, ``w_uv``
 and ``w_o``.  The latent score and softmax·c_kv products are f32 from the
 cache dtype's operands, as the reference asks.
+
+A rank of a mesh of ranks may hold a block of the heads (``w_q``,
+``w_uk``, ``w_uv``, ``w_o``; ``mesh``): the latent and its rope sub-head
+are whole on every rank (``w_dkv``, ``w_kpe``, which pass `Mesh.copy_to`
+with the normed input, so their gradients are summed over ``model``),
+each rank attends with its heads, and ``w_o``'s product is summed over
+``model`` (`layers.row_parallel`).  A rank may hold a block of the
+latent cache's sequence slots (`attention.SeqBlock`): decode writes the
+new latent only where its slot lies, gathers the absorbed queries
+(``q_lat``, ``q_pe``) of every head over ``model``, scores them against
+its slots, combines the partial softmax over the slot holders
+(`attention.seq_softmax`) and takes its heads' ``out_lat`` into ``w_uv``
+and ``w_o``: the latent cache itself is never gathered.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .attention import NEG_INF, mha
-from .layers import apply_rope
+from .attention import SeqBlock, gather_heads, mha, seq_softmax, write_slots
+from .layers import apply_rope, row_parallel
 
 __all__ = ["mla_attention", "mla_decode", "init_mla_cache", "update_mla_cache"]
 
@@ -31,12 +44,30 @@ def _project_q(p, x: torch.Tensor, positions: torch.Tensor, cfg):
     return q_nope, q_pe
 
 
-def _latent(p, x, positions, cfg):
-    """c_kv (B,S,r) and the roped shared sub-head k_pe (B,S,rh)."""
-    c_kv = x @ p.w_dkv
-    k_pe = apply_rope((x @ p.w_kpe)[:, :, None, :], positions,
+def _latent(p, x, positions, cfg, mesh=None):
+    """c_kv (B,S,r) and the roped shared sub-head k_pe (B,S,rh); on a rank
+    holding a block of the heads, ``w_dkv`` and ``w_kpe`` pass
+    `Mesh.copy_to` (``x`` already has)."""
+    w_dkv, w_kpe = p.w_dkv, p.w_kpe
+    if _split(p, cfg):
+        w_dkv, w_kpe = mesh.copy_to(w_dkv), mesh.copy_to(w_kpe)
+    c_kv = x @ w_dkv
+    k_pe = apply_rope((x @ w_kpe)[:, :, None, :], positions,
                       cfg.rope_theta)[:, :, 0]
     return c_kv, k_pe
+
+
+def _split(p, cfg) -> bool:
+    """Whether ``p`` holds a block of the heads."""
+    return p.w_q.shape[1] != cfg.num_heads
+
+
+def _out(p, out, cfg, mesh):
+    """The output projection of the heads' ``out`` (B,S,h,hd): summed over
+    ``model`` where ``p`` holds a block of them."""
+    if _split(p, cfg):
+        return row_parallel(out, p.w_o, mesh)
+    return torch.einsum("bshe,hed->bsd", out, p.w_o)
 
 
 def mla_attention(
@@ -45,15 +76,19 @@ def mla_attention(
     positions: torch.Tensor,  # (B, S)
     cfg,
     kv_chunk: int = 1024,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict]:
     """Prefill/train path: materializes per-head K/V from the latent.
 
     Returns (attn_out (B,S,D), {c_kv, k_pe, pos}).
     """
     b, s, _ = x.shape
-    h, hd, rh = cfg.num_heads, cfg.head_dim, cfg.rope_head_dim
+    hd, rh = cfg.head_dim, cfg.rope_head_dim
+    if _split(p, cfg):
+        x = mesh.copy_to(x)
+    h = p.w_q.shape[1]
     q_nope, q_pe = _project_q(p, x, positions, cfg)
-    c_kv, k_pe = _latent(p, x, positions, cfg)
+    c_kv, k_pe = _latent(p, x, positions, cfg, mesh)
 
     k_nope = torch.einsum("bsr,rhe->bshe", c_kv, p.w_uk)  # (B,S,H,hd)
     v = torch.einsum("bsr,rhe->bshe", c_kv, p.w_uv)  # (B,S,H,hd)
@@ -66,8 +101,7 @@ def mla_attention(
     v_pad = F.pad(v, (0, rh))
     out = mha(q_full, k_full, v_pad, positions, positions, causal=True,
               kv_chunk=kv_chunk, softmax_scale=scale)[..., :hd]
-    attn = torch.einsum("bshe,hed->bsd", out, p.w_o)
-    return attn, {"c_kv": c_kv, "k_pe": k_pe, "pos": positions}
+    return _out(p, out, cfg, mesh), {"c_kv": c_kv, "k_pe": k_pe, "pos": positions}
 
 
 def mla_decode(
@@ -76,26 +110,34 @@ def mla_decode(
     cache: dict,  # c_kv (B,S,r), k_pe (B,S,rh), pos (B,S)
     positions: torch.Tensor,  # (B, 1)
     cfg,
+    mesh=None,
+    seq: SeqBlock | None = None,
 ) -> tuple[torch.Tensor, dict]:
-    """Absorbed decode: attention in latent space, O(r) per cached token."""
+    """Absorbed decode: attention in latent space, O(r) per cached token;
+    on a rank, see the module docstring."""
     hd, rh = cfg.head_dim, cfg.rope_head_dim
     q_nope, q_pe = _project_q(p, x, positions, cfg)  # (B,1,H,hd), (B,1,H,rh)
-    c_new, kpe_new = _latent(p, x, positions, cfg)
-    cache = update_mla_cache(cache, c_new, kpe_new, positions)
+    c_new, kpe_new = _latent(p, x, positions, cfg, mesh)
+    cache = update_mla_cache(cache, c_new, kpe_new, positions, seq)
 
     q_lat = torch.einsum("bshe,rhe->bshr", q_nope, p.w_uk)  # absorb W_uk
+    gather = seq is not None and _split(p, cfg)
+    if gather:  # every head against this rank's slots
+        q_lat, q_pe = gather_heads(q_lat, mesh), gather_heads(q_pe, mesh)
     c_kv = cache["c_kv"]
     s_lat = torch.einsum("bshr,bcr->bshc", q_lat.float(), c_kv.float())
     s_pe = torch.einsum("bshe,bce->bshc", q_pe.float(), cache["k_pe"].float())
     s = (s_lat + s_pe) * (hd + rh) ** -0.5  # (B,1,H,C)
     valid = (cache["pos"] >= 0) & (cache["pos"] <= positions)  # (B,C)
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    out_lat = torch.einsum("bshc,bcr->bshr", w.to(c_kv.dtype).float(),
-                           c_kv.float()).to(x.dtype)
+    out_lat = seq_softmax(s, valid[:, None, None, :], lambda w: torch.einsum(
+        "bshc,bcr->bshr", w.to(c_kv.dtype).float(), c_kv.float()),
+        mesh, seq).to(x.dtype)
+    if gather:  # this rank's heads
+        h = p.w_uv.shape[1]
+        i = mesh.coord["model"]
+        out_lat = out_lat[:, :, i * h:(i + 1) * h]
     out = torch.einsum("bshr,rhe->bshe", out_lat, p.w_uv)  # (B,1,H,hd)
-    attn = torch.einsum("bshe,hed->bsd", out, p.w_o)
-    return attn, cache
+    return _out(p, out, cfg, mesh), cache
 
 
 def init_mla_cache(batch: int, length: int, cfg, dtype, device,
@@ -111,11 +153,9 @@ def init_mla_cache(batch: int, length: int, cfg, dtype, device,
     }
 
 
-def update_mla_cache(cache: dict, c_new, kpe_new, positions) -> dict:
-    """Write the new latents at their positions, in place."""
-    b_idx = torch.arange(c_new.shape[0], device=c_new.device)[:, None]
-    pos = positions.long()
-    cache["c_kv"][b_idx, pos] = c_new.to(cache["c_kv"].dtype)
-    cache["k_pe"][b_idx, pos] = kpe_new.to(cache["k_pe"].dtype)
-    cache["pos"][b_idx, pos] = positions.to(torch.int32)
-    return cache
+def update_mla_cache(cache: dict, c_new, kpe_new, positions,
+                     seq: SeqBlock | None = None) -> dict:
+    """Write the new latents at their positions, in place; with a
+    `attention.SeqBlock`, only those whose slot lies in this rank's block
+    (`attention.write_slots`)."""
+    return write_slots(cache, {"c_kv": c_new, "k_pe": kpe_new}, positions, seq)

@@ -37,22 +37,31 @@ A rank of a mesh of ranks: ``Model(cfg, device, shard)`` with
 ``shard = ParamShard.of(mesh)`` (the mesh's shape and the rank's
 coordinate) holds, of each leaf, the block that the reference's planner
 gives that position (`repro_torch.sharding.ParamShard.block`: its
-``plan_params`` spec, then `shard_slices`), and
+``plan_params`` spec, then `shard_slices`), in every family, and
 ``forward(..., mesh_info=(mesh, batch_axes))`` on that mesh issues the
 collectives that XLA inserts for those specs: the vocab-parallel
 embedding (`layers.embed_tokens`: one ``all_reduce``), head-parallel
-attention and ffn-parallel MLPs (one ``all_reduce`` each, `blocks`),
-expert-parallel MoE (`moe.moe_ffn_sharded`) and the vocab-parallel head
-(its block of the logits, ``all_gather``ed over ``model``; its input
-passes ``copy_to``, whose backward sums over ``model``).  Each has the
-backward a loss replicated over ``model`` needs
-(`repro_torch.launch.mesh`), so a rank trains its blocks.  This holds
-for the GQA dense and MoE families (`splits_dense`); the others (MLA,
-Mamba, hybrid, VLM, audio) keep their dense leaves whole on every rank
-and split only the routed experts.  ``blocks`` maps each parameter held
-as a block to (its whole shape, the block).  A rank's model comes from a
-seed (`build_model`; each block is the unsharded model's, bit for bit)
-or from the reference's weights (`repro_torch.interop.rank_model_from`).
+attention (GQA, MLA, cross and encoder attention) and ffn-parallel MLPs
+(one ``all_reduce`` each, `blocks`), the Mamba-2 mixer over its inner
+dim (`mamba2`), expert-parallel MoE (`moe.moe_ffn_sharded`), the
+column-parallel frontend projection and the vocab-parallel head (each a
+block ``all_gather``ed over ``model``; its input passes ``copy_to``,
+whose backward sums over ``model``).  Each has the backward a loss
+replicated over ``model`` needs (`repro_torch.launch.mesh`), so a rank
+trains its blocks.  ``blocks`` maps each parameter held as a block to
+(its whole shape, the block).  A rank's model comes from a seed
+(`build_model`; each block is the unsharded model's, bit for bit) or from
+the reference's weights (`repro_torch.interop.rank_model_from`).
+
+Its decode caches (`Model.init_caches`, a `Caches`) hold the block of
+every cache leaf that ``plan_caches`` gives the position
+(`ParamShard.cache_blocks`): the KV heads, or a block of the sequence
+slots (where the KV heads do not divide the model axis, or the batch
+does not divide the batch axes, which then join the split), the MLA
+latents' sequence block, the SSM state's heads and the conv tail's
+channels.  The forward reads each group's sequence block
+(`attention.SeqBlock`) from the caches' ``blocks`` and passes it to the
+layers that write and attend over it.
 """
 from __future__ import annotations
 
@@ -65,25 +74,58 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.sharding.planner import ParamShard
 
-from .attention import init_kv_cache
+from .attention import SeqBlock, init_kv_cache
 from .blocks import (CrossBlock, DenseBlock, EncDecBlock, EncoderBlock,
                      HybridBlock, MoEBlock, SSMBlock, _param, cross_kv,
-                     init_block_cache, rank_kv_heads)
+                     init_block_cache, write_kv)
 from .config import ArchConfig
 from .init import init_params
 from .layers import DTYPES, cross_entropy_loss, embed_tokens, rms_norm
 from .remat import KeptCollectives
 
-__all__ = ["Model", "build_model", "init_params", "reference_path",
-           "splits_dense"]
+__all__ = ["Model", "Caches", "build_model", "init_params", "reference_path"]
 
 
-def splits_dense(cfg: ArchConfig) -> bool:
-    """Whether a rank's model of ``cfg`` holds the planner's blocks of its
-    dense leaves (embedding, attention, MLPs, head): the GQA dense and
-    MoE families.  The others keep them whole (their tensor-parallel
-    forward is not ported) and split only the routed experts."""
-    return cfg.family in ("dense", "moe") and not cfg.use_mla
+class Caches(dict):
+    """A decode-cache tree (nested dicts of tensors, as the reference
+    stacks them) with ``blocks``: each leaf's key path -> (its
+    ``plan_caches`` spec, its whole shape, the block this rank holds)."""
+
+    def __init__(self, tree: dict, blocks: dict):
+        super().__init__(tree)
+        self.blocks = blocks
+
+    def seq(self, *keys) -> SeqBlock | None:
+        """The sequence block of the group at ``keys`` (a {k, v, pos} or
+        {c_kv, k_pe, pos} group): None where this rank holds all of its
+        slots."""
+        spec, whole, block = self.blocks[keys + ("pos",)]
+        entry = spec[-1] if len(spec) == len(whole) else None
+        if entry is None:
+            return None
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        return SeqBlock(axes, block[-1].start, whole[-1])
+
+
+def _seq(caches, *keys) -> SeqBlock | None:
+    return caches.seq(*keys) if isinstance(caches, Caches) else None
+
+
+def _cut_caches(node, cut: dict, blocks: dict, device, keys=()):
+    """The zeroed blocks (``cut``: key path -> (spec, block)) of a whole
+    meta cache tree on ``device``, positions at -1 (empty slots); each
+    leaf's (spec, whole shape, block) recorded in ``blocks``.  A module
+    function: a recursive closure over the model would keep the model
+    alive, a reference cycle, until the next garbage collection."""
+    if isinstance(node, dict):
+        return {k: _cut_caches(v, cut, blocks, device, keys + (k,))
+                for k, v in node.items()}
+    spec, block = cut[keys]
+    blocks[keys] = (spec, tuple(node.shape), block)
+    shape = tuple(len(range(n)[b]) for n, b in zip(node.shape, block))
+    if node.dtype == torch.int32:
+        return torch.full(shape, -1, dtype=node.dtype, device=device)
+    return torch.zeros(shape, dtype=node.dtype, device=device)
 
 
 def reference_path(name: str) -> tuple[tuple[str, ...], tuple[int, ...]]:
@@ -104,12 +146,6 @@ def _index(tree, *idx):
     if isinstance(tree, dict):
         return {k: _index(v, *idx) for k, v in tree.items()}
     return tree[idx]
-
-
-def _write(tree: dict, new: dict, *idx) -> None:
-    """Copy one layer's ``new`` cache entries into the stacked ``tree``."""
-    for k, v in new.items():
-        tree[k][idx].copy_(v)
 
 
 def _stack(n: int, make) -> nn.ModuleList:
@@ -167,11 +203,8 @@ class Model(nn.Module):
         """The block of the reference tree's leaf at ``keys`` with
         ``shape`` (one layer's, or stacked: the rules count dimensions
         from the end) that this model holds: the planner's block for its
-        position (`ParamShard.block`) where `splits_dense` or the leaf is
-        a routed expert's, else the whole leaf."""
-        if splits_dense(self.cfg) or "moe" in keys:
-            return self.shard.block(keys, shape)[1]
-        return tuple(slice(0, n) for n in shape)
+        position (`ParamShard.block`)."""
+        return self.shard.block(keys, shape)[1]
 
     def _build(self, cfg: ArchConfig, dt, dev) -> None:
         d = cfg.d_model
@@ -244,28 +277,15 @@ class Model(nn.Module):
         return tree
 
     # ------------------------------------------------------------- caches
-    def _kv_heads(self) -> int:
-        """The KV heads a decoder layer's cache holds: all of them, or the
-        rank's (`rank_kv_heads`)."""
-        cfg = self.cfg
-        if not splits_dense(cfg):
-            return cfg.num_kv_heads
-        attn = self.layers[0].attn
-        q, kv = attn.wq.shape[1], attn.wk.shape[1]
-        heads = rank_kv_heads(cfg, q, kv, self.shard.coord.get("model", 0))
-        return len(range(kv)[heads]) if isinstance(heads, slice) else len(heads)
-
-    def init_caches(self, batch: int, cache_len: int) -> Any:
-        """Zeroed decode caches on the model's device, stacked per layer
-        stack as the reference stacks them (empty slots at position -1)."""
+    def _whole_caches(self, batch: int, cache_len: int, dev) -> dict:
+        """The unsharded model's zeroed caches on ``dev``."""
         cfg = self.cfg
         dt = DTYPES[cfg.activation_dtype]
-        dev = self.device
         fam = cfg.family
 
         def block(kind, lead, window_len=None):
             return init_block_cache(cfg, kind, batch, cache_len, dt, dev,
-                                    window_len, lead, self._kv_heads())
+                                    window_len, lead)
 
         def cross(lead):  # cross K/V over the frontend's positions
             return init_kv_cache(batch, cfg.frontend_seq, cfg.num_kv_heads,
@@ -292,6 +312,19 @@ class Model(nn.Module):
             return {"layers": block("attn", (cfg.num_layers,)),
                     "cross": cross((cfg.num_layers,))}
         raise ValueError(fam)
+
+    def init_caches(self, batch: int, cache_len: int,
+                    seq_parallel_decode: bool = True) -> Caches:
+        """Zeroed decode caches of a ``batch`` (the whole batch, on a mesh
+        of ranks too) on the model's device, stacked per layer stack as
+        the reference stacks them (empty slots at position -1): on a rank,
+        the block of each leaf that ``plan_caches`` gives its position
+        (`ParamShard.cache_blocks`; ``seq_parallel_decode`` as the
+        planner's), recorded in the result's ``blocks``."""
+        whole = self._whole_caches(batch, cache_len, torch.device("meta"))
+        cut = self.shard.cache_blocks(whole, seq_parallel_decode)
+        blocks: dict = {}
+        return Caches(_cut_caches(whole, cut, blocks, self.device), blocks)
 
     # ------------------------------------------------------------ forward
     def forward(
@@ -330,15 +363,17 @@ class Model(nn.Module):
         elif fam == "ssm":
             lc = caches["layers"] if caches is not None else None
             for i, blk in enumerate(self.layers):
-                x = _layer(blk, remat, x, positions, mode, _index(lc, i))
+                x = _layer(blk, remat, x, positions, mode, _index(lc, i),
+                           mesh_info=mesh_info)
         elif fam == "hybrid":
-            x = self._fwd_hybrid(x, positions, mode, caches, kv_chunk, remat)
+            x = self._fwd_hybrid(x, positions, mode, caches, kv_chunk, remat,
+                                 mesh_info)
         elif fam == "vlm":
             x = self._fwd_vlm(x, positions, mode, caches, frontend, kv_chunk,
-                              remat)
+                              remat, mesh_info)
         elif fam == "audio":
             x = self._fwd_audio(x, positions, mode, caches, frontend, kv_chunk,
-                                remat)
+                                remat, mesh_info)
         else:
             raise ValueError(fam)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
@@ -366,79 +401,98 @@ class Model(nn.Module):
         cfg = self.cfg
         if cfg.first_dense_layers:
             d0 = caches["dense0"] if caches is not None else None
+            seq = _seq(caches, "dense0")
             for i, blk in enumerate(self.dense0):
                 x = blk(x, positions, mode, _index(d0, i), kv_chunk=kv_chunk,
-                        mesh_info=mesh_info)
+                        mesh_info=mesh_info, seq=seq)
         lc = caches["layers"] if caches is not None else None
+        seq = _seq(caches, "layers")
         for i, blk in enumerate(self.layers):
             if cfg.is_moe:
                 x, a = _layer(blk, remat, x, positions, mode, _index(lc, i),
-                              kv_chunk, mesh_info=mesh_info)
+                              kv_chunk, mesh_info=mesh_info, seq=seq)
                 aux = aux + a
             else:
                 x = _layer(blk, remat, x, positions, mode, _index(lc, i),
                            window=cfg.sliding_window, kv_chunk=kv_chunk,
-                           mesh_info=mesh_info)
+                           mesh_info=mesh_info, seq=seq)
         return x, aux
 
-    def _fwd_hybrid(self, x, positions, mode, caches, kv_chunk, remat):
+    def _fwd_hybrid(self, x, positions, mode, caches, kv_chunk, remat,
+                    mesh_info):
         """Hymba: SWA layers with the global-attention layers at their
         indices, in layer order (the reference's segment schedule)."""
         cfg = self.cfg
         glob = sorted(cfg.global_attn_layers)
         swa_c = caches["swa"] if caches is not None else None
         glob_c = caches["global"] if caches is not None else None
+        swa_seq, glob_seq = _seq(caches, "swa", "attn"), _seq(caches, "global", "attn")
         swa_idx = 0
         for layer in range(cfg.num_layers):
             if layer in glob:
                 gi = glob.index(layer)
                 x = getattr(self, "global")[gi](x, positions, mode,
                                                 _index(glob_c, gi), window=None,
-                                                kv_chunk=kv_chunk)
+                                                kv_chunk=kv_chunk,
+                                                mesh_info=mesh_info, seq=glob_seq)
             else:
                 x = _layer(self.swa[swa_idx], remat, x, positions, mode,
                            _index(swa_c, swa_idx), window=cfg.sliding_window,
-                           kv_chunk=kv_chunk)
+                           kv_chunk=kv_chunk, mesh_info=mesh_info, seq=swa_seq)
                 swa_idx += 1
         return x
 
-    def _fwd_vlm(self, x, positions, mode, caches, frontend, kv_chunk, remat):
+    def _fwd_vlm(self, x, positions, mode, caches, frontend, kv_chunk, remat,
+                 mesh_info):
+        mesh = mesh_info[0] if mesh_info is not None else None
         self_c = caches["self"] if caches is not None else None
         ckv = caches["cross_kv"] if caches is not None else None
+        seq, cross_seq = _seq(caches, "self"), _seq(caches, "cross_kv")
         for g, (group, cross) in enumerate(zip(getattr(self, "self"), self.cross)):
             for j, blk in enumerate(group):
                 x = _layer(blk, remat, x, positions, mode, _index(self_c, g, j),
-                           kv_chunk=kv_chunk)
+                           kv_chunk=kv_chunk, mesh_info=mesh_info, seq=seq)
             if mode == "decode":
                 enc_kv = _index(ckv, g)
             else:
-                enc_kv = cross_kv(cross.attn, frontend)
+                enc_kv = cross_kv(cross.attn, frontend, self.cfg, mesh)
                 if mode == "prefill":  # only a decode cache keeps cross K/V
-                    _write(ckv, enc_kv, g)
-            x = cross(x, enc_kv)
+                    write_kv(_index(ckv, g), enc_kv["k"], enc_kv["v"], enc_kv["pos"],
+                             mesh, cross_seq)
+            x = cross(x, enc_kv, mode, mesh_info=mesh_info, seq=cross_seq)
         return x
 
-    def _fwd_audio(self, x, positions, mode, caches, frontend, kv_chunk, remat):
+    def _fwd_audio(self, x, positions, mode, caches, frontend, kv_chunk, remat,
+                   mesh_info):
         cfg = self.cfg
+        mesh = mesh_info[0] if mesh_info is not None else None
         if mode != "decode":  # at decode cross K/V comes from the cache
             enc = frontend
             if hasattr(self, "frontend_proj"):
-                enc = enc @ self.frontend_proj
+                if self.frontend_proj.shape[1] != cfg.d_model:  # column block
+                    enc = mesh.copy_to(enc) @ self.frontend_proj
+                    enc = mesh.all_gather(enc, "model").movedim(0, -2).flatten(-2)
+                else:
+                    enc = enc @ self.frontend_proj
             b, se = enc.shape[:2]
             enc_pos = torch.arange(se, dtype=torch.int32, device=enc.device).expand(b, se)
             for blk in self.encoder:
-                enc = _layer(blk, remat, enc, enc_pos, kv_chunk)
+                enc = _layer(blk, remat, enc, enc_pos, kv_chunk,
+                             mesh_info=mesh_info)
             enc_states = rms_norm(enc, self.enc_norm, cfg.norm_eps)
         lc = caches["layers"] if caches is not None else None
         ckv = caches["cross"] if caches is not None else None
+        seq, cross_seq = _seq(caches, "layers"), _seq(caches, "cross")
         for i, blk in enumerate(self.layers):
             if mode == "decode":
                 enc_kv = _index(ckv, i)
             else:
-                enc_kv = cross_kv(blk.cross_attn, enc_states)
+                enc_kv = cross_kv(blk.cross_attn, enc_states, cfg, mesh)
                 if mode == "prefill":
-                    _write(ckv, enc_kv, i)
-            x = blk(x, positions, enc_kv, mode, _index(lc, i), kv_chunk)
+                    write_kv(_index(ckv, i), enc_kv["k"], enc_kv["v"], enc_kv["pos"],
+                             mesh, cross_seq)
+            x = blk(x, positions, enc_kv, mode, _index(lc, i), kv_chunk,
+                    mesh_info=mesh_info, seq=seq, cross_seq=cross_seq)
         return x
 
     # --------------------------------------------------------------- loss

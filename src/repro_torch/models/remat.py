@@ -4,7 +4,7 @@ issues, under the ``"save_collectives"`` remat policy
 "tp_collective_out")``).
 
 The collectives of a mesh of ranks (`repro_torch.launch.mesh.Mesh`) and
-the row-parallel product (`repro_torch.models.blocks._row_parallel`) make
+the row-parallel product (`repro_torch.models.layers.row_parallel`) make
 their outputs through `kept`: outside a `KeptCollectives.run` it issues
 them; inside one, the first run keeps each output and a later run (the
 backward's recomputation of the layer) gives them back in order without

@@ -30,9 +30,10 @@ walks the ``jax.eval_shape`` trees it plans (jax returns dicts with sorted
 keys), so ``notes`` list the same drops in the same order.  `shard_slices`
 gives the block of a leaf that a mesh position holds under a spec: on a
 mesh of ranks, `repro_torch.runtime.remesh_params` places any spec with
-it, and a rank's model takes its experts' block by the expert rule
-(`repro_torch.interop.rank_model_from`); the dense layers' specs are not
-applied yet (their weights stay whole on every rank).
+it, and a rank's model (`repro_torch.models.Model` with a `ParamShard`)
+holds the block of every leaf that its position's spec gives
+(`ParamShard.block`) and of every decode-cache leaf that ``plan_caches``
+gives (`ParamShard.cache_blocks`).
 
 The partitioning engine shards its O(n)/O(m) state over contiguous vertex
 blocks (CSR rows stay contiguous per shard, so per-shard adjacency slices
@@ -208,6 +209,37 @@ class ParamShard:
         spec = () if self.whole else spec_for_param(
             ShardingPlan(mesh_shape=dict(self.mesh_shape)), names, shape)
         return spec, shard_slices(spec, shape, self.mesh_shape, self.coord)
+
+    def cache_blocks(self, caches, seq_parallel_decode: bool = True) -> dict:
+        """The ``plan_caches`` spec of each leaf of the whole decode-cache
+        tree ``caches`` (nested dicts of leaves with a ``.shape``) and the
+        block of it this position holds, by the leaf's key path: the KV
+        groups' ``heads``, ``seq`` and ``replicated`` modes, the batch
+        axes joining a sequence split where the batch does not divide
+        (``seq_parallel_decode``), the MLA latents' sequence split and
+        the SSM state's heads and conv tail's channels.  A one-position
+        mesh holds every leaf whole."""
+        shape, coord = dict(self.mesh_shape), dict(self.coord)
+        shape.setdefault("model", 1)
+        coord.setdefault("model", 0)
+        out: dict = {}
+        if all(n == 1 for n in shape.values()):
+            _map_sorted(lambda names, leaf: out.setdefault(tuple(names), (
+                (), tuple(slice(0, n) for n in _shape(leaf)))), caches)
+            return out
+        plan = ShardingPlan(mesh_shape=shape,
+                            batch_axes=tuple(a for a in shape if a != "model"),
+                            seq_parallel_decode=seq_parallel_decode)
+        specs = plan_caches(plan, caches)
+
+        def one(names, leaf):
+            spec = specs
+            for k in names:
+                spec = spec[k]
+            out[tuple(names)] = (spec, shard_slices(spec, leaf, shape, coord))
+
+        _map_sorted(one, caches)
+        return out
 
 
 def plan_params(plan: ShardingPlan, params) -> dict:

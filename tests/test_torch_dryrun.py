@@ -78,10 +78,14 @@ def _reference_decode(arch: str, shape: str, mesh_name: str):
 # sums the embedding and each layer's two row-parallel products and
 # gathers the head's vocabulary blocks (2L + 2); qwen3-moe-30b-a3b sums
 # the attention's product, the experts' output and the load-balance
-# loss over model and over the batch axes (4L + 2); mamba2-780m's rank
-# model keeps every leaf whole: none.
-COLLECTIVES = {"llama3-8b": 2 * 32 + 2, "qwen3-moe-30b-a3b": 4 * 48 + 2,
-               "mamba2-780m": 0}
+# loss over model and over the batch axes (4L + 2).  Their KV heads (8,
+# 4) do not divide the model axis, so their caches split by sequence:
+# each layer also gathers the queries of every head and takes the
+# partial softmax's max and sum (3L).  mamba2-780m gathers each layer's
+# in_proj block and conv channels and sums its gated norm's squares and
+# out_proj's product (4L; its 50,280 vocabulary rows stay whole).
+COLLECTIVES = {"llama3-8b": 5 * 32 + 2, "qwen3-moe-30b-a3b": 7 * 48 + 2,
+               "mamba2-780m": 4 * 48}
 
 
 @pytest.mark.parametrize("arch,shape,multi_pod", CELLS)
@@ -107,31 +111,68 @@ def test_run_cell_matches_the_reference_plan_and_params(arch, shape, multi_pod):
     for cost in (rec["cost"], rec["cost_one_card"]):
         assert cost["flops"] == cost["flops_matmul"] + cost["flops_pointwise"] > 0
         assert cost["flops_matmul"] == sum(cost["flops_matmul_by_dtype"].values())
-    if arch == "mamba2-780m":  # one row, every leaf whole: the one-card step
-        assert rec["cost"] == rec["cost_one_card"]
-        assert rec["notes"][0].startswith("position holds whole")
-        assert "layers/mamba/in_proj" in rec["notes"][0]
-    else:
-        assert mem["argument_size_in_bytes_position"] < \
-            mem["argument_size_in_bytes_one_card"]
-        assert rec["cost"]["flops_matmul"] < rec["cost_one_card"]["flops_matmul"]
-        assert set(rec["collectives"]) == {"all-reduce", "all-gather", "_count"}
+    assert rec["notes"] == []  # the position holds the planner's blocks
+    assert mem["argument_size_in_bytes_position"] < \
+        mem["argument_size_in_bytes_one_card"]
+    assert rec["cost"]["flops_matmul"] < rec["cost_one_card"]["flops_matmul"]
+    assert set(rec["collectives"]) == {"all-reduce", "all-gather", "_count"}
     assert rec["ops"]["dot"] > 0 and json.loads(json.dumps(rec)) == rec
+
+
+# One record of each family the tensor-parallel slice splits.
+FAMILY_CELLS = [("deepseek-v2-lite-16b", "decode_32k"), ("mamba2-780m", "long_500k"),
+                ("hymba-1.5b", "long_500k"), ("llama-3.2-vision-11b", "decode_32k"),
+                ("whisper-medium", "decode_32k")]
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 2), (16, 16)], ids=str)
+@pytest.mark.parametrize("arch,shape", FAMILY_CELLS)
+def test_family_positions_hold_the_planners_blocks(arch, shape, mesh_shape):
+    """At the first position of a (1, 2) and a (16, 16) counting mesh,
+    `dryrun.position_notes` is empty (every parameter and cache leaf is
+    the planner's block), and the position's parameter bytes are the sum
+    of the reference planner's blocks."""
+    from repro.models.model import Model as RefModel
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch.mesh import make_counting_mesh
+    from repro_torch.models import Model
+    from repro_torch.sharding import ParamShard
+
+    mesh = make_counting_mesh(mesh_shape)
+    cfg = get_config(arch)
+    assert dryrun.position_notes(cfg, SHAPES[shape], mesh) == []
+    axes = dict(zip(("data", "model"), mesh_shape))
+    ref = ref_config(arch)
+    params = jax.eval_shape(lambda: RefModel(ref).init(jax.random.PRNGKey(0)))
+    specs = ref_planner.plan_params(ref_planner.ShardingPlan(mesh=FakeMesh(axes)),
+                                    params)
+    rank = Model(cfg, "meta", ParamShard.of(mesh))
+    held = sum(p.numel() * p.element_size() for p in rank.parameters())
+    assert held == _sharded_bytes(axes, specs, params)
 
 
 def test_llama_decode_position_collective_bytes():
     """llama3-8b ``decode_32k`` at the first position of 16x16: its 8 rows
     (128 over 16 data positions) of one token; the embedding's bf16 sum,
     64 f32 row-parallel sums of (8, 1, 4096), and the bf16 head's block
-    of 128,256 / 16 logits gathered."""
+    of 128,256 / 16 logits gathered.  Its cache holds 2,048 of the 32,768
+    slots (8 KV heads do not divide 16), so each layer gathers its 2
+    heads' bf16 queries (8, 1, 2, 128) and sums over ``model`` the f32
+    partial softmax's max (8, 1, 8, 4) and its weights' sums beside the
+    weighted values (8, 1, 8, 4, 129)."""
     rec = dryrun.run_cell("llama3-8b", "decode_32k", False, verbose=False)
-    rows, d = 8, 4096
+    rows, d, layers = 8, 4096, 32
+    seq_sums = rows * 8 * 4 * 4 + rows * 8 * 4 * 129 * 4
+    queries = rows * 2 * 128 * 2
     assert rec["collectives"] == {
-        "all-reduce": rows * d * 2 + 64 * rows * d * 4,
-        "all-gather": rows * (128_256 // 16) * 2, "_count": 66}
+        "all-reduce": rows * d * 2 + 64 * rows * d * 4 + layers * seq_sums,
+        "all-gather": rows * (128_256 // 16) * 2 + layers * queries,
+        "_count": 66 + 3 * layers}
     assert rec["collectives_by_dtype"] == {
-        "all-reduce:bfloat16": rows * d * 2, "all-reduce:float32": 64 * rows * d * 4,
-        "all-gather:bfloat16": rows * (128_256 // 16) * 2}
+        "all-reduce:bfloat16": rows * d * 2,
+        "all-reduce:float32": 64 * rows * d * 4 + layers * seq_sums,
+        "all-gather:bfloat16": rows * (128_256 // 16) * 2 + layers * queries}
 
 
 def test_long_context_cell_gives_the_reference_skip():

@@ -216,7 +216,7 @@ def test_row_parallel_rounds_the_partial_sum_once(dtype, x_shape, w_shape):
     trailing dims with ``w``'s leading ones, accumulated in f32 and
     rounded once to ``x``'s dtype (no f32 copy of the weights on the
     card; the CPU upcasts)."""
-    from repro_torch.models.blocks import _row_parallel
+    from repro_torch.models.layers import row_parallel as _row_parallel
 
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(3)

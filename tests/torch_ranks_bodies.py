@@ -345,3 +345,74 @@ def step_tallies(cfg, specs: dict, shapes: list) -> dict:
             out[shape, name] = dict(position=tuple(mesh.coord.values()),
                                     tally=mesh.tally_since(mark))
     return out
+
+
+def _shapes(tree, prefix=()):
+    """Each leaf's shape by key path."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_shapes(v, prefix + (k,)))
+        return out
+    return {prefix: tuple(tree.shape)}
+
+
+def tp_family(cfgs: dict, tree: dict, serve_cases: dict,
+              train_cases: dict) -> dict:
+    """One family's tensor-parallel job.  ``cfgs``: name -> config (one
+    family, the same parameter tree ``tree``); ``serve_cases``: name ->
+    dict of ``cfg`` (a name of ``cfgs``), ``shape``, ``prompts`` (global
+    (B, P) int32), ``prompts_frontend`` (or None) and ``gen``: greedy
+    `serve_batch` of the rank's model carried from ``tree``, returning
+    this rank's coordinate, tokens, logits, collective tally (prefill and
+    first decode), the shapes of the caches it holds, the leaves it
+    holds of the carried model and of one built from seed 0.
+    ``train_cases``: name -> dict of ``cfg``, ``shape``, ``train`` (a list
+    of global (B, S) token arrays), ``train_frontend`` (a list of global
+    frontend arrays, or None), ``zero1`` and ``remat``: each step's
+    metrics of `make_train_step`."""
+    meshes = {}
+
+    def mesh_of(shape):
+        if shape not in meshes:
+            meshes[shape] = make_rank_mesh(shape, device="cpu",
+                                           ranks=range(int(np.prod(shape))))
+        return meshes[shape]
+
+    out = {"serve": {}, "train": {}}
+    for name, case in serve_cases.items():
+        mesh = mesh_of(tuple(case["shape"]))
+        if not mesh.is_member:
+            continue
+        cfg = cfgs[case["cfg"]]
+        model = rank_model_from(cfg, tree, mesh)
+        prompts = case["prompts"]
+        res = serve_batch(cfg, mesh, prompts, case["gen"],
+                          frontend=case.get("prompts_frontend"), model=model,
+                          keep_logits=True, print_fn=lambda *_: None,
+                          device="cpu")
+        caches = model.init_caches(prompts.shape[0], prompts.shape[1] + case["gen"])
+        seeded = build_model(cfg, "cpu", seed=0, shard=ParamShard.of(mesh))
+        out["serve"][name] = dict(
+            coord=mesh.coord, tokens=res["tokens"], logits=res["logits"].numpy(),
+            collectives=res["collectives"], cache_shapes=_shapes(caches),
+            carried=_numpy(reference_tree(model)),
+            seeded=_numpy(reference_tree(seeded)))
+    for name, case in train_cases.items():
+        mesh = mesh_of(tuple(case["shape"]))
+        if not mesh.is_member:
+            continue
+        cfg = cfgs[case["cfg"]]
+        model = rank_model_from(cfg, tree, mesh)
+        bundle = make_train_step(cfg, mesh, opt=TRAIN_OPT, remat=case["remat"],
+                                 zero1=case["zero1"])
+        state, step = bundle.init_opt(model), bundle.jit_for(None)
+        metrics = []
+        for i, tokens in enumerate(case["train"]):
+            batch = {"tokens": torch.from_numpy(tokens)}
+            if case["train_frontend"] is not None:
+                batch["frontend"] = torch.from_numpy(case["train_frontend"][i])
+            state, m = step(model, state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        out["train"][name] = dict(coord=mesh.coord, metrics=metrics)
+    return out
