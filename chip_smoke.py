@@ -94,10 +94,10 @@
    f32 on (1, 4) and (1, 2) against the unsharded model (tokens equal,
    logits within 1e-5 of max|logit|, each rank's leaves the unsharded
    model's blocks by fingerprint, a decode step's 2L + 2 collectives by
-   the mesh's tally) and all 32 layers in bf16 on (1, 2), timed beside
-   the unsharded model (the prefill's last logits within 5e-2 of
-   max|logit|, 66 collectives a decode step, each rank's peak memory at
-   most 0.6 of the unsharded run's).  Then training on ranks
+   the mesh's tally) and 16 of its 32 layers in bf16 on (1, 2), timed
+   beside the unsharded model (the prefill's last logits within 5e-2 of
+   max|logit|, 2L + 2 = 34 collectives a decode step, each rank's peak
+   memory at most 0.65 of the unsharded run's).  Then training on ranks
    (``train_ranks_part``): llama3-8b at its published width, 2 layers
    in f32 on (1, 2) and on (2, 2) with ZeRO-1, and qwen3-moe-30b-a3b, 1
    layer in f32 on (1, 2), two steps against the unsharded run from the
@@ -110,6 +110,20 @@
    on (1, 2) beside the unsharded run under both remat policies (step,
    optimizer and peak; finite, falling losses; each rank's tally equal to
    a counting mesh's; its profiled matmul FLOPs within 1% of the count).
+   Then the families part (``tp_families_part``): the MLA, Mamba-2,
+   hybrid, VLM and audio families at their published widths, depth cut,
+   f32 on (1, 4) and (1, 2) against the unsharded run.  Last the
+   checkpoint and head-dim parts (``ckpt_hd_part``), hymba-1.5b at its
+   published width with one SWA and one global layer in f32:
+   ``train_loop`` on (1, 2), 4 steps with a checkpoint every 2 (the
+   ranks gather the whole tree, one writes), a run stopped at 2 and
+   resumed (the straight run's losses bitwise), that step restored on
+   (1, 4), (2, 2) and one card (every rank's parameter and moment blocks
+   the checkpoint's, by fingerprint); and served with
+   ``shard_head_dim_fallback=True`` on (1, 4) and (1, 2) (tokens equal,
+   logits within 1e-5 of max|logit| or 4x the same-run floor, the
+   attention leaves the planner's head-dim blocks, the parameter bytes
+   its blocks under the flag, the tallies a counting mesh's).
    The ranks launch no TPU kernel; the parent one hop_cost (the islands'
    avg_hop).
 13. Serves the LLM model zoo on the card (``repro_torch.launch.serve_batch``,
@@ -1735,19 +1749,24 @@ def _held_to(name: str, card: str, members: list, want: dict, tol: float) -> flo
 # 128,256) on gloo ranks of cuda:0, each rank's model holding the
 # planner's blocks (`ParamShard.of(mesh)`), from a torch.Generator seeded
 # RANKS["seed"]: f32 at 2 layers on (1, 4) and (1, 2) against the
-# unsharded model, and bf16 at all 32 layers on (1, 2), timed.
+# unsharded model, and bf16 at 16 of its 32 layers on (1, 2), timed.
 TP_ARCH = "llama3-8b"
 TP_MESHES = ((1, 4), (1, 2))
 TP_PARITY_LAYERS = 2  # f32, held to the unsharded run
-TP_TIMING_LAYERS = 32  # bf16, the full depth, timed on (1, 2)
+TP_TIMING_LAYERS = 16  # bf16, half the depth, timed on (1, 2)
 # The prefill's last logits, of max|logit|, against the unsharded bf16
 # run's.  32 random bf16 layers amplify any change of rounding to ~2e-2:
 # the shipped f32 reduction of the row-parallel sums reads 1.9e-2 and
 # XLA's bf16 one 2.3e-2, both correct; each rank attending with its KV
 # heads rolled by one reads 1.6 (PERF.md §6).  The limit sits
-# between them.
+# between them; 16 layers amplify less.
 TP_BF16_TOL = 5e-2
-TP_PEAK_SHARE = 0.6  # a rank's peak memory against the unsharded run's
+# A rank's peak memory against the unsharded run's.  Both peaks hold the
+# f32 draw of the whole embedding at init (1.96 GiB) beside the weights:
+# at 32 layers a rank read 0.558 (7.48 + 1.96 GiB against 14.96 + 1.96),
+# so at 16 it should read (4.23 + 1.96) / (8.46 + 1.96) = 0.594; a rank
+# holding its layers whole reads 0.8 or more.
+TP_PEAK_SHARE = 0.65
 
 
 def tp_config(layers: int, dtype: str):
@@ -1789,7 +1808,7 @@ def tp_body(prompts) -> dict:
     """What each of RANKS_WORLD ranks runs for the tensor-parallel part:
     the f32 model served on the (1, 4) and (1, 2) meshes (tokens, logits,
     the collectives' tally and a `fingerprint` of every leaf it holds),
-    then the bf16 model at full depth served twice on (1, 2) (ranks 0 and
+    then the bf16 model at TP_TIMING_LAYERS served twice on (1, 2) (ranks 0 and
     1; timings, peak memory, tally).  Returns the results and this
     process's kernel launch counts."""
     import torch
@@ -1870,8 +1889,8 @@ def tp_part(card: str) -> dict:
     from the same seed: f32 at TP_PARITY_LAYERS on (1, 4) and (1, 2)
     (tokens equal, logits within RANKS_TOL of max|logit|, each rank's
     leaves the unsharded model's blocks by `fingerprint`, a decode step's
-    2L + 2 collectives); bf16 at full depth on (1, 2) (the prefill's last
-    logits within TP_BF16_TOL of max|logit|, a decode step's 66
+    2L + 2 collectives); bf16 at TP_TIMING_LAYERS on (1, 2) (the prefill's
+    last logits within TP_BF16_TOL of max|logit|, a decode step's 2L + 2
     collectives, each rank's peak at most TP_PEAK_SHARE of the unsharded
     run's; the greedy tokens' agreement printed).  Returns the ranks'
     kernel launch counts."""
@@ -2927,11 +2946,12 @@ def _tree_leaves(tree) -> list:
     return [tree]
 
 
-def _planned_bytes(cfg, shape, coord: dict) -> tuple[int, int]:
+def _planned_bytes(cfg, shape, coord: dict,
+                   head_dim_fallback: bool = False) -> tuple[int, int]:
     """The bytes of the planner's blocks at ``coord`` of a (data, model)
-    mesh of ``shape``: of every parameter leaf (``plan_params``) and of
-    every cache leaf of the serve's caches (``plan_caches``), each block
-    cut by `shard_slices`."""
+    mesh of ``shape``: of every parameter leaf (``plan_params``, under
+    ``head_dim_fallback``) and of every cache leaf of the serve's caches
+    (``plan_caches``), each block cut by `shard_slices`."""
     import math
 
     from repro_torch.models import Model
@@ -2956,7 +2976,8 @@ def _planned_bytes(cfg, shape, coord: dict) -> tuple[int, int]:
         for k in keys[:-1]:
             node = node.setdefault(k, {})
         node[keys[-1]] = torch.empty(whole, dtype=items[0][1].dtype, device="meta")
-    plan = ShardingPlan(mesh_shape=mesh_shape)
+    plan = ShardingPlan(mesh_shape=mesh_shape,
+                        shard_head_dim_fallback=head_dim_fallback)
     caches = meta.init_caches(FAM["batch"], FAM["prompt_len"] + FAM["gen_len"])
     return (total(plan_params(plan, params), params),
             total(plan_caches(ShardingPlan(mesh_shape=mesh_shape), caches), caches))
@@ -2975,9 +2996,11 @@ def _perturb(model) -> None:
                                                  device=p.device))
 
 
-def _fam_counted(cfg, inp: dict, shape, coord: dict) -> dict:
+def _fam_counted(cfg, inp: dict, shape, coord: dict,
+                 head_dim_fallback: bool = False) -> dict:
     """The tally of the serve's prefill and of a decode step at ``coord``
-    on a counting mesh (the meta device)."""
+    on a counting mesh (the meta device), the model and the serve step
+    under ``head_dim_fallback``."""
     import torch
 
     from repro_torch.launch.mesh import make_counting_mesh
@@ -2986,7 +3009,7 @@ def _fam_counted(cfg, inp: dict, shape, coord: dict) -> dict:
     from repro_torch.sharding import ParamShard
 
     mesh = make_counting_mesh(shape, position=(coord["data"], coord["model"]))
-    model = Model(cfg, "meta", ParamShard.of(mesh))
+    model = Model(cfg, "meta", ParamShard.of(mesh, head_dim_fallback))
     batch = {"tokens": torch.empty(inp["prompts"].shape, dtype=torch.int32,
                                    device="meta")}
     if inp["frontend"] is not None:
@@ -2997,7 +3020,8 @@ def _fam_counted(cfg, inp: dict, shape, coord: dict) -> dict:
     prefill = mesh.tally_since(mark)
     tok = torch.empty((FAM["batch"], 1), dtype=torch.int32, device="meta")
     mark = mesh.copy_tally()
-    make_serve_step(cfg, mesh, cache_len).jit_for(None)(model, caches, tok, tok)
+    make_serve_step(cfg, mesh, cache_len, shard_head_dim_fallback=head_dim_fallback
+                    ).jit_for(None)(model, caches, tok, tok)
     return {"prefill": prefill, "decode": mesh.tally_since(mark)}
 
 
@@ -3120,6 +3144,345 @@ def tp_families_part(card: str) -> dict:
     return {name: sum(r["launches"][name] for r in got) for name in got[0]["launches"]}
 
 
+# The checkpoint and head-dim parts of the ranks phase (`ckpt_hd_part`,
+# one job of RANKS_WORLD ranks on cuda:0 over gloo): hymba-1.5b at its
+# published width (d_model 1,600, 25 heads, 5 KV heads, head_dim 64, d_ff
+# 5,504, vocab 32,001), one SWA and one global layer (FAM_ARCHS), f32.
+# The checkpoint part trains it with `train_loop` on (1, 2), CK["steps"]
+# steps of CK["batch"] x CK["seq"] tokens with a checkpoint every
+# CK["every"] (the ranks gather the whole tree, the all-zero position
+# writes), a run stopped at CK["every"] and resumed on (1, 2) against the
+# straight run, and that step restored on CK_RESTORE_MESHES and on one
+# card.  The head-dim part serves it with shard_head_dim_fallback=True on
+# FAM_MESHES (its 25 and 5 heads divide neither axis, its head_dim of 64
+# both), as the families part serves it without the flag.
+CK = dict(batch=4, seq=128, steps=4, every=2, lr=3e-4, seed=0)
+CK_RESTORE_MESHES = ((1, 4), (2, 2))
+HD_ARCH = "hymba-1.5b"
+HD_LEAVES = ("attn.wq", "attn.wk", "attn.wv", "attn.wo")
+
+
+def _leaf_prints(model, state, mesh_info) -> dict:
+    """By leaf path: the block of the whole stacked leaf the model holds
+    and its moments' (`RankLeaf`), and a `fingerprint` of the parameter
+    block (its layers stacked) and of each moment."""
+    import torch
+
+    from repro_torch.optim.adamw import rank_leaves
+
+    named = dict(model.named_parameters())
+    out = {}
+    for leaf in rank_leaves(model, mesh_info):
+        mine = [named[n].detach() for n in leaf.names]
+        p = torch.stack(mine).reshape(*leaf.lead, *mine[0].shape) if leaf.lead \
+            else mine[0]
+        out[leaf.path] = dict(
+            block=tuple(slice(0, n) for n in leaf.lead) + leaf.layer_block,
+            moment_block=leaf.moment_block, p=fingerprint(p),
+            m=fingerprint(state["m"][leaf.path]), v=fingerprint(state["v"][leaf.path]))
+    return out
+
+
+def _ckpt_ranks(cfg, meshes: dict, store: Path) -> dict:
+    """The checkpoint part on this rank (`ckpt_hd_body`): on (1, 2) the
+    straight run (checkpoints under ``store / "straight"``), the run
+    stopped at CK["every"] (its checkpoint under ``store / "resume"``)
+    with the fingerprints of what the rank held there, and the run
+    resumed from it; then that step restored on each of
+    CK_RESTORE_MESHES that holds the rank: the rank reads the committed
+    step once (``read_s``) and cuts its blocks for each mesh
+    (``seconds``: the model's allocation and the cut)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.interop import rank_state_from, state_template
+    from repro_torch.launch.mesh import batch_axes_of
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import Model
+    from repro_torch.runtime import CheckpointManager
+    from repro_torch.sharding import ParamShard
+
+    kw = dict(steps=CK["steps"], batch=CK["batch"], seq=CK["seq"], lr=CK["lr"],
+              seed=CK["seed"], ckpt_every=CK["every"], print_fn=lambda *_: None)
+    out = {}
+    mesh = meshes[(1, 2)]
+    if mesh.is_member:
+        straight = train_loop(cfg, mesh, ckpt_dir=store / "straight", **kw)
+        del straight["model"], straight["opt_state"]
+        torch.cuda.empty_cache()
+        stopped = train_loop(cfg, mesh, ckpt_dir=store / "resume",
+                             stop_at=CK["every"], **kw)
+        held = _leaf_prints(stopped["model"], stopped["opt_state"],
+                            (mesh, batch_axes_of(mesh)))
+        del stopped["model"], stopped["opt_state"]
+        torch.cuda.empty_cache()
+        resumed = train_loop(cfg, mesh, ckpt_dir=store / "resume", resume=True, **kw)
+        del resumed["model"], resumed["opt_state"]
+        torch.cuda.empty_cache()
+        out["train"] = dict(coord=mesh.coord, straight=straight, stopped=stopped,
+                            resumed=resumed, held=held)
+    dist.barrier()  # every checkpoint is on disk
+    t0 = time.perf_counter()
+    state, _ = CheckpointManager(store / "resume").restore(
+        state_template(Model(cfg, "meta")), step=CK["every"])
+    out["read_s"] = time.perf_counter() - t0
+    for shape in CK_RESTORE_MESHES:
+        mesh = meshes[shape]
+        if not mesh.is_member:
+            continue
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = Model(cfg, mesh.device, ParamShard.of(mesh))
+        minfo = (mesh, batch_axes_of(mesh))
+        opt = rank_state_from(model, state, minfo)
+        torch.cuda.synchronize()
+        out[shape] = dict(coord=mesh.coord, step=int(opt["step"]),
+                          seconds=time.perf_counter() - t0,
+                          held=_leaf_prints(model, opt, minfo))
+        del model, opt
+        torch.cuda.empty_cache()
+    del state
+    dist.barrier()  # the next part's timings start together
+    return out
+
+
+def _hd_ranks(cfg, meshes: dict, inp: dict) -> dict:
+    """The head-dim part on this rank (`ckpt_hd_body`): the model built
+    from FAM["seed"] with the planner's head-dim blocks, served with
+    shard_head_dim_fallback=True on each of FAM_MESHES that holds the
+    rank: `_served`, the tally, the parameter bytes and a `fingerprint`
+    of each attention leaf (HD_LEAVES)."""
+    import torch
+
+    from repro_torch.launch import serve_batch
+    from repro_torch.models import build_model
+    from repro_torch.sharding import ParamShard
+
+    out = {}
+    for shape in FAM_MESHES:
+        mesh = meshes[shape]
+        if not mesh.is_member:
+            continue
+        model = build_model(cfg, mesh.device, seed=FAM["seed"],
+                            shard=ParamShard.of(mesh, head_dim_fallback=True))
+        res = serve_batch(cfg, mesh, inp["prompts"], FAM["gen_len"], model=model,
+                          keep_logits=True, print_fn=lambda *_: None)
+        out[shape] = dict(
+            _served(res, mesh), coord=mesh.coord, collectives=res["collectives"],
+            param_bytes=nbytes(*model.parameters()),
+            num_params=sum(p.numel() for p in model.parameters()),
+            digests={n: fingerprint(p) for n, p in model.named_parameters()
+                     if n.endswith(HD_LEAVES)})
+        del model, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def ckpt_hd_body(inp: dict, store: str) -> dict:
+    """What each of RANKS_WORLD ranks runs for the checkpoint and head-dim
+    parts (`_ckpt_ranks`, `_hd_ranks`).  Returns their results and this
+    process's kernel launch counts."""
+    from repro_torch.launch.mesh import make_rank_mesh
+
+    counters = launch_counters()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    shapes = dict.fromkeys(((1, 2),) + CK_RESTORE_MESHES + FAM_MESHES)
+    meshes = {shape: make_rank_mesh(shape, device="cuda",
+                                    ranks=range(shape[0] * shape[1]))
+              for shape in shapes}
+    cfg = fam_config(HD_ARCH)
+    out = {"ckpt": _ckpt_ranks(cfg, meshes, Path(store)),
+           "hd": _hd_ranks(cfg, meshes, inp)}
+    out["launches"] = {name: getattr(mod, attr)
+                       for name, (mod, attr) in counters.items()}
+    return out
+
+
+def _check_ckpt(card: str, cfg, got: list, store: Path) -> None:
+    """The checkpoint part's gates (`ckpt_hd_part`): the resumed losses the
+    straight run's, bitwise; every restored rank's blocks, and the (1, 2)
+    ranks' blocks at the stop, the blocks of the checkpoint restored on
+    one card (by `fingerprint`)."""
+    import torch
+
+    from repro_torch.interop import rank_state_from, reference_state, state_template
+    from repro_torch.models import Model
+    from repro_torch.runtime import CheckpointManager
+
+    runs = [r["ckpt"]["train"] for r in got if "train" in r["ckpt"]]
+    if len(runs) != 2:
+        fail(f"ranks checkpoint: {len(runs)} ranks trained on (1, 2)")
+    for r in runs:
+        straight, first, rest = r["straight"], r["stopped"], r["resumed"]
+        if first["losses"] + rest["losses"] != straight["losses"]:
+            fail(f"ranks checkpoint {r['coord']}: stopped at {CK['every']} and "
+                 f"resumed, the losses {first['losses'] + rest['losses']} are not "
+                 f"the straight run's {straight['losses']} bitwise")
+        if straight["losses"] != runs[0]["straight"]["losses"]:
+            fail("ranks checkpoint: the (1, 2) ranks' losses differ")
+    t0 = time.perf_counter()
+    model = Model(cfg, "cuda")
+    folder = store / "resume" / f"step_{CK['every']:09d}"
+    state, step = CheckpointManager(store / "resume").restore(
+        state_template(model), step=CK["every"])
+    opt = rank_state_from(model, state)
+    del state
+    torch.cuda.synchronize()
+    one_card_s = time.perf_counter() - t0
+    params, moments = reference_state(model, opt)
+    del model, opt
+    torch.cuda.empty_cache()
+    holders = [("(1, 2) at the stop", r["coord"], r["held"]) for r in runs]
+    for shape in CK_RESTORE_MESHES:
+        members = [r["ckpt"][shape] for r in got if shape in r["ckpt"]]
+        if len(members) != shape[0] * shape[1]:
+            fail(f"ranks checkpoint: {len(members)} ranks restored on {shape}")
+        for m in members:
+            if m["step"] != CK["every"]:
+                fail(f"ranks checkpoint {shape} {m['coord']}: step {m['step']}")
+        holders += [(f"{shape} restored", m["coord"], m["held"]) for m in members]
+    leaves = 0
+    for path in holders[0][2]:
+        *keys, name = path.split("/")
+        whole = {"p": params, "m": moments["m"], "v": moments["v"]}
+        for part, tree in whole.items():
+            for k in keys:
+                tree = tree[k]
+            t = tree[name].to("cuda")
+            for what, coord, held in holders:
+                leaf = held[path]
+                block = leaf["block"] if part == "p" else leaf["moment_block"]
+                if fingerprint(t[block]) != leaf[part]:
+                    fail(f"ranks checkpoint {what} {coord}: {part} of {path} is "
+                         "not its block of the checkpoint restored on one card")
+            del t
+        leaves += 1
+    ckpt_bytes = (folder / "arrays.npz").stat().st_size
+    r = runs[0]
+    read_s = [x["ckpt"]["read_s"] for x in got]
+    cut_s = [m["seconds"] for shape in CK_RESTORE_MESHES
+             for m in (x["ckpt"][shape] for x in got if shape in x["ckpt"])]
+    writes = r["straight"]["checkpoint_seconds"]["write"]
+    print(f"ranks checkpoint {HD_ARCH} ({cfg.num_layers} layers, f32) (1, 2) "
+          f"[{card}]: {CK['steps']} steps of {CK['batch']} x {CK['seq']} tokens, "
+          f"losses {r['straight']['losses']}; stopped at {CK['every']} and "
+          "resumed: the straight run's losses bitwise; every (1, 4) and (2, 2) "
+          "rank's restored parameters and moments, and the (1, 2) ranks' blocks "
+          f"at the stop, are their blocks of the checkpoint restored on one card "
+          f"({leaves} leaves, fingerprints)")
+    print(f"ranks checkpoint [{card}]: {ckpt_bytes} B a checkpoint "
+          f"({ckpt_bytes / 1e9:.3f} GB, params and both moments); gather and host "
+          f"copy on the (1, 2) ranks {', '.join(f'{s:.3f}' for s in r['straight']['checkpoint_seconds']['gather'])} s; "
+          f"write (rank 0's thread) {', '.join(f'{s:.3f}' for s in writes)} s; "
+          f"resume's restore on (1, 2) {r['resumed']['checkpoint_seconds']['restore']:.3f} s; "
+          f"for {', '.join(map(str, CK_RESTORE_MESHES))} each rank read the step in "
+          f"{min(read_s):.3f}-{max(read_s):.3f} s (the {len(got)} at once) and cut "
+          f"its blocks in {min(cut_s):.3f}-{max(cut_s):.3f} s a mesh; restore on "
+          f"one card {one_card_s:.3f} s; steps "
+          f"{', '.join(f'{s * 1e3:.1f}' for s in r['straight']['step_seconds'])} ms")
+
+
+def _check_hd(card: str, cfg, got: list, want: dict, digests: dict,
+              inp: dict) -> None:
+    """The head-dim part's gates (`ckpt_hd_part`)."""
+    for shape in FAM_MESHES:
+        members = [r["hd"][shape] for r in got if shape in r["hd"]]
+        if len(members) != shape[0] * shape[1]:
+            fail(f"ranks head-dim {shape}: {len(members)} ranks answered")
+        _held_to(f"head-dim {HD_ARCH} {shape}", card, members, want, want["tol"])
+        for m in members:
+            ref = digests[shape, m["coord"]["model"]]
+            if m["digests"] != ref:
+                bad = sorted(n for n, d in m["digests"].items() if d != ref.get(n))
+                fail(f"ranks head-dim {shape} {m['coord']}: the attention leaves "
+                     f"{bad[:4]} are not the planner's head-dim blocks")
+            params, _ = _planned_bytes(cfg, shape, m["coord"], head_dim_fallback=True)
+            if m["param_bytes"] != params:
+                fail(f"ranks head-dim {shape} {m['coord']}: holds "
+                     f"{m['param_bytes']} B of parameters, the planner's blocks "
+                     f"under the flag {params}")
+            counted = _fam_counted(cfg, inp, shape, m["coord"], head_dim_fallback=True)
+            if m["collectives"] != counted:
+                fail(f"ranks head-dim {shape} {m['coord']}: the tally "
+                     f"{m['collectives']} is not the counting mesh's {counted}")
+        m = members[0]
+        without, _ = _planned_bytes(cfg, shape, m["coord"])
+        print(f"ranks head-dim {HD_ARCH} {shape} rank 0 [{card}]: "
+              f"{m['num_params'] / 1e6:.1f} M parameters ({m['param_bytes']} B, "
+              f"the planner's blocks under shard_head_dim_fallback; "
+              f"{without} B without it); every rank's {len(m['digests'])} "
+              "attention leaves the planner's head-dim blocks (fingerprints); "
+              "tallies equal the counting mesh's; prefill "
+              f"{m['prefill_s'] * 1e3:.3f} ms; decode {m['decode_s_per_tok'] * 1e3:.3f} "
+              f"ms a token (unsharded {want['decode_s_per_tok'] * 1e3:.3f}); a decode "
+              f"step: {_fmt_tally(m['collectives']['decode'])}; the prefill: "
+              f"{_fmt_tally(m['collectives']['prefill'])}")
+
+
+def ckpt_hd_part(card: str) -> dict:
+    """The checkpoint and head-dim parts of the ranks phase (`ckpt_hd_body`
+    on RANKS_WORLD processes on cuda:0 over gloo), hymba-1.5b at its
+    published width: `_check_ckpt` and `_check_hd`, the latter against the
+    unsharded model from FAM["seed"] (tokens equal, logits within
+    max(FAM_TOL, FAM_FLOOR_MULT x the same-run floor) of max|logit|, each
+    rank's attention leaves the unsharded model's head-dim blocks by
+    `fingerprint`, its parameter bytes the planner's blocks under the
+    flag, its tallies a counting mesh's).  The checkpoints are deleted at
+    the end.  Returns the ranks' kernel launch counts."""
+    import shutil
+
+    import torch
+
+    from repro_torch.launch import make_local_mesh, serve_batch
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import build_model
+    from repro_torch.models.model import reference_path
+    from repro_torch.sharding import ParamShard
+
+    t_part = time.perf_counter()
+    cfg = fam_config(HD_ARCH)
+    inp = _fam_inputs(cfg)
+    one = make_local_mesh(device="cuda")
+    kw = dict(keep_logits=True, print_fn=lambda *_: None)
+    torch.cuda.empty_cache()
+    model = build_model(cfg, "cuda", seed=FAM["seed"])
+    want = serve_batch(cfg, one, inp["prompts"], FAM["gen_len"], model=model, **kw)
+    digests = {}
+    for shape in FAM_MESHES:
+        for i in range(shape[1]):
+            shard = ParamShard({"data": shape[0], "model": shape[1]},
+                               {"data": 0, "model": i}, head_dim_fallback=True)
+            digests[shape, i] = {
+                n: fingerprint(p[shard.block(reference_path(n)[0], p.shape)[1]])
+                for n, p in model.named_parameters() if n.endswith(HD_LEAVES)}
+    _perturb(model)
+    moved = serve_batch(cfg, one, inp["prompts"], FAM["gen_len"], model=model,
+                        **kw)["logits"]
+    want["floor"] = float((moved - want["logits"]).abs().max()
+                          / want["logits"].abs().max())
+    want["tol"] = max(FAM_TOL, FAM_FLOOR_MULT * want["floor"])
+    del model, moved
+    torch.cuda.empty_cache()
+    print(f"ranks head-dim {HD_ARCH} ({cfg.num_layers} layers, f32) unsharded "
+          f"[{card}]: decode {want['decode_s_per_tok'] * 1e3:.3f} ms a token; its "
+          f"floor (the weights moved by one rounding) {want['floor']:.3e} of "
+          f"max|logit|, so the bound {want['tol']:.3e}")
+
+    store = ROOT / "build" / "ckpt_ranks"
+    shutil.rmtree(store, ignore_errors=True)
+    t0 = time.perf_counter()
+    got = run_ranks(ckpt_hd_body, RANKS_WORLD, ROOT / "build" / "ckhd_ranks",
+                    inp, str(store), device="cuda", timeout_s=RANKS_TIMEOUT_S)
+    job_s = time.perf_counter() - t0
+    _check_hd(card, cfg, got, want, digests, inp)
+    _check_ckpt(card, cfg, got, store)
+    shutil.rmtree(store)
+    print(f"ranks checkpoint and head-dim [{card}]: the rank job {job_s:.1f} s, "
+          f"the part {time.perf_counter() - t_part:.1f} s")
+    return {name: sum(r["launches"][name] for r in got) for name in got[0]["launches"]}
+
+
 def ranks_phase(counters, island: dict) -> dict:
     """The rank path on the card (`ranks_body` on RANKS_WORLD processes,
     all on cuda:0 over gloo): qwen3-moe-30b-a3b at full width with 2 layers
@@ -3230,9 +3593,11 @@ def ranks_phase(counters, island: dict) -> dict:
     in_tp = tp_part(card)
     in_train = train_ranks_part(card)
     in_families = tp_families_part(card)
+    in_ckpt_hd = ckpt_hd_part(card)
     launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
     in_ranks = {name: sum(r["launches"][name] for r in got) + in_tp[name]
-                + in_train[name] + in_families[name] for name in launches}
+                + in_train[name] + in_families[name] + in_ckpt_hd[name]
+                for name in launches}
     print(f"ranks phase [{card}]: {time.perf_counter() - t_phase:.1f} s "
           f"({ranks_s:.1f} s in the expert-parallel rank job); launches here "
           f"{json.dumps(launches)}, in the ranks {json.dumps(in_ranks)}")

@@ -8,7 +8,11 @@ Model weights travel as the reference's parameter tree of numpy arrays
 (`model_params_from`; one rank's model of a mesh of ranks,
 `rank_model_from`) and back (`reference_tree`, `reference_path`), and
 AdamW's moments as the reference's optimizer state (`opt_state_from`,
-`reference_opt_state`).
+`reference_opt_state`).  A rank's whole training state travels as the
+reference's whole ``(params, opt_state)`` tree: gathered leaf by leaf
+over the mesh (`reference_state`), and cut back into any mesh's blocks
+(`rank_state_from`), which is how a checkpoint written on one mesh
+restores on another.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ import torch
 from repro_torch.core.graph import Graph, Hypergraph
 from repro_torch.core.partition import PartitionResult
 from repro_torch.models.model import Model, reference_path
+from repro_torch.optim.adamw import rank_leaves
+from repro_torch.runtime.elastic import Sharded
 from repro_torch.sharding.planner import ParamShard
 from repro_torch.snn.simulate import ProfileResult
 from repro_torch.snn.topology import SNNTopology
@@ -26,7 +32,8 @@ __all__ = ["graph_from", "hypergraph_from", "partition_from", "profile_from",
            "topology_from", "model_params_from", "rank_model_from",
            "load_reference_tree",
            "reference_path", "reference_tree", "opt_state_from",
-           "reference_opt_state"]
+           "reference_opt_state", "reference_state", "rank_state_from",
+           "state_template"]
 
 
 def _get(obj, name: str, default=None):
@@ -199,21 +206,24 @@ def model_params_from(cfg, tree, device: "str | torch.device" = "cuda") -> Model
     return load_reference_tree(Model(cfg, device), tree)
 
 
-def rank_model_from(cfg, tree, mesh) -> Model:
+def _blocks_of(model: Model, tree, keys=()):
+    """The reference's whole parameter tree cut to the blocks ``model``
+    holds (`Model.leaf_block`), as CPU tensors."""
+    if isinstance(tree, dict):
+        return {k: _blocks_of(model, v, keys + (str(k),)) for k, v in tree.items()}
+    leaf = _as_tensor(tree)
+    return leaf[model.leaf_block(keys, leaf.shape)]
+
+
+def rank_model_from(cfg, tree, mesh, head_dim_fallback: bool = False) -> Model:
     """This rank's `Model` on a mesh of ranks, on the rank's device, from
     the reference's whole parameter tree (as `model_params_from` takes
     it): each stacked leaf is cut to the block the rank's model holds
     (`Model.leaf_block`: the planner's spec of the leaf for the rank's
-    position, ``ParamShard.of(mesh)``, through `shard_slices`)."""
-    model = Model(cfg, mesh.device, ParamShard.of(mesh))
-
-    def local(node, keys):
-        if isinstance(node, dict):
-            return {k: local(v, keys + (str(k),)) for k, v in node.items()}
-        leaf = _as_tensor(node)
-        return leaf[model.leaf_block(keys, leaf.shape)]
-
-    return load_reference_tree(model, local(tree, ()))
+    position, ``ParamShard.of(mesh, head_dim_fallback)``, through
+    `shard_slices`)."""
+    model = Model(cfg, mesh.device, ParamShard.of(mesh, head_dim_fallback))
+    return load_reference_tree(model, _blocks_of(model, tree))
 
 
 def reference_tree(model: Model) -> dict:
@@ -223,28 +233,110 @@ def reference_tree(model: Model) -> dict:
     return _stack(model, lambda _name, param: param)
 
 
-def opt_state_from(model: Model, ref_opt_state) -> dict:
+def opt_state_from(model: Model, ref_opt_state, mesh_info=None,
+                   zero1: bool = False) -> dict:
     """The port's optimizer state for ``model`` (`repro_torch.optim`:
     moments keyed by the reference leaf's path, each stacked as the
     model's leaf, on the model's device) from the reference's ``{"m":
-    tree, "v": tree, "step"}``, its moment trees shaped as the parameter
-    tree; moment dtypes are kept.  Raises ValueError on a missing or extra
-    leaf, or a leaf of another shape."""
-    leaves = model.reference_leaves()
+    tree, "v": tree, "step"}``, its moment trees shaped as the whole
+    parameter tree; moment dtypes are kept.  On a rank of a mesh of ranks
+    (``mesh_info = (mesh, batch_axes)``, ``model`` holding its blocks)
+    each moment is cut to the block the rank's update keeps
+    (`repro_torch.optim.adamw.RankLeaf.moment_block`, ZeRO-1's cut with
+    ``zero1``).  Raises ValueError on a missing or extra leaf, or a leaf
+    of another whole shape."""
+    leaves = rank_leaves(model, mesh_info, zero1)
+    paths = {leaf.path for leaf in leaves}
     out: dict = {}
     for part in ("m", "v"):
-        flat = {k: _as_tensor(v) for k, v in _flatten(ref_opt_state[part]).items()}
-        missing, extra = sorted(set(leaves) - set(flat)), sorted(set(flat) - set(leaves))
+        flat = {"/".join(k): v for k, v in _flatten(ref_opt_state[part]).items()}
+        missing, extra = sorted(paths - set(flat)), sorted(set(flat) - paths)
         if missing or extra:
             raise ValueError(f"{part} tree mismatch: missing {missing}, extra {extra}")
-        for keys, (shape, _) in leaves.items():
-            if tuple(flat[keys].shape) != shape:
-                raise ValueError(f"{part} {'/'.join(keys)}: "
-                                 f"{tuple(flat[keys].shape)}, expected {shape}")
-        out[part] = {"/".join(k): flat[k].to(model.device, copy=True)
-                     for k in sorted(leaves)}
+        out[part] = {}
+        for leaf in leaves:
+            whole = _as_tensor(flat[leaf.path])
+            if tuple(whole.shape) != leaf.whole:
+                raise ValueError(f"{part} {leaf.path}: {tuple(whole.shape)}, "
+                                 f"expected {leaf.whole}")
+            out[part][leaf.path] = whole[leaf.moment_block].to(
+                model.device, copy=True).contiguous()
     out["step"] = _as_tensor(ref_opt_state["step"]).to(torch.int32).to(model.device)
     return out
+
+
+def rank_state_from(model: Model, state, mesh_info=None,
+                    zero1: bool = False) -> dict:
+    """Load the reference's whole training state ``state = (params,
+    opt_state)`` (trees as `model_params_from` and `opt_state_from` take
+    them, with the whole leaves, e.g. a checkpoint's) into ``model`` and
+    return its optimizer state (`opt_state_from`): on a rank of a mesh of
+    ranks (``mesh_info = (mesh, batch_axes)``), the parameters cut to the
+    model's blocks (`Model.leaf_block`, as `rank_model_from` cuts them)
+    and the moments to the rank's blocks, ``step`` whole; on one card
+    every leaf whole.  A parameter is cast to the model's dtype, as the
+    reference's restore casts to its template.  Raises ValueError on a
+    missing or extra leaf, or a leaf of another whole shape."""
+    params, ref_opt = state
+    with torch.no_grad():
+        _unstack(model, _blocks_of(model, params),
+                 lambda _name, param, value: param.copy_(value), same_dtype=False)
+    return opt_state_from(model, ref_opt, mesh_info, zero1)
+
+
+def reference_state(model: Model, opt_state: dict, mesh_info=None,
+                    zero1: bool = False, keep: bool = True):
+    """The reverse of `rank_state_from`: the reference's whole ``(params,
+    {"m", "v", "step"})`` tree of ``model`` and its optimizer state, as
+    CPU tensors.  On one card, `reference_tree` and `reference_opt_state`.
+    On a rank of a mesh of ranks (``mesh_info``; ``zero1`` as the state
+    was made) every rank of the mesh must call it: each leaf's blocks
+    are gathered whole over the axes that split them
+    (`repro_torch.runtime.elastic.Sharded.full`, bit for bit), leaf by
+    leaf in the reference's leaf order, and moved to the host before the
+    next is gathered, so a card never holds more than one whole leaf; a
+    rank with ``keep=False`` takes part in the gathers and returns
+    None."""
+    if mesh_info is None:
+        return reference_tree(model), reference_opt_state(model, opt_state)
+    mesh = mesh_info[0]
+    named = dict(model.named_parameters())
+    params: dict = {}
+    ref_opt: dict = {"m": {}, "v": {}}
+    here = tuple(mesh.coord[a] for a in mesh.axis_names)
+    for leaf in rank_leaves(model, mesh_info, zero1):
+        mine = [named[n].detach() for n in leaf.names]
+        local = (torch.stack(mine).reshape(*leaf.lead, *mine[0].shape)
+                 if leaf.lead else mine[0])
+        for tree, t, spec in ((params, local, leaf.spec),
+                              (ref_opt["m"], opt_state["m"][leaf.path], leaf.moment_spec),
+                              (ref_opt["v"], opt_state["v"][leaf.path], leaf.moment_spec)):
+            whole = Sharded({here: t}, leaf.whole, mesh, spec).full()
+            if keep:
+                *keys, name = leaf.path.split("/")
+                node = tree
+                for k in keys:
+                    node = node.setdefault(k, {})
+                node[name] = whole.cpu()
+            del whole
+    if not keep:
+        return None
+    ref_opt["step"] = opt_state["step"].detach().to("cpu", copy=True)
+    return params, ref_opt
+
+
+def state_template(model: Model):
+    """The keys of the whole ``(params, {"m", "v", "step"})`` tree of
+    ``model`` with None leaves: a template for
+    `repro_torch.runtime.CheckpointManager.restore`, which then returns
+    the stored arrays as they are."""
+    params: dict = {}
+    for keys in model.reference_leaves():
+        node = params
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = None
+    return params, {"m": params, "v": params, "step": None}
 
 
 def reference_opt_state(model: Model, opt_state: dict) -> dict:

@@ -162,8 +162,10 @@ def count_cell(cfg: ArchConfig, sp: ShapeSpec, *, kv_chunk: int = 1024,
     the step's peak allocation), and its ``collectives``
     (`op_analysis.collective_bytes`).  Unsharded without ``mesh``; with
     a counting mesh (`make_abstract_mesh`), its position's step, whose
-    memory keys are the position's."""
-    shard = ParamShard.of(mesh) if mesh is not None else None
+    memory keys are the position's, and whose model holds the blocks of
+    the step's plan (``shard_head_dim_fallback`` among ``step_kwargs``)."""
+    shard = (ParamShard.of(mesh, step_kwargs.get("shard_head_dim_fallback", False))
+             if mesh is not None else None)
     model = Model(cfg, "meta", shard)
     call, args = cell_step(cfg, sp, model, kv_chunk=kv_chunk, remat=remat,
                            mesh=mesh, **step_kwargs)

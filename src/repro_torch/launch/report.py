@@ -124,9 +124,7 @@ def perf_table(path=PERF, baseline=ROOFLINE) -> str:
             if r.get("arch") == arch and r.get("shape") == shape \
                     and r.get("status") == "ok":
                 rt = r["roofline"]
-                verdict = "see PERF.md §6" + (
-                    f"; {', '.join(r['plan_only'])}: the plan only, not counted"
-                    if r.get("plan_only") else "")
+                verdict = "see PERF.md §6"
                 rows.append(f"| {tag} | {rt['compute_s']:.4g} | {rt['memory_s']:.4g} | "
                             f"{rt['collective_s']:.4g} | {r.get('useful_ratio') or 0:.3f} | "
                             f"{verdict} |")

@@ -59,7 +59,11 @@ def serve_batch(cfg, mesh, prompts: np.ndarray, gen_len: int,
     ``plan_batch`` replicates them); tokens and logits are gathered back
     over those axes where they were cut, and ``"collectives"`` holds the
     rank's tally (`Mesh.tally`) of the prefill and of the first decode
-    step.
+    step.  The serve step plans as the model was built
+    (``model.shard.head_dim_fallback``, `make_serve_step`): to serve with
+    the planner's head_dim blocks where the heads do not divide the model
+    axis, pass a model built with ``ParamShard.of(mesh,
+    head_dim_fallback=True)``.
     """
     ranks = mesh.ranks is not None
     if model is None:
@@ -79,7 +83,9 @@ def serve_batch(cfg, mesh, prompts: np.ndarray, gen_len: int,
     b, plen = prompts.shape
     cache_len = plen + gen_len
     prefill = make_prefill_step(cfg, mesh, cache_len=cache_len).jit_for(prompts.shape)
-    decode = make_serve_step(cfg, mesh, cache_len=cache_len).jit_for(b)
+    decode = make_serve_step(
+        cfg, mesh, cache_len=cache_len,
+        shard_head_dim_fallback=model.shard.head_dim_fallback).jit_for(b)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
 
     def pick(last):  # (B, V) -> (B, 1) int32

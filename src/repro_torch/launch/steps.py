@@ -22,6 +22,12 @@ replicates them; the prefill step cuts them so too), then `adamw_update` on the 
 over the batch axes, ZeRO-1 with ``zero1``); its reported ``loss`` and
 ``ce`` are the global batch's mean, the same on every rank, and ``aux``
 the reference's ``pmean``.
+
+A rank model built with the planner's ``shard_head_dim_fallback``
+(``ParamShard.of(mesh, head_dim_fallback=True)``: head_dim blocks where
+the heads do not divide the model axis) is served by a serve step made
+with the same flag and by the prefill step; the train step refuses it,
+as the reference's train step has no such plan.
 """
 from __future__ import annotations
 
@@ -117,6 +123,11 @@ def make_train_step(cfg: ArchConfig, mesh: Mesh, opt: AdamWConfig | None = None,
     zero1 = zero1 and minfo is not None
 
     def train_step(model: Model, opt_state: dict, batch: dict):
+        if model.shard.head_dim_fallback:
+            raise ValueError(
+                f"{cfg.name}: a model built with shard_head_dim_fallback "
+                "holds head_dim blocks; the train step plans without it, as "
+                "the reference's does, so it does not train such a model")
         if minfo is not None:
             batch = _rank_rows(batch, mesh)
         model.requires_grad_(True)
@@ -174,11 +185,21 @@ def make_serve_step(cfg: ArchConfig, mesh: Mesh, cache_len: int,
     """serve_step(model, caches, tokens, positions): one new token per
     sequence against the decode cache, written in place;
     ``jit_for(batch_size)``.  On a mesh of ranks, the rank's rows and its
-    block of the caches (the prefill step's)."""
+    block of the caches (the prefill step's).  ``shard_head_dim_fallback``
+    is the plan's: where the model splits its leaves (a model axis > 1)
+    its shard must have been built with the same flag
+    (``ParamShard.of(mesh, head_dim_fallback=...)``), else the step raises
+    ValueError rather than run the other layout."""
     minfo = _rank_info(mesh)
 
     @torch.inference_mode()
     def serve_step(model: Model, caches, tokens, positions):
+        if (not model.shard.whole
+                and model.shard.head_dim_fallback != shard_head_dim_fallback):
+            raise ValueError(
+                f"{cfg.name}: the serve step plans with "
+                f"shard_head_dim_fallback={shard_head_dim_fallback}, the model "
+                f"was built with {model.shard.head_dim_fallback}")
         logits, caches, _ = model(tokens, mode="decode", caches=caches,
                                   positions=positions, mesh_info=minfo,
                                   kv_chunk=kv_chunk)

@@ -20,11 +20,16 @@ moments stacked per layer (`repro_torch.interop.reference_tree`,
 On a mesh of ranks (`repro_torch.launch.mesh.make_rank_mesh`, inside a
 `run_ranks` job) every rank runs `train_loop`: its model holds its
 position's blocks, each step it takes its rows of the same global batch,
-and every rank logs the same loss.  Checkpoints need the state
-replicated (a mesh without a model axis > 1, the moments whole): rank 0
-writes, every rank restores.  Where the ranks hold blocks a checkpoint
-would have to gather them; that is not ported (ROADMAP queue 1:
-checkpoints on rank meshes), and ``ckpt_dir`` raises there.
+and every rank logs the same loss.  A checkpoint is the same whole tree
+on every mesh: every rank takes part in gathering it leaf by leaf
+(`repro_torch.interop.reference_state`; the collectives and the copies to
+the host run in the step, only the file write in ``save_async``'s
+thread), and the rank at the mesh's all-zero coordinate writes it.  On
+resume every rank reads the committed step and cuts its own blocks
+(`repro_torch.interop.rank_state_from`), so a checkpoint written on one
+mesh resumes on any other, or on one card.  Every exit of `train_loop`
+waits for the writer's file and then for the mesh's ranks (a barrier),
+so a resume called straight after it reads the same step on every rank.
 """
 from __future__ import annotations
 
@@ -34,12 +39,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.data import DataConfig, SyntheticLMData
-from repro_torch.interop import (load_reference_tree, opt_state_from,
-                                 reference_opt_state, reference_tree)
-from repro_torch.launch.mesh import Mesh, make_local_mesh
+from repro_torch.interop import rank_state_from, reference_state, state_template
+from repro_torch.launch.mesh import Mesh, batch_axes_of, make_local_mesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import Model, build_model
 from repro_torch.optim import AdamWConfig
@@ -59,22 +64,22 @@ def train_loop(cfg, mesh: Mesh, steps: int, batch: int, seq: int, ckpt_dir=None,
 
     Trains on the mesh's device ``model`` (default: `build_model` from
     ``seed`` there), whose parameters it updates in place.  Returns
-    {"losses", "final_loss", "seconds", "model"} — the reference returns
-    its params; `repro_torch.interop.reference_tree` gives them — and each
-    step's "grad_norms" and "step_seconds" (host clock around the step and
-    its loss read back, which waits for the card).  On a mesh of ranks
-    the device is the rank's and the model holds its blocks (module
+    {"losses", "final_loss", "seconds", "model", "opt_state"} — the
+    reference returns its params; `repro_torch.interop.reference_tree`
+    gives them — and each step's "grad_norms" and "step_seconds" (host
+    clock around the step and its loss read back, which waits for the
+    card), and "checkpoint_seconds": each save's gather and host copy
+    (``gather``, the part the step waits for), each file write of this
+    process (``write``, the writer's thread) and the restore
+    (``restore``).  On a mesh of ranks the device is the rank's, the
+    model holds its blocks and every rank saves and restores (module
     docstring)."""
     opt_cfg = AdamWConfig(lr=lr, warmup_steps=max(steps // 20, 5), total_steps=steps)
     bundle = make_train_step(cfg, mesh, opt=opt_cfg, remat=remat, zero1=False)
     ranks = mesh.ranks is not None
     device = mesh.device if ranks else mesh.devices.flat[0]
     shard = ParamShard.of(mesh) if ranks else None
-    if ckpt_dir and ranks and Model(cfg, "meta", shard).blocks:
-        raise NotImplementedError(
-            f"{cfg.name}: a checkpoint of ranks that hold blocks of their "
-            f"leaves (a model axis of {mesh.shape.get('model', 1)}) is not "
-            "ported (ROADMAP queue 1: checkpoints on rank meshes)")
+    minfo = (mesh, batch_axes_of(mesh)) if ranks else None
     writer = not ranks or mesh.coord == dict.fromkeys(mesh.axis_names, 0)
 
     data = SyntheticLMData(DataConfig(
@@ -85,11 +90,13 @@ def train_loop(cfg, mesh: Mesh, steps: int, batch: int, seq: int, ckpt_dir=None,
     opt_state = bundle.init_opt(model)
     start_step = 0
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    ckpt_seconds = {"gather": [], "restore": None,
+                    "write": mgr.write_seconds if mgr is not None else []}
     if resume and mgr is not None and mgr.latest_step() is not None:
-        template = (reference_tree(model), reference_opt_state(model, opt_state))
-        (params, ref_opt), start_step = mgr.restore(template)
-        load_reference_tree(model, params)
-        opt_state = opt_state_from(model, ref_opt)
+        t0 = time.perf_counter()
+        state, start_step = mgr.restore(state_template(model))
+        opt_state = rank_state_from(model, state, minfo)
+        ckpt_seconds["restore"] = time.perf_counter() - t0
         print_fn(f"[train] resumed from step {start_step}")
 
     def make_batch(step):
@@ -103,8 +110,20 @@ def train_loop(cfg, mesh: Mesh, steps: int, batch: int, seq: int, ckpt_dir=None,
     def on_device(b):
         return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
 
-    def tree():
-        return (reference_tree(model), reference_opt_state(model, opt_state))
+    def save(step):
+        """Every rank gathers; the writer writes (its thread)."""
+        t0 = time.perf_counter()
+        tree = reference_state(model, opt_state, minfo, keep=writer)
+        ckpt_seconds["gather"].append(time.perf_counter() - t0)
+        if writer:
+            mgr.save_async(step, tree)
+
+    def settle():
+        """The writer's file is committed before any rank returns."""
+        mgr.wait()
+        group = mesh.groups.get(mesh.axis_names) if ranks else None
+        if group is not None:
+            dist.barrier(group=group)
 
     step_fn = bundle.jit_for(make_batch(0))
     monitor = HeartbeatMonitor(num_hosts=1)
@@ -113,7 +132,8 @@ def train_loop(cfg, mesh: Mesh, steps: int, batch: int, seq: int, ckpt_dir=None,
     def result():
         return {"losses": losses, "final_loss": losses[-1] if losses else None,
                 "seconds": time.perf_counter() - t_start, "model": model,
-                "grad_norms": grad_norms, "step_seconds": step_seconds}
+                "opt_state": opt_state, "grad_norms": grad_norms,
+                "step_seconds": step_seconds, "checkpoint_seconds": ckpt_seconds}
 
     t_start = time.perf_counter()
     for step in range(start_step, steps):
@@ -129,22 +149,24 @@ def train_loop(cfg, mesh: Mesh, steps: int, batch: int, seq: int, ckpt_dir=None,
                      f"lr {float(metrics['lr']):.2e} "
                      f"gnorm {grad_norms[-1]:8.3f} "
                      f"({time.perf_counter() - t0:.2f}s/step)")
-        if mgr is not None and writer and (step + 1) % ckpt_every == 0:
-            mgr.save_async(step + 1, tree())
+        if mgr is not None and (step + 1) % ckpt_every == 0:
+            save(step + 1)
         if stop_at is not None and step + 1 >= stop_at:
             if mgr:
-                mgr.wait()
+                settle()
             return result()
         if fail_at is not None and step + 1 >= fail_at:
             print_fn(f"[train] simulated failure at step {step + 1} — restart "
                      "with --resume")
             if mgr:
-                mgr.wait()
+                settle()
             sys.exit(17)
-    if mgr is not None and writer:
-        mgr.wait()  # drain any in-flight async save before the final commit
-        if mgr.latest_step() != steps:
-            mgr.save(steps, tree())
+    if mgr is not None:
+        # The last step's state, unless its save came from ckpt_every (or
+        # it was restored): every rank decides alike, as all gather.
+        if start_step < steps and steps % ckpt_every:
+            save(steps)
+        settle()
     return result()
 
 

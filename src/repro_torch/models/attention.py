@@ -31,6 +31,12 @@ maximum over the slot holders (one ``all_max``), the weights against it,
 and their sum and weighted values summed over the holders (one
 ``all_reduce`` of both), divided once at the end.  The max and the sums
 are f32.
+
+A projection may hold a block of its head_dim instead (the planner's
+``shard_head_dim_fallback``, where the heads do not divide the model
+axis): its output's last dim is gathered whole before the norm and rope
+(`whole_head_dim`), and the output projection takes the rank's block of
+the attention output's head_dim (`head_dim_block`).
 """
 from __future__ import annotations
 
@@ -40,7 +46,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["mha", "decode_attend", "init_kv_cache", "update_kv_cache",
-           "SeqBlock", "write_slots", "seq_softmax", "gather_heads"]
+           "SeqBlock", "write_slots", "seq_softmax", "gather_heads",
+           "whole_head_dim", "head_dim_block"]
 
 NEG_INF = -1e30
 
@@ -145,6 +152,24 @@ def gather_heads(t: torch.Tensor, mesh) -> torch.Tensor:
     """(..., h, e) of this rank's block of heads -> (..., n h, e): the
     blocks of the ``n`` ranks along ``model``, in their order."""
     return mesh.all_gather(t, "model").movedim(0, -3).flatten(-3, -2)
+
+
+def whole_head_dim(t: torch.Tensor, whole: int, mesh) -> torch.Tensor:
+    """``t`` (..., e) with its last dim whole (``whole``): where it holds
+    this rank's block of it (a projection holding a head_dim block), the
+    blocks of the ranks along ``model`` gathered in their order."""
+    if t.shape[-1] == whole:
+        return t
+    return mesh.all_gather(t, "model").movedim(0, -2).flatten(-2)
+
+
+def head_dim_block(t: torch.Tensor, block: int, mesh) -> torch.Tensor:
+    """This rank's block of ``block`` elements of ``t``'s last dim (the
+    whole ``t`` where it has that size already)."""
+    if t.shape[-1] == block:
+        return t
+    i = mesh.coord["model"]
+    return t[..., i * block:(i + 1) * block]
 
 
 def decode_attend(

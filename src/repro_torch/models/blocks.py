@@ -30,6 +30,13 @@ and before ``w_gate``/``w_up``) passes `Mesh.copy_to`, whose backward
 sums its gradient over ``model``, and so do the replicated weights that
 each rank uses for its own heads only (``wk``/``wv`` where the KV heads
 stay whole, ``q_norm``/``k_norm``, MLA's ``w_dkv``/``w_kpe``).
+Where the heads do not divide the model axis and the model was built with
+the planner's ``shard_head_dim_fallback`` (`repro_torch.sharding.
+ParamShard`), a projection holds a block of the head_dim instead: its
+output is gathered whole over ``model`` (`attention.whole_head_dim`),
+attention runs as over whole projections, and ``wo`` takes the rank's
+block of the output's head_dim and sums its partial product over
+``model``; such a model serves, it does not train.
 `layers.row_parallel`'s output is the reference's ``tp_collective_out``
 point: under the ``"save_collectives"`` remat policy
 (`repro_torch.models.model`) it is kept, and the backward's
@@ -51,8 +58,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .attention import (SeqBlock, decode_attend, gather_heads, init_kv_cache,
-                        mha, update_kv_cache)
+from .attention import (SeqBlock, decode_attend, gather_heads, head_dim_block,
+                        init_kv_cache, mha, update_kv_cache, whole_head_dim)
 from .layers import apply_rope, rms_norm, row_parallel, swiglu
 from .mamba2 import init_mamba_cache, mamba_block, mamba_decode
 from .mla import init_mla_cache, mla_attention, mla_decode, update_mla_cache
@@ -160,7 +167,10 @@ class Mamba(nn.Module):
 def _qkv(p: Attention, x, positions, cfg, mesh=None):
     """Q, K, V of ``x``.  On a rank holding a block of the query heads,
     ``x`` and the replicated weights it uses for its own heads pass
-    `Mesh.copy_to` (their gradients are summed over ``model``)."""
+    `Mesh.copy_to` (their gradients are summed over ``model``).  A
+    projection holding a block of the head_dim gives its block, gathered
+    whole over ``model`` before the norm and rope, which read the whole
+    head_dim (rope pairs dims i and i + hd/2)."""
     wk, wv = p.wk, p.wv
     q_norm, k_norm = (p.q_norm, p.k_norm) if cfg.qk_norm else (None, None)
     if p.wq.shape[1] != cfg.num_heads:
@@ -172,6 +182,7 @@ def _qkv(p: Attention, x, positions, cfg, mesh=None):
     q = torch.einsum("bsd,dhe->bshe", x, p.wq)
     k = torch.einsum("bsd,dhe->bshe", x, wk)
     v = torch.einsum("bsd,dhe->bshe", x, wv)
+    q, k, v = (whole_head_dim(t, cfg.head_dim, mesh) for t in (q, k, v))
     if cfg.qk_norm:
         q = rms_norm(q, q_norm, cfg.norm_eps)
         k = rms_norm(k, k_norm, cfg.norm_eps)
@@ -212,9 +223,12 @@ def _used_kv(k, v, q_heads: int, cfg, mesh):
 
 def _heads_out(p: Attention, out, cfg, mesh):
     """``wo``'s product of the heads' ``out``: summed over ``model`` where
-    ``p`` holds a block of the heads."""
-    if p.wq.shape[1] != cfg.num_heads:
+    ``p`` holds a block of the heads, or of the head_dim (of which the
+    rank takes its block of ``out``'s)."""
+    if p.wo.shape[0] != cfg.num_heads:
         return row_parallel(out, p.wo, mesh)
+    if p.wo.shape[1] != cfg.head_dim:
+        return row_parallel(head_dim_block(out, p.wo.shape[1], mesh), p.wo, mesh)
     return torch.einsum("bshe,hed->bsd", out, p.wo)
 
 
@@ -283,7 +297,7 @@ def cross_attention(p: Attention, h, enc_kv: dict, cfg, mode: str, mesh=None,
     cache, over a block of its positions with ``seq``)."""
     if p.wq.shape[1] != cfg.num_heads:
         h = mesh.copy_to(h)
-    q = torch.einsum("bsd,dhe->bshe", h, p.wq)
+    q = whole_head_dim(torch.einsum("bsd,dhe->bshe", h, p.wq), cfg.head_dim, mesh)
     zeros = torch.zeros(q.shape[:2], dtype=torch.int32, device=q.device)
     if mode == "decode" and seq is not None:
         out = _attend_cache(q, enc_kv, zeros, cfg, mesh, seq, causal=False)
@@ -523,7 +537,8 @@ def cross_kv(attn: Attention, enc_states: torch.Tensor, cfg=None,
     """Precompute cross-attention K/V from encoder states; on a rank
     holding a block of the query heads (``cfg``, ``mesh``), of its KV heads
     (or all, where they are whole; then they pass `Mesh.copy_to`, as the
-    states do)."""
+    states do); where ``wk``/``wv`` hold a block of the head_dim, it is
+    gathered whole."""
     wk, wv = attn.wk, attn.wv
     if cfg is not None and attn.wq.shape[1] != cfg.num_heads:
         enc_states = mesh.copy_to(enc_states)
@@ -531,6 +546,8 @@ def cross_kv(attn: Attention, enc_states: torch.Tensor, cfg=None,
             wk, wv = mesh.copy_to(wk), mesh.copy_to(wv)
     k = torch.einsum("bsd,dhe->bshe", enc_states, wk)
     v = torch.einsum("bsd,dhe->bshe", enc_states, wv)
+    if cfg is not None:
+        k, v = (whole_head_dim(t, cfg.head_dim, mesh) for t in (k, v))
     b, s = enc_states.shape[:2]
     pos = torch.arange(s, dtype=torch.int32, device=enc_states.device).expand(b, s)
     return {"k": k, "v": v, "pos": pos}

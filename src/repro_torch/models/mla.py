@@ -24,21 +24,35 @@ new latent only where its slot lies, gathers the absorbed queries
 its slots, combines the partial softmax over the slot holders
 (`attention.seq_softmax`) and takes its heads' ``out_lat`` into ``w_uv``
 and ``w_o``: the latent cache itself is never gathered.
+
+Where the heads do not divide the model axis, a model built with the
+planner's ``shard_head_dim_fallback`` holds a block of ``w_q``'s
+nope+rope dim and of ``w_uk``/``w_uv``/``w_o``'s head_dim.  The query
+and, at prefill, the per-head K and V are gathered whole over ``model``
+(`attention.whole_head_dim`) and attention runs over every head; the
+absorbed decode contracts ``w_uk``'s block with the rank's block of
+``q_nope``'s head_dim and sums the part over ``model`` (one
+``all_reduce``, in f32), and ``w_uv``'s block gives the rank's block of
+the output's head_dim, which ``w_o``'s block takes as it is before its
+sum over ``model``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .attention import SeqBlock, gather_heads, mha, seq_softmax, write_slots
+from .attention import (SeqBlock, gather_heads, head_dim_block, mha,
+                        seq_softmax, whole_head_dim, write_slots)
 from .layers import apply_rope, row_parallel
 
 __all__ = ["mla_attention", "mla_decode", "init_mla_cache", "update_mla_cache"]
 
 
-def _project_q(p, x: torch.Tensor, positions: torch.Tensor, cfg):
-    """Returns q_nope (B,S,H,hd), q_pe (B,S,H,rh) with rope applied."""
+def _project_q(p, x: torch.Tensor, positions: torch.Tensor, cfg, mesh=None):
+    """Returns q_nope (B,S,H,hd), q_pe (B,S,H,rh) with rope applied (a
+    block of ``w_q``'s nope+rope dim gathered whole first)."""
     q = torch.einsum("bsd,dhe->bshe", x, p.w_q)  # e = hd + rh
+    q = whole_head_dim(q, cfg.head_dim + cfg.rope_head_dim, mesh)
     q_nope = q[..., : cfg.head_dim]
     q_pe = apply_rope(q[..., cfg.head_dim:], positions, cfg.rope_theta)
     return q_nope, q_pe
@@ -64,9 +78,12 @@ def _split(p, cfg) -> bool:
 
 def _out(p, out, cfg, mesh):
     """The output projection of the heads' ``out`` (B,S,h,hd): summed over
-    ``model`` where ``p`` holds a block of them."""
+    ``model`` where ``p`` holds a block of them, or of the head_dim (of
+    which ``out`` is, or gives, the rank's block)."""
     if _split(p, cfg):
         return row_parallel(out, p.w_o, mesh)
+    if p.w_o.shape[1] != cfg.head_dim:
+        return row_parallel(head_dim_block(out, p.w_o.shape[1], mesh), p.w_o, mesh)
     return torch.einsum("bshe,hed->bsd", out, p.w_o)
 
 
@@ -87,11 +104,12 @@ def mla_attention(
     if _split(p, cfg):
         x = mesh.copy_to(x)
     h = p.w_q.shape[1]
-    q_nope, q_pe = _project_q(p, x, positions, cfg)
+    q_nope, q_pe = _project_q(p, x, positions, cfg, mesh)
     c_kv, k_pe = _latent(p, x, positions, cfg, mesh)
 
     k_nope = torch.einsum("bsr,rhe->bshe", c_kv, p.w_uk)  # (B,S,H,hd)
     v = torch.einsum("bsr,rhe->bshe", c_kv, p.w_uv)  # (B,S,H,hd)
+    k_nope, v = (whole_head_dim(t, hd, mesh) for t in (k_nope, v))
 
     # Assemble full q/k with the shared rope sub-head broadcast to all heads.
     q_full = torch.cat([q_nope, q_pe], dim=-1)  # (B,S,H,hd+rh)
@@ -116,11 +134,16 @@ def mla_decode(
     """Absorbed decode: attention in latent space, O(r) per cached token;
     on a rank, see the module docstring."""
     hd, rh = cfg.head_dim, cfg.rope_head_dim
-    q_nope, q_pe = _project_q(p, x, positions, cfg)  # (B,1,H,hd), (B,1,H,rh)
+    q_nope, q_pe = _project_q(p, x, positions, cfg, mesh)  # (B,1,H,hd), (B,1,H,rh)
     c_new, kpe_new = _latent(p, x, positions, cfg, mesh)
     cache = update_mla_cache(cache, c_new, kpe_new, positions, seq)
 
-    q_lat = torch.einsum("bshe,rhe->bshr", q_nope, p.w_uk)  # absorb W_uk
+    if p.w_uk.shape[-1] != hd:  # a head_dim block: its part of the contraction
+        part = torch.einsum("bshe,rhe->bshr", head_dim_block(
+            q_nope, p.w_uk.shape[-1], mesh).float(), p.w_uk.float())
+        q_lat = mesh.all_reduce(part, "model").to(q_nope.dtype)
+    else:
+        q_lat = torch.einsum("bshe,rhe->bshr", q_nope, p.w_uk)  # absorb W_uk
     gather = seq is not None and _split(p, cfg)
     if gather:  # every head against this rank's slots
         q_lat, q_pe = gather_heads(q_lat, mesh), gather_heads(q_pe, mesh)
@@ -136,7 +159,8 @@ def mla_decode(
         h = p.w_uv.shape[1]
         i = mesh.coord["model"]
         out_lat = out_lat[:, :, i * h:(i + 1) * h]
-    out = torch.einsum("bshr,rhe->bshe", out_lat, p.w_uv)  # (B,1,H,hd)
+    # (B,1,H,hd); a head_dim block of w_uv gives the rank's block of it
+    out = torch.einsum("bshr,rhe->bshe", out_lat, p.w_uv)
     return _out(p, out, cfg, mesh), cache
 
 

@@ -389,7 +389,7 @@ class Model(nn.Module):
         against this model: a model holding blocks runs on the mesh whose
         position it holds."""
         mesh = mesh_info[0] if mesh_info is not None else None
-        if self.blocks and (mesh is None or ParamShard.of(mesh) != self.shard):
+        if self.blocks and (mesh is None or not self.shard.at(mesh)):
             raise ValueError(f"this model holds the blocks of {self.shard}; it "
                              "runs on that position of its mesh of ranks "
                              "(mesh_info)")

@@ -92,7 +92,11 @@ class RankLeaf:
     rank (``lead`` stack dims, then a layer's block), whether its blocks
     are split over ``model``, the dimension ZeRO-1 cuts over the batch
     axes (None: none) with the rank's block of it, the whole stacked
-    leaf's shape and a layer's block of the whole layer."""
+    leaf's shape and a layer's block of the whole layer, and the specs
+    (`repro_torch.sharding.shard_slices`' form) under which the rank
+    holds its block of the whole stacked leaf: the parameter's (its
+    dims on ``model``) and the moments' (ZeRO-1's dim on the batch axes
+    too)."""
     path: str
     names: tuple[str, ...]
     lead: tuple[int, ...]
@@ -102,6 +106,8 @@ class RankLeaf:
     zblock: slice | None
     whole: tuple[int, ...]
     layer_block: tuple[slice, ...]
+    spec: tuple = ()
+    moment_spec: tuple = ()
 
     @property
     def moment_shape(self) -> tuple[int, ...]:
@@ -149,6 +155,7 @@ def rank_leaves(params, mesh_info=None, zero1: bool = False) -> list[RankLeaf]:
                 "model" if len(range(n)[b]) != n else None
                 for n, b in zip(whole, block))
         zdim = zblock = None
+        moment_spec = spec
         if zero1 and plan is not None and batch_axes and plan.batch_size_divisor > 1:
             zspec = zero1_spec(plan, spec, shape)
             free = [d for d in range(len(shape))
@@ -158,8 +165,12 @@ def rank_leaves(params, mesh_info=None, zero1: bool = False) -> list[RankLeaf]:
                 only = tuple(zspec[d] if d == zdim else None
                              for d in range(len(shape)))
                 zblock = shard_slices(only, shape, mesh.shape, mesh.coord)[zdim]
+                moment_spec = tuple((spec + (None,) * len(shape))[d]
+                                    if d != zdim else zspec[d]
+                                    for d in range(len(shape)))
         out.append(RankLeaf("/".join(keys), tuple(order), lead, shape, split,
-                            zdim, zblock, tuple(lead) + tuple(whole), tuple(block)))
+                            zdim, zblock, tuple(lead) + tuple(whole), tuple(block),
+                            spec, moment_spec))
     return out
 
 

@@ -20,7 +20,8 @@ updated, so a host failure mid-write can never corrupt the restore path —
 restore always reads the last committed step.  Old steps are pruned with
 `keep` retention.  A background-thread `save_async` overlaps the host-side
 serialization with the next training step (the device->host copy is the
-only synchronous part).
+only synchronous part).  ``write_seconds`` records each committed write's
+host seconds (files, rename and pointer).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import json
 import os
 import shutil
 import threading
+import time
 import zipfile
 from pathlib import Path
 
@@ -118,6 +120,7 @@ class CheckpointManager:
         self.keep = keep
         self._thread: threading.Thread | None = None
         self._write_lock = threading.Lock()  # serialize sync vs async writers
+        self.write_seconds: list[float] = []  # each committed write's
 
     # ------------------------------------------------------------- save
     def save(self, step: int, tree) -> Path:
@@ -139,6 +142,7 @@ class CheckpointManager:
             return self._write_locked(step, flat)
 
     def _write_locked(self, step: int, flat: dict) -> Path:
+        t0 = time.perf_counter()
         final = self.dir / f"step_{step:09d}"
         tmp = self.dir / f"step_{step:09d}.tmp"
         if tmp.exists():
@@ -158,6 +162,7 @@ class CheckpointManager:
         latest_tmp.write_text(str(step))
         os.replace(latest_tmp, self.dir / "LATEST")  # atomic pointer flip
         self._prune()
+        self.write_seconds.append(time.perf_counter() - t0)
         return final
 
     def _prune(self) -> None:

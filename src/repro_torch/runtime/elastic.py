@@ -59,15 +59,22 @@ class Sharded:
     def full(self) -> torch.Tensor:
         """The whole leaf, exact, on the first card of a mesh of cards or
         on this rank's device; on a mesh of ranks every rank of the mesh
-        must call it (an ``all_gather``)."""
+        must call it (an ``all_gather`` over the axes ``spec`` splits: the
+        positions along the others hold the same block)."""
         mesh = self.mesh
         if mesh.ranks is None:
             blocks = self.blocks
             device = mesh.devices.flat[0]
         else:
-            # All positions' blocks, in position order (row-major).
-            gathered = mesh.all_gather(self.local, mesh.axis_names)
-            blocks = dict(zip(np.ndindex(mesh.devices.shape), gathered))
+            # The blocks along the split axes, in their order (row-major).
+            split = [a for a in mesh.axis_names
+                     if a in {x for e in self.spec for x in _axes(e)}]
+            gathered = mesh.all_gather(self.local, split)
+            blocks = {}
+            for index, block in zip(np.ndindex(*(mesh.shape[a] for a in split)),
+                                    gathered):
+                coord = dict(mesh.coord, **dict(zip(split, index)))
+                blocks[tuple(coord[a] for a in mesh.axis_names)] = block
             device = mesh.device
         first = next(iter(blocks.values()))
         out = torch.empty(self.shape, dtype=first.dtype, device=device)

@@ -185,16 +185,24 @@ def shard_slices(spec: Spec, shape, mesh_shape: dict[str, int],
 @dataclass(frozen=True)
 class ParamShard:
     """One position of a mesh, as a rank holds the parameters there: the
-    mesh's shape (axis -> size) and the position's index on each axis.
-    The default is a one-position mesh, whose blocks are every leaf
-    whole."""
+    mesh's shape (axis -> size), the position's index on each axis and
+    whether the plan splits an attention projection's head_dim where its
+    heads do not divide the model axis (``ShardingPlan.
+    shard_head_dim_fallback``).  The default is a one-position mesh,
+    whose blocks are every leaf whole."""
     mesh_shape: dict = field(default_factory=lambda: {"model": 1})
     coord: dict = field(default_factory=lambda: {"model": 0})
+    head_dim_fallback: bool = False
 
     @classmethod
-    def of(cls, mesh) -> "ParamShard":
+    def of(cls, mesh, head_dim_fallback: bool = False) -> "ParamShard":
         """This rank's position on a rank mesh (``mesh.coord``)."""
-        return cls(dict(mesh.shape), dict(mesh.coord))
+        return cls(dict(mesh.shape), dict(mesh.coord), head_dim_fallback)
+
+    def at(self, mesh) -> bool:
+        """Whether this is the position of ``mesh`` (its shape and this
+        rank's coordinate), whatever the flag."""
+        return (dict(mesh.shape), dict(mesh.coord)) == (self.mesh_shape, self.coord)
 
     @property
     def whole(self) -> bool:
@@ -203,11 +211,14 @@ class ParamShard:
 
     def block(self, names, leaf) -> tuple[Spec, tuple[slice, ...]]:
         """The planner's spec of the parameter at path ``names`` with shape
-        ``leaf`` (`spec_for_param`; ``()`` where the leaf stays whole) and
-        the block of it this position holds (`shard_slices`)."""
+        ``leaf`` (`spec_for_param`, under ``head_dim_fallback``; ``()``
+        where the leaf stays whole) and the block of it this position
+        holds (`shard_slices`)."""
         shape = _shape(leaf)
         spec = () if self.whole else spec_for_param(
-            ShardingPlan(mesh_shape=dict(self.mesh_shape)), names, shape)
+            ShardingPlan(mesh_shape=dict(self.mesh_shape),
+                         shard_head_dim_fallback=self.head_dim_fallback),
+            names, shape)
         return spec, shard_slices(spec, shape, self.mesh_shape, self.coord)
 
     def cache_blocks(self, caches, seq_parallel_decode: bool = True) -> dict:

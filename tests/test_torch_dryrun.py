@@ -195,8 +195,10 @@ def test_report_tables_build_from_small_ledgers(tmp_path):
     roof = {"arch": "hymba-1.5b", "shape": "long_500k", "status": "ok",
             "counters": counters, "useful_ratio": 0.5, "chips": 1,
             "roofline": {"compute_s": 1.0, "memory_s": 2.0, "collective_s": 0.0}}
-    perf = {**roof, "tag": "hymba.C1_seq_parallel_decode",
-            "plan_only": ["seq_parallel_decode"]}
+    perf = {**roof, "tag": "hymba.C2_shard_head_dim",
+            "step_kwargs": {"seq_parallel_decode": True,
+                            "shard_head_dim_fallback": True},
+            "roofline": {"compute_s": 0.5, "memory_s": 1.5, "collective_s": 0.25}}
     paths = {}
     for name, recs in (("dry", [ok, skip]), ("roof", [roof]), ("perf", [perf])):
         paths[name] = tmp_path / f"{name}.jsonl"
@@ -220,4 +222,6 @@ def test_report_tables_build_from_small_ledgers(tmp_path):
         assert rows[2].split("|")[7].strip() == want
     perf_rows = report.perf_table(paths["perf"], paths["roof"]).splitlines()
     assert perf_rows[2].startswith("| **hymba-1.5b × long_500k baseline** |")
-    assert "seq_parallel_decode: the plan only, not counted" in perf_rows[3]
+    # A head-dim variant's row prints its own counts, not its baseline's.
+    assert perf_rows[3] == ("| hymba.C2_shard_head_dim | 0.5 | 1.5 | 0.25 | "
+                            "0.500 | see PERF.md §6 |")

@@ -15,15 +15,18 @@ import numpy as np
 import torch
 
 from repro_torch.core.mapping_device import island_sa
-from repro_torch.interop import rank_model_from, reference_tree
+from repro_torch.interop import (rank_model_from, rank_state_from,
+                                 reference_state, reference_tree,
+                                 state_template)
 from repro_torch.launch.mesh import make_rank_mesh
 from repro_torch.launch.serve import serve_batch
 from repro_torch.launch.steps import make_train_step
 from repro_torch.launch.train import train_loop
-from repro_torch.models import build_model
+from repro_torch.models import Model, build_model
 from repro_torch.optim import AdamWConfig
 from repro_torch.optim.adamw import rank_leaves
 from repro_torch.models.moe import moe_ffn_sharded
+from repro_torch.runtime import CheckpointManager
 from repro_torch.runtime.elastic import Sharded, remesh_params
 from repro_torch.sharding.planner import ParamShard, shard_slices
 
@@ -297,29 +300,32 @@ def moment_blocks(model, mesh, zero1: bool) -> dict:
             for leaf in rank_leaves(model, (mesh, batch_axes), zero1)}
 
 
-def train_loops(cfg, store: str, kw: dict) -> dict:
-    """`train_loop` (``kw``: steps, batch, seq, lr) on a (2, 1) mesh of the
-    job's two ranks: a straight run, and the same run stopped after half
-    its steps with a checkpoint (rank 0 writes) and resumed by both; on
-    (1, 2), whose ranks hold blocks, the error a checkpoint raises.
-    Returns this rank's losses of each and the error's text."""
-    data = make_rank_mesh((2, 1), device="cpu")
-    tp = make_rank_mesh((1, 2), device="cpu")
+def stop_resume(cfg, mesh, ckpt: Path, kw: dict, held: bool = False) -> dict:
+    """`train_loop` (``kw``: steps, batch, seq, lr) on ``mesh``: a straight
+    run, and the same run stopped after half its steps with a checkpoint
+    (the all-zero position writes) and resumed by every rank.  Returns
+    this rank's losses of each; with ``held``, what the rank held when
+    it stopped (`_held`)."""
     kw = dict(kw, print_fn=lambda *_: None)
-    straight = train_loop(cfg, data, **kw)["losses"]
-    ckpt = Path(store) / "ckpt"
+    straight = train_loop(cfg, mesh, **kw)["losses"]
     half = kw["steps"] // 2
-    first = train_loop(cfg, data, ckpt_dir=ckpt, ckpt_every=half, stop_at=half,
-                       **kw)["losses"]
-    torch.distributed.barrier()  # rank 0's checkpoint is on disk
-    rest = train_loop(cfg, data, ckpt_dir=ckpt, ckpt_every=half, resume=True,
+    first = train_loop(cfg, mesh, ckpt_dir=ckpt, ckpt_every=half, stop_at=half,
+                       **kw)
+    rest = train_loop(cfg, mesh, ckpt_dir=ckpt, ckpt_every=half, resume=True,
                       **kw)["losses"]
-    try:
-        train_loop(cfg, tp, ckpt_dir=Path(store) / "tp", **kw)
-        refused = None
-    except NotImplementedError as e:
-        refused = str(e)
-    return dict(straight=straight, resumed=first + rest, refused=refused)
+    out = dict(straight=straight, resumed=first["losses"] + rest)
+    if held:
+        out["held"] = _held(first["model"], first["opt_state"], mesh, False)
+    return out
+
+
+def train_loops(cfg, store: str, kw: dict) -> dict:
+    """`stop_resume` on a (2, 1) mesh of the job's two ranks (the state
+    replicated) and on (1, 2), whose ranks hold blocks: by shape, this
+    rank's losses of each run."""
+    return {shape: stop_resume(cfg, make_rank_mesh(shape, device="cpu"),
+                               Path(store) / f"ckpt_{shape[0]}x{shape[1]}", kw)
+            for shape in ((2, 1), (1, 2))}
 
 
 def step_tallies(cfg, specs: dict, shapes: list) -> dict:
@@ -416,3 +422,105 @@ def tp_family(cfgs: dict, tree: dict, serve_cases: dict,
             metrics.append({k: float(v) for k, v in m.items()})
         out["train"][name] = dict(coord=mesh.coord, metrics=metrics)
     return out
+
+
+def head_dim(cfgs: dict, trees: dict, cases: dict) -> dict:
+    """Greedy `serve_batch` of a model built with the head-dim fallback
+    (``shard_head_dim_fallback=True``, which its serve step takes) for each
+    case (name -> dict of ``cfg``, a name of ``cfgs`` and ``trees``,
+    ``shape``, ``prompts``, ``frontend`` (or None) and ``gen``), each
+    rank's model carried from the case's reference tree with the flag
+    (`rank_model_from`): this rank's coordinate, tokens, logits,
+    collective tally and the leaves it holds (as the reference's stacked
+    tree)."""
+    meshes = {}
+    out = {}
+    for name, case in cases.items():
+        shape = tuple(case["shape"])
+        if shape not in meshes:
+            meshes[shape] = make_rank_mesh(shape, device="cpu",
+                                           ranks=range(int(np.prod(shape))))
+        mesh = meshes[shape]
+        if not mesh.is_member:
+            continue
+        cfg = cfgs[case["cfg"]]
+        model = rank_model_from(cfg, trees[case["cfg"]], mesh, head_dim_fallback=True)
+        res = serve_batch(cfg, mesh, case["prompts"], case["gen"],
+                          frontend=case["frontend"], model=model,
+                          keep_logits=True, print_fn=lambda *_: None,
+                          device="cpu")
+        out[name] = dict(coord=mesh.coord, tokens=res["tokens"],
+                         logits=res["logits"].numpy(),
+                         collectives=res["collectives"],
+                         carried=_numpy(reference_tree(model)))
+    return out
+
+
+def _held(model, state, mesh, zero1: bool) -> dict:
+    """What a rank holds of each leaf, by path: its parameter block (its
+    layers stacked), moments and step, and the block of the whole
+    stacked leaf each is (`RankLeaf`)."""
+    named = dict(model.named_parameters())
+    batch_axes = tuple(a for a in mesh.axis_names if a != "model")
+    out = {}
+    for leaf in rank_leaves(model, (mesh, batch_axes), zero1):
+        mine = [named[n].detach() for n in leaf.names]
+        p = torch.stack(mine).reshape(*leaf.lead, *mine[0].shape) if leaf.lead \
+            else mine[0]
+        out[leaf.path] = dict(
+            whole=leaf.whole, moment_block=leaf.moment_block,
+            block=tuple(slice(0, n) for n in leaf.lead) + leaf.layer_block,
+            p=p.numpy().copy(), m=state["m"][leaf.path].numpy().copy(),
+            v=state["v"][leaf.path].numpy().copy())
+    return {"leaves": out, "step": int(state["step"])}
+
+
+def checkpoints(cfgs: dict, store: str, kw: dict, batches: list) -> dict:
+    """Checkpoints of ranks that hold blocks, for each config of ``cfgs``
+    (name -> config): `stop_resume` on (1, 2) (its step-2 checkpoint
+    under ``<store>/<name>``), what each rank held when it stopped there
+    (`_held`); that step restored (`CheckpointManager.restore`,
+    `rank_state_from`) on (1, 4) and on (2, 2) without and with ZeRO-1,
+    each rank's blocks; and on (2, 2) with ZeRO-1, the state after one
+    train step on ``batches[0]`` from seed 0 written by the ranks
+    (`reference_state`; the all-zero position writes step 1 under
+    ``<store>/<name>_zero1``) and the blocks each held."""
+    meshes = {shape: make_rank_mesh(shape, device="cpu",
+                                    ranks=range(int(np.prod(shape))))
+              for shape in ((1, 2), (1, 4), (2, 2))}
+    out = {}
+    for name, cfg in cfgs.items():
+        ckpt = Path(store) / name
+        mesh = meshes[(1, 2)]
+        res = {}
+        if mesh.is_member:
+            res["loop"] = stop_resume(cfg, mesh, ckpt, kw, held=True)
+        torch.distributed.barrier()  # the checkpoints are on disk
+        for shape, zero1 in (((1, 4), False), ((2, 2), False), ((2, 2), True)):
+            mesh = meshes[shape]
+            if not mesh.is_member:
+                continue
+            model = Model(cfg, mesh.device, ParamShard.of(mesh))
+            state, _ = CheckpointManager(ckpt).restore(
+                state_template(model), step=kw["steps"] // 2)
+            batch_axes = tuple(a for a in mesh.axis_names if a != "model")
+            opt = rank_state_from(model, state, (mesh, batch_axes), zero1)
+            res[f"restored_{shape[0]}x{shape[1]}" + ("_zero1" if zero1 else "")] = \
+                dict(_held(model, opt, mesh, zero1), coord=mesh.coord)
+        mesh = meshes[(2, 2)]
+        if mesh.is_member:
+            model = build_model(cfg, "cpu", seed=0, shard=ParamShard.of(mesh))
+            bundle = make_train_step(cfg, mesh, opt=TRAIN_OPT, remat=False, zero1=True)
+            state = bundle.init_opt(model)
+            state, _ = bundle.jit_for(None)(model, state,
+                                            {"tokens": torch.from_numpy(batches[0])})
+            writer = mesh.coord == {"data": 0, "model": 0}
+            tree = reference_state(model, state, (mesh, ("data",)), zero1=True,
+                                   keep=writer)
+            if writer:
+                CheckpointManager(Path(store) / f"{name}_zero1").save(1, tree)
+            res["zero1"] = dict(_held(model, state, mesh, True), coord=mesh.coord)
+        torch.distributed.barrier()
+        out[name] = res
+    return out
+
