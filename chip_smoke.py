@@ -74,7 +74,14 @@
    16 x 16 logical mesh with all-to-all model-axis traffic, and of a
    14 x 18 mesh on a torus with four dead chips: both equal the
    reference's CPU run (``EXPECT``), and the all-to-all layout is 5%
-   below the row-major one.  Runs 8-10 are traced like the others.
+   below the row-major one.  Then the engines phase (``engines_phase``):
+   the engine cases of the reference's test suites that the slice runs
+   do not reach — congested unicast replays at link capacity 1 and 2 and
+   a multicast-tree replay on a 3 x 3 mesh (link-load screen, torch
+   stepper), the vec SA scored by swap_deltas at K = 15 on a 5 x 5 mesh,
+   and the vec refiner on the kernel path on a fan-out hypergraph in cut
+   and volume mode — each held bitwise against the port's CPU run of the
+   same inputs, in at most 30 s.  Runs 8-10 are traced like the others.
 11. Checks the results by the toolchain's own means: a valid partition
    whose cut (and volume) match a recount, the known numbers of the cut
    and volume runs (``EXPECT``), packet conservation in the NoC stats, identical
@@ -718,6 +725,10 @@ PATHS = {
     "island": ("part_degrees", "link_loads", "hop_cost"),
     # The layout search is host numpy (torus distances).
     "layout": (),
+    # The engine cases: the replay's screen, the SA's scorer and the vec
+    # refiner's two degree kernels.
+    "engines": ("part_degrees", "connectivity_degrees", "swap_deltas",
+                "link_loads"),
     # The LLM serving and training paths are torch ops (matmuls, the
     # chunked softmax, autograd, AdamW); no TPU kernel lies on them.
     "serve": (),
@@ -910,6 +921,7 @@ EXACT_LAUNCHES = {"cut": {"lif_step": SLICE["num_steps"], "link_loads": 1,
                                                 "roofline")},
                   "island": {"lif_step": 0, "swap_deltas": 0, "link_loads": 1,
                              "hop_cost": 1},
+                  "engines": {"lif_step": 0, "hop_cost": 0},
                   "ranks": {"lif_step": 0, "part_degrees": 0,
                             "connectivity_degrees": 0, "swap_deltas": 0,
                             "link_loads": 0, "hop_cost": 1}}
@@ -1523,6 +1535,156 @@ def layout_runs(counters) -> dict:
     if not opt < 0.95 * base:
         fail(f"layout_alltoall: optimized {opt!r} is not 5% below {base!r}")
     return {"layout": launches}
+
+
+# The engine cases of the reference's suites that the slice runs do not
+# reach (tests/test_torch_cuda_engines.py holds more of them under pytest).
+ENGINE_TRACE = dict(n_spikes=1500, timesteps=8)  # test_nocsim_engines' trace
+ENGINE_SA = dict(k=15, seed=3, iters=1500, batch=32)  # K = 15 on a 5x5 mesh
+ENGINE_REFINE = dict(n=400, k=40, cap=12, seed=0)  # test_volume_engines' graph
+ENGINE_BUDGET_S = 30.0
+
+
+def engine_trace(seed: int, n_spikes: int, timesteps: int):
+    """tests/conftest.py's ``random_spike_trace`` (30 neurons, 6 partitions
+    placed on a 3x3 mesh): (t, src, dst, part, placement)."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    part = r.integers(0, 6, 30)
+    placement = r.permutation(9)[:6]
+    t = np.sort(r.integers(0, timesteps, n_spikes))
+    src = r.integers(0, 30, n_spikes)
+    dst = r.integers(0, 30, n_spikes)
+    return t, src, dst, part, placement
+
+
+def engine_fanout(n: int, seed: int, fan: int = 10, max_fire: int = 20):
+    """tests/conftest.py's ``fanout_snn_graph`` with the port's builders."""
+    import numpy as np
+
+    from repro_torch.core.graph import build_graph, build_hypergraph
+
+    r = np.random.default_rng(seed)
+    src = np.repeat(np.arange(n), fan)
+    dst = r.integers(0, n, n * fan)
+    fire = r.integers(1, max_fire, n)
+    g = build_graph(n, src, dst, fire[src])
+    g.hyper = build_hypergraph(n, src, dst, fire)
+    return g
+
+
+def engines_phase(counters) -> dict:
+    """The engine cases the slice runs do not reach, on the card, traced:
+    congested unicast replays (link capacity 1 and 2) and a multicast-tree
+    replay on the link-load screen with the torch stepper, the vec SA
+    scored by swap_deltas at K = 15 on a 5x5 mesh, and ``refine_level_vec``
+    on the kernel path on a fan-out hypergraph in cut and volume mode.
+    Each is held against the port's CPU run of the same inputs (bitwise:
+    every NoCStats field, placements, SA history costs, partitions and
+    scores); the replays also against the scalar engine (the replica
+    engine for multicast, whose latency the tree must beat)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.initpart import greedy_region_growing
+    from repro_torch.core.mapping import sa_search
+    from repro_torch.core.refine_vec import refine_level_vec
+    from repro_torch.nocsim import simulate_noc
+
+    trace = (*engine_trace(0, **ENGINE_TRACE), 3, 3)
+
+    def replay(cap: int, cast: str):
+        return lambda dev: simulate_noc(*trace, link_capacity=cap, cast=cast,
+                                        screen="linkload", stepper="jax",
+                                        device=dev)
+
+    rng = np.random.default_rng(ENGINE_SA["seed"])
+    traffic = rng.integers(0, 200, (ENGINE_SA["k"],) * 2).astype(np.float64)
+    np.fill_diagonal(traffic, 0)
+
+    def sa(dev):
+        return sa_search(traffic, 25, 5, int(traffic.sum()), seed=0,
+                         iters=ENGINE_SA["iters"], impl="vec",
+                         batch=ENGINE_SA["batch"], score_backend="auto",
+                         device=dev)
+
+    rk = ENGINE_REFINE
+    graph = engine_fanout(rk["n"], rk["seed"])
+    start = greedy_region_growing(graph, rk["k"], rk["cap"],
+                                  np.random.default_rng(rk["seed"]))
+
+    def refine(objective: str):
+        return lambda dev: refine_level_vec(
+            graph, start.copy(), rk["k"], rk["cap"], objective=objective,
+            use_kernel=True, device=dev)
+
+    cases = {"replay_unicast_cap1": replay(1, "unicast"),
+             "replay_unicast_cap2": replay(2, "unicast"),
+             "replay_multicast_tree_cap1": replay(1, "multicast"),
+             "sa_vec_k15": sa,
+             "refine_fanout_cut": refine("cut"),
+             "refine_fanout_volume": refine("volume")}
+
+    def drive():
+        out = {}
+        for name, run in cases.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card = run("cuda")
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            host = run("cpu")
+            out[name] = (card, host, card_s, time.perf_counter() - t0)
+        return out
+
+    def report(out):
+        for name, (_, _, card_s, host_s) in out.items():
+            print(f"engines {name}: {card_s:.3f} s on the card, {host_s:.3f} s "
+                  "on the CPU")
+
+    t0 = time.perf_counter()
+    out, launches = traced("engines", counters, drive, report)
+    phase_s = time.perf_counter() - t0
+    for name in ("replay_unicast_cap1", "replay_unicast_cap2",
+                 "replay_multicast_tree_cap1"):
+        card, host, _, _ = out[name]
+        if same_stats(card, host):
+            fail(f"engines {name}: the card's NoCStats differ from the CPU's "
+                 f"in {same_stats(card, host)}")
+        cap = 1 if name.endswith("cap1") else 2
+        cast = "multicast" if "multicast" in name else "unicast"
+        ref = simulate_noc(*trace, link_capacity=cap, cast=cast, engine="ref",
+                           device="cpu")
+        if card.congestion_count <= 0 or not card.avg_latency > card.avg_hop:
+            fail(f"engines {name}: the replay did not congest")
+        if cast == "unicast" and same_stats(card, ref):
+            fail(f"engines {name}: the batched replay differs from the scalar "
+                 f"engine in {same_stats(card, ref)}")
+        if cast == "multicast" and not (
+                card.link_traversals < card.total_hops
+                and card.avg_latency < ref.avg_latency
+                and np.array_equal(card.per_link_hops, ref.per_link_hops)):
+            fail(f"engines {name}: the tree replay is not tighter than the "
+                 "replica engine on the same links")
+    card, host, _, _ = out["sa_vec_k15"]
+    if not (np.array_equal(card.placement, host.placement)
+            and card.avg_hop == host.avg_hop
+            and [c for _, c in card.history] == [c for _, c in host.history]):
+        fail("engines sa_vec_k15: the card's search differs from the CPU's")
+    if np.unique(card.placement).shape[0] != ENGINE_SA["k"]:
+        fail("engines sa_vec_k15: placement is not injective")
+    for name in ("refine_fanout_cut", "refine_fanout_volume"):
+        (part, score), (want, want_score), _, _ = out[name]
+        if not (np.array_equal(part, want) and score == want_score):
+            fail(f"engines {name}: the card's partition or score "
+                 f"{score} differs from the CPU's {want_score}")
+    print(f"engines phase: {phase_s:.2f} s (budget {ENGINE_BUDGET_S:.0f} s), "
+          f"{len(cases)} cases held against the CPU")
+    if phase_s > ENGINE_BUDGET_S:
+        fail(f"engines phase took {phase_s:.2f} s, over {ENGINE_BUDGET_S} s")
+    return {"engines": launches}
 
 
 def check_profile_raster(prof, dev) -> None:
@@ -4423,6 +4585,7 @@ def main() -> int:
     island_launches, island = island_run(prof, cut_res, counters)
     runs.append(island_launches)
     runs += layout_runs(counters).values()
+    runs += engines_phase(counters).values()
     check_profile_raster(prof, dev)
     runs.append(ranks_phase(counters, island))
     runs.append(serve_phase(counters))

@@ -69,7 +69,9 @@ def test_the_ranks_import_no_jax_or_reference_module():
 
 def test_port_sources_import_no_jax_or_reference_module():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "tests" / "torch_ranks_bodies.py"]
+                                          ROOT / "tests" / "torch_ranks_bodies.py",
+                                          ROOT / "tests" / "torch_builders.py",
+                                          ROOT / "tests" / "test_torch_cuda_engines.py"]
     assert len(files) > 20
     offenders = {str(f.relative_to(ROOT)): FORBIDDEN.findall(f.read_text())
                  for f in files}
