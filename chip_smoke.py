@@ -1038,40 +1038,19 @@ def traced_run(run: str, counters: dict, prof=None, reset=None, **run_kw):
     return prof, res, hop, launches
 
 
-class StepperSpy:
-    """While installed, records the calls, packets, cycles (the last
-    arrival) and host seconds of one joint stepper of the replay
-    (``joint_stepper_device`` or the numpy ``_joint_stepper``); changes
-    nothing else.  Both return host arrays, so the seconds end on the
-    host."""
+def stepper_spans(stepper: str = "jax") -> dict:
+    """The calls, packets, cycles (the last arrival) and seconds of the
+    replay's joint stepper (``stepper``: the torch one or the numpy one),
+    read from its ``sneap.replay.stepper`` spans in the program's buffer
+    (record them under ``repro_torch.spans.recording()``)."""
+    from repro_torch import spans
 
-    def __init__(self, name: str = "joint_stepper_device"):
-        from repro_torch.nocsim import replay
-
-        self.replay, self.name = replay, name
-        self.inner = getattr(replay, name)
-        self.reset()
-
-    def reset(self):
-        """Forget what was recorded (before the run is driven again)."""
-        self.packets = self.cycles = self.calls = 0
-        self.seconds = 0.0
-
-    def __call__(self, *args, **kwargs):
-        t0 = time.perf_counter()
-        lat, congestion = self.inner(*args, **kwargs)
-        self.seconds += time.perf_counter() - t0
-        self.calls += 1
-        self.packets += int(lat.shape[0])
-        self.cycles = max(self.cycles, int(lat.max()) if lat.shape[0] else 0)
-        return lat, congestion
-
-    def __enter__(self):
-        setattr(self.replay, self.name, self)
-        return self
-
-    def __exit__(self, *exc):
-        setattr(self.replay, self.name, self.inner)
+    runs = [s for s in spans.spans() if s.name == "sneap.replay.stepper"
+            and s.attrs["stepper"] == stepper]
+    return {"calls": len(runs),
+            "packets": sum(s.attrs["packets"] for s in runs),
+            "cycles": max((s.attrs["cycles"] for s in runs), default=0),
+            "seconds": sum(s.seconds for s in runs)}
 
 
 def same_stats(a, b) -> list[str]:
@@ -1092,6 +1071,7 @@ def check_device_run(prof, cut, res, hop, launches, spy) -> None:
     import numpy as np
     import torch
 
+    from repro_torch import spans
     from repro_torch.core import evaluate_phase
     from repro_torch.kernels.swap_delta import swap_deltas
 
@@ -1128,27 +1108,28 @@ def check_device_run(prof, cut, res, hop, launches, spy) -> None:
           f"launches; best swap delta at its end {best}")
     # The torch stepper against the numpy stepper, same placement, untraced.
     steppers = {}
-    for stepper, fn in (("jax", "joint_stepper_device"),
-                        ("numpy", "_joint_stepper")):
+    for stepper in ("jax", "numpy"):
         cfg = slice_config("device", "cuda", "linkload", stepper=stepper)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with StepperSpy(fn) as timing:
+        spans.clear()
+        with spans.recording():
             steppers[stepper] = evaluate_phase(prof, pres, res.mapping, cfg)
         torch.cuda.synchronize()
+        timing = stepper_spans(stepper)
         print(f"device slice evaluate with stepper={stepper!r}: "
               f"{time.perf_counter() - t0:.3f} s, of which the stepper "
-              f"{timing.seconds:.3f} s ({timing.packets} packets, "
-              f"{timing.cycles} cycles)")
+              f"{timing['seconds']:.3f} s ({timing['packets']} packets, "
+              f"{timing['cycles']} cycles)")
     bad = same_stats(steppers["jax"], steppers["numpy"]) + same_stats(
         res.noc, steppers["numpy"])
     if bad:
         fail(f"device: NoCStats {sorted(set(bad))} differ between the torch "
              f"and the numpy stepper")
-    if spy.calls < 1 or spy.packets <= 0:
+    if spy["calls"] < 1 or spy["packets"] <= 0:
         fail("device: the torch stepper stepped no packet")
-    print(f"device slice stepper: {spy.packets} packets stepped over "
-          f"{spy.cycles} cycles ({spy.calls} calls); congestion "
+    print(f"device slice stepper: {spy['packets']} packets stepped over "
+          f"{spy['cycles']} cycles ({spy['calls']} calls); congestion "
           f"{res.noc.congestion_count}")
 
 
@@ -4550,6 +4531,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    from repro_torch import spans
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build
 
@@ -4571,9 +4553,11 @@ def main() -> int:
     counters = launch_counters()
     prof, cut_res, cut_hop, cut_launches = traced_run("cut", counters)
     _, vol_res, vol_hop, vol_launches = traced_run("volume", counters, prof)
-    with StepperSpy() as spy:
+    spans.clear()
+    with spans.recording():
         _, dev_res, dev_hop, dev_launches = traced_run("device", counters, prof,
-                                                       reset=spy.reset)
+                                                       reset=spans.clear)
+    spy = stepper_spans()
     check_result(prof, cut_res, "cut", cut_hop)
     check_result(prof, vol_res, "volume", vol_hop)
     check_device_run(prof, cut_res, dev_res, dev_hop, dev_launches, spy)

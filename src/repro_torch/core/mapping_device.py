@@ -46,6 +46,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.device import resolve_device
 from repro_torch.kernels.swap_delta import swap_deltas
 
@@ -244,48 +245,68 @@ def sa_search_jax_batch(
     if c == 0:
         return []
     ks = [int(t.shape[0]) for t in traffics]
-    syms_np = np.empty((c, num_cores, num_cores), dtype=np.float64)
-    for i, t in enumerate(traffics):
-        padded = pad_traffic(np.asarray(t, dtype=np.float64), num_cores)
-        syms_np[i] = padded + padded.T
-    # The chains score in f64 (exact on integer traffic); the polish's
-    # swap_deltas takes the f32 copy.
-    syms = torch.tensor(syms_np, dtype=torch.float64, device=dev)
-    dist = torch.tensor(hop_distance_matrix(num_cores, mesh_w, torus=torus),
-                        dtype=torch.float64, device=dev)
-    gens, placements, t0s = [], [], []
-    for i, s in enumerate(seeds):
-        gen, pl = _chains(s, chains, num_cores, dev)
-        gens.append(gen)
-        placements.append(pl)
-        t0s.append(t0_frac * float(_cost(syms[i], pl[0], dist)) / max(ks[i], 1))
-    pop = _Population(syms, dist, torch.stack(placements), t0s,
-                      sweeps_per_temp, gens)
-    best_hist = torch.stack([pop.run_epoch()
-                             for _ in range(max(iters // sweeps_per_temp, 1))])
-    best_hist = best_hist.min(dim=2).values.cpu().numpy()  # (epochs, C)
-    if polish:
-        x, y = _coords(num_cores, mesh_w, dev)
-        syms32 = syms.to(torch.float32)
-    results = []
-    for i in range(c):
-        best = pop.placement[i, int(torch.argmin(pop.cost[i]))].clone()
+    epochs = max(iters // sweeps_per_temp, 1)
+    with spans.span("sneap.sa", configs=c, k=max(ks), chains=chains,
+                    epochs=epochs) as sa:
+        with spans.span("sneap.sa.setup"):
+            syms_np = np.empty((c, num_cores, num_cores), dtype=np.float64)
+            for i, t in enumerate(traffics):
+                padded = pad_traffic(np.asarray(t, dtype=np.float64),
+                                     num_cores)
+                syms_np[i] = padded + padded.T
+            # The chains score in f64 (exact on integer traffic); the
+            # polish's swap_deltas takes the f32 copy.
+            syms = torch.tensor(syms_np, dtype=torch.float64, device=dev)
+            dist = torch.tensor(hop_distance_matrix(num_cores, mesh_w,
+                                                    torus=torus),
+                                dtype=torch.float64, device=dev)
+            gens, placements, t0s = [], [], []
+            for i, s in enumerate(seeds):
+                gen, pl = _chains(s, chains, num_cores, dev)
+                gens.append(gen)
+                placements.append(pl)
+                cost0 = _cost(syms[i], pl[0], dist)
+                with spans.span("sneap.sa.wait"):
+                    t0s.append(t0_frac * float(cost0) / max(ks[i], 1))
+            pop = _Population(syms, dist, torch.stack(placements), t0s,
+                              sweeps_per_temp, gens)
+        epoch_best = []
+        for _ in range(epochs):
+            with spans.span("sneap.sa.epoch") as ep:
+                fresh = pop.graph is None
+                epoch_best.append(pop.run_epoch())
+                if fresh and pop.graph is not None:
+                    ep.add(captured=1)
+                    sa.add(captures=1)
+        with spans.span("sneap.sa.wait"):
+            best_hist = torch.stack(epoch_best).min(dim=2).values
+            best_hist = best_hist.cpu().numpy()  # (epochs, C)
         if polish:
-            best, _ = greedy_polish(syms32[i], best, x, y)
-        denom = max(int(trace_lengths[i]), 1)  # zero traffic normalizes by 1
-        final_cost = float(_cost(syms[i], best, dist))
-        # The steps run on the device, so history is keyed by
-        # temperature-epoch index (see MappingResult.history), as in the
-        # reference.
-        best_by_epoch = np.minimum.accumulate(best_hist[:, i])
-        hist = [(float(j), cst / denom) for j, cst in enumerate(best_by_epoch)]
-        results.append(MappingResult(
-            placement=best[:ks[i]].cpu().numpy().astype(np.int64),
-            avg_hop=final_cost / denom,
-            seconds=0.0,
-            history=hist,
-            evaluations=int(iters) * int(chains),
-        ))
+            x, y = _coords(num_cores, mesh_w, dev)
+            syms32 = syms.to(torch.float32)
+        results = []
+        for i in range(c):
+            with spans.span("sneap.sa.wait"):
+                best = pop.placement[i, int(torch.argmin(pop.cost[i]))].clone()
+            if polish:
+                best, _ = greedy_polish(syms32[i], best, x, y)
+            denom = max(int(trace_lengths[i]), 1)  # zero traffic: 1
+            with spans.span("sneap.sa.wait"):
+                final_cost = float(_cost(syms[i], best, dist))
+                placement = best[:ks[i]].cpu().numpy().astype(np.int64)
+            # The steps run on the device, so history is keyed by
+            # temperature-epoch index (see MappingResult.history), as in
+            # the reference.
+            best_by_epoch = np.minimum.accumulate(best_hist[:, i])
+            hist = [(float(j), cst / denom)
+                    for j, cst in enumerate(best_by_epoch)]
+            results.append(MappingResult(
+                placement=placement,
+                avg_hop=final_cost / denom,
+                seconds=0.0,
+                history=hist,
+                evaluations=int(iters) * int(chains),
+            ))
     seconds = (time.perf_counter() - start) / c
     for r in results:
         r.seconds = seconds
@@ -307,21 +328,25 @@ def greedy_polish(
     step run, the last non-improving one included.  ``sym`` must be the
     symmetric padded traffic C + C^T.  Returns a new placement.
     """
-    placement = placement.clone()
-    nc = placement.shape[0]
-    eye = torch.eye(nc, dtype=torch.bool, device=placement.device)
-    steps = 0
-    improved = True
-    while improved and steps < max_steps:
-        deltas = swap_deltas(sym, x[placement], y[placement])
-        deltas.masked_fill_(eye, float("inf"))
-        best, flat = torch.min(deltas.view(-1), 0)
-        best, flat = torch.stack([best.double(), flat.double()]).tolist()
-        improved = best < -1e-6
-        if improved:
-            a, b = divmod(int(flat), nc)
-            placement[[a, b]] = placement[[b, a]]
-        steps += 1
+    with spans.span("sneap.polish", cores=int(placement.shape[0])) as sp:
+        placement = placement.clone()
+        nc = placement.shape[0]
+        eye = torch.eye(nc, dtype=torch.bool, device=placement.device)
+        steps = 0
+        improved = True
+        while improved and steps < max_steps:
+            deltas = swap_deltas(sym, x[placement], y[placement])
+            deltas.masked_fill_(eye, float("inf"))
+            best, flat = torch.min(deltas.view(-1), 0)
+            pair = torch.stack([best.double(), flat.double()])
+            with spans.span("sneap.polish.wait"):
+                best, flat = pair.tolist()
+            improved = best < -1e-6
+            if improved:
+                a, b = divmod(int(flat), nc)
+                placement[[a, b]] = placement[[b, a]]
+            steps += 1
+        sp.add(steps=steps)
     return placement, steps
 
 

@@ -40,6 +40,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.device import resolve_device
 
 from .coarsen import coarsen
@@ -181,13 +182,21 @@ def sneap_partition(
         from .coarsen import LevelStore
 
         store = LevelStore()
-    levels = coarsen(graph, rng, coarsen_to=coarsen_to, max_vwgt=max_vwgt,
-                     impl=impl, contract_hyper=objective == "volume",
-                     shards=shards if impl == "vec" else None, store=store)
-    coarse_part = greedy_region_growing(
-        levels[-1], k, capacity, rng,
-        impl="auto" if impl == "vec" else "scalar",
-    )
+    with spans.span("sneap.partition.coarsen", vertices=graph.num_vertices,
+                    engine=impl) as s:
+        levels = coarsen(graph, rng, coarsen_to=coarsen_to,
+                         max_vwgt=max_vwgt, impl=impl,
+                         contract_hyper=objective == "volume",
+                         shards=shards if impl == "vec" else None,
+                         store=store)
+        s.add(levels=len(levels))
+    with spans.span("sneap.partition.initpart", k=k) as s:
+        coarsest = levels[-1]
+        coarse_part = greedy_region_growing(
+            coarsest, k, capacity, rng,
+            impl="auto" if impl == "vec" else "scalar",
+        )
+        s.add(vertices=coarsest.num_vertices)
     if impl == "vec":
         from .refine_vec import uncoarsen_vec
 

@@ -38,6 +38,7 @@ from typing import TYPE_CHECKING
 
 import numpy as np
 
+from repro_torch import spans
 from repro_torch.device import resolve_device
 from repro_torch.nocsim import NoCStats, combine_stats, simulate_noc
 from repro_torch.runtime.faults import FaultSchedule, FaultState, heartbeat_detect
@@ -300,8 +301,9 @@ def _partition_phase(profile: "ProfileResult", cfg: ToolchainConfig) -> Partitio
 def build_traffic(profile: "ProfileResult", pres: PartitionResult,
                   cfg: ToolchainConfig) -> np.ndarray:
     """The (k, k) partition traffic matrix of a run (deterministic)."""
-    return traffic_matrix(pres.part, profile.trace_src, profile.trace_dst,
-                          pres.k, trace_t=profile.trace_t, cast=cfg.cast)
+    with spans.span("sneap.mapping.traffic", k=pres.k):
+        return traffic_matrix(pres.part, profile.trace_src, profile.trace_dst,
+                              pres.k, trace_t=profile.trace_t, cast=cfg.cast)
 
 
 def mapping_phase(
@@ -382,11 +384,12 @@ def mapping_phase(
     # The objective that drove the search (if any) is reused so its
     # construction cost is not paid twice; `evaluate_placement` validates
     # it against this run's traffic/partition before trusting it.
-    mres.avg_hop, mres.tree_hop = evaluate_placement(
-        mres.placement, traffic, num_cores, cfg.mesh_w, trace_len,
-        mesh_h=cfg.mesh_h, hyper=hyper, part=pres.part,
-        reuse=mapper_kwargs.get("objective"),
-    )
+    with spans.span("sneap.mapping.score"):
+        mres.avg_hop, mres.tree_hop = evaluate_placement(
+            mres.placement, traffic, num_cores, cfg.mesh_w, trace_len,
+            mesh_h=cfg.mesh_h, hyper=hyper, part=pres.part,
+            reuse=mapper_kwargs.get("objective"),
+        )
     return mres, place_objective, traffic, trace_len
 
 
@@ -517,29 +520,34 @@ def run_toolchain(
     cfg = cfg.resolve(profile.graph.hyper)
     phase: dict[str, float] = {}
 
-    t0 = time.perf_counter()
-    pres = partition_phase(profile, cfg)
-    phase["partition"] = time.perf_counter() - t0
+    # The root span of the run's steps; each phase's seconds are its
+    # phase span's own two clock reads.
+    with spans.span("sneap.toolchain", method=cfg.method, mapper=cfg.mapper,
+                    noc_mode=cfg.noc_mode):
+        with spans.phase("sneap.partition") as s:
+            pres = partition_phase(profile, cfg)
+        phase["partition"] = s.seconds
 
-    t0 = time.perf_counter()
-    mres, place_objective, traffic, trace_len = mapping_phase(profile, pres, cfg)
-    phase["mapping"] = time.perf_counter() - t0
+        with spans.phase("sneap.mapping") as s:
+            mres, place_objective, traffic, trace_len = mapping_phase(
+                profile, pres, cfg)
+        phase["mapping"] = s.seconds
 
-    t0 = time.perf_counter()
-    if fault_schedule is None:
-        noc = evaluate_phase(profile, pres, mres, cfg)
-        phase["evaluate"] = time.perf_counter() - t0
-        degradation = None
-    else:
-        noc_args = dict(link_capacity=cfg.link_capacity, mode=cfg.noc_mode,
-                        cast=cfg.cast)
-        noc_args.update(cfg.noc_kwargs)
-        noc, degradation = _faulty_replay(
-            profile, pres, mres, cfg.mesh_w, cfg.mesh_h, cfg.capacity,
-            noc_args, phase, fault_schedule, remap_strategy, remap_kwargs,
-            detect_windows, cfg.objective, cfg.cast, place_objective,
-            phase_seeds(cfg.seed)[2], cfg.device,
-        )
+        if fault_schedule is None:
+            with spans.phase("sneap.evaluate") as s:
+                noc = evaluate_phase(profile, pres, mres, cfg)
+            phase["evaluate"] = s.seconds
+            degradation = None
+        else:
+            noc_args = dict(link_capacity=cfg.link_capacity,
+                            mode=cfg.noc_mode, cast=cfg.cast)
+            noc_args.update(cfg.noc_kwargs)
+            noc, degradation = _faulty_replay(
+                profile, pres, mres, cfg.mesh_w, cfg.mesh_h, cfg.capacity,
+                noc_args, phase, fault_schedule, remap_strategy, remap_kwargs,
+                detect_windows, cfg.objective, cfg.cast, place_objective,
+                phase_seeds(cfg.seed)[2], cfg.device,
+            )
     return ToolchainResult(
         method=cfg.method, snn=profile.name, partition=pres, mapping=mres,
         noc=noc, phase_seconds=phase, objective=cfg.objective, cast=cfg.cast,
@@ -605,13 +613,13 @@ def _faulty_replay(
         i1 = int(np.searchsorted(trace_t, hi))
         if i0 == i1:
             return
-        r0 = time.perf_counter()
-        segments.append(simulate_noc(
-            trace_t[i0:i1], trace_src[i0:i1], trace_dst[i0:i1],
-            cur_part, cur_place, mesh_w, mesh_h, faults=state, device=device,
-            **noc_args,
-        ))
-        replay_s += time.perf_counter() - r0
+        with spans.phase("sneap.evaluate") as s:
+            segments.append(simulate_noc(
+                trace_t[i0:i1], trace_src[i0:i1], trace_dst[i0:i1],
+                cur_part, cur_place, mesh_w, mesh_h, faults=state,
+                device=device, **noc_args,
+            ))
+        replay_s += s.seconds
 
     cursor = 0
     for te in schedule.event_times():
@@ -641,26 +649,26 @@ def _faulty_replay(
             detect_end = min(detect_end, int(later[0]))
         replay(cursor, detect_end)
         cursor = detect_end
-        r0 = time.perf_counter()
-        if remap_strategy == "incremental":
-            res = incremental_remap(
-                profile.graph, cur_part, cur_place, dead_mask,
-                trace_t, trace_src, trace_dst, mesh_w, mesh_h,
-                capacity=capacity, cast=cast,
-                place_objective=place_objective,
-                partition_objective=objective, seed=seed, k=cur_k,
-                **remap_args,
-            )
-        else:
-            res = scratch_remap(
-                profile.graph, cur_part, cur_place, dead_mask,
-                trace_t, trace_src, trace_dst, mesh_w, mesh_h,
-                capacity=capacity, cast=cast,
-                place_objective=place_objective,
-                partition_objective=objective, seed=seed,
-                **remap_args,
-            )
-        remap_s += time.perf_counter() - r0
+        with spans.phase("sneap.remap", strategy=remap_strategy) as s:
+            if remap_strategy == "incremental":
+                res = incremental_remap(
+                    profile.graph, cur_part, cur_place, dead_mask,
+                    trace_t, trace_src, trace_dst, mesh_w, mesh_h,
+                    capacity=capacity, cast=cast,
+                    place_objective=place_objective,
+                    partition_objective=objective, seed=seed, k=cur_k,
+                    **remap_args,
+                )
+            else:
+                res = scratch_remap(
+                    profile.graph, cur_part, cur_place, dead_mask,
+                    trace_t, trace_src, trace_dst, mesh_w, mesh_h,
+                    capacity=capacity, cast=cast,
+                    place_objective=place_objective,
+                    partition_objective=objective, seed=seed,
+                    **remap_args,
+                )
+        remap_s += s.seconds
         cur_part, cur_place, cur_k = res.part, res.placement, res.k
         migrated += res.neurons_migrated
         evicted += res.neurons_evicted
@@ -670,12 +678,12 @@ def _faulty_replay(
     if segments:
         noc = combine_stats(segments)
     else:  # empty trace: one degenerate replay for well-formed stats
-        r0 = time.perf_counter()
-        noc = simulate_noc(
-            trace_t, trace_src, trace_dst, cur_part, cur_place,
-            mesh_w, mesh_h, faults=state, device=device, **noc_args,
-        )
-        replay_s += time.perf_counter() - r0
+        with spans.phase("sneap.evaluate") as s:
+            noc = simulate_noc(
+                trace_t, trace_src, trace_dst, cur_part, cur_place,
+                mesh_w, mesh_h, faults=state, device=device, **noc_args,
+            )
+        replay_s += s.seconds
     phase["evaluate"] = replay_s
     phase["remap"] = remap_s
     # Driver overhead (slicing, detection) outside replay and re-map.

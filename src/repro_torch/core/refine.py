@@ -34,6 +34,8 @@ import itertools
 
 import numpy as np
 
+from repro_torch import spans
+
 from .graph import (
     Graph,
     comm_volume,
@@ -392,11 +394,15 @@ def uncoarsen(
     objective: str = "cut",
 ) -> tuple[np.ndarray, int]:
     """Walk levels coarse→fine, projecting and refining at each level."""
-    part = coarse_part
-    part, cut = refine_level(levels[-1], part, k, capacity, max_nonimproving,
-                             objective=objective)
-    for fine, coarse in zip(reversed(levels[:-1]), reversed(levels[1:])):
-        part = project(part, coarse.cmap)
-        part, cut = refine_level(fine, part, k, capacity, max_nonimproving,
-                                 objective=objective)
+
+    def refine(g: Graph, p: np.ndarray, level: int) -> tuple[np.ndarray, int]:
+        with spans.span("sneap.partition.refine", level=level,
+                        vertices=g.num_vertices, k=k, engine="scalar"):
+            return refine_level(g, p, k, capacity, max_nonimproving,
+                                objective=objective)
+
+    part, cut = refine(levels[-1], coarse_part, len(levels) - 1)
+    for i in range(len(levels) - 2, -1, -1):
+        part = project(part, levels[i + 1].cmap)
+        part, cut = refine(levels[i], part, i)
     return part, cut

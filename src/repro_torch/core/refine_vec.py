@@ -93,6 +93,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.device import resolve_device
 
 from .graph import (
@@ -1015,19 +1016,23 @@ def uncoarsen_vec(
     """
     dev = resolve_device(device)
 
-    def refine(g: Graph, p: np.ndarray) -> tuple[np.ndarray, int]:
-        if (objective == "cut" and k <= scalar_max_k
-                and g.num_vertices * k <= scalar_nk):
-            return refine_level(g, p, k, capacity, max_nonimproving,
-                                objective=objective)
-        return refine_level_vec(g, p, k, capacity, use_kernel=use_kernel,
-                                objective=objective,
-                                plateau_rounds=plateau_rounds,
-                                shards=shards, device=dev)
+    def refine(g: Graph, p: np.ndarray, level: int) -> tuple[np.ndarray, int]:
+        scalar = (objective == "cut" and k <= scalar_max_k
+                  and g.num_vertices * k <= scalar_nk)
+        with spans.span("sneap.partition.refine", level=level,
+                        vertices=g.num_vertices, k=k,
+                        engine="scalar" if scalar else "vec"):
+            if scalar:
+                return refine_level(g, p, k, capacity, max_nonimproving,
+                                    objective=objective)
+            return refine_level_vec(g, p, k, capacity, use_kernel=use_kernel,
+                                    objective=objective,
+                                    plateau_rounds=plateau_rounds,
+                                    shards=shards, device=dev)
 
     nlev = len(levels)
-    part, cut = refine(levels[nlev - 1], coarse_part)
+    part, cut = refine(levels[nlev - 1], coarse_part, nlev - 1)
     for i in range(nlev - 2, -1, -1):
         part = project(part, levels[i + 1].cmap)
-        part, cut = refine(levels[i], part)
+        part, cut = refine(levels[i], part, i)
     return part, cut

@@ -3,6 +3,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import spans
+
 from .kernel import part_degrees_cuda, volume_degree_rows_cuda
 from .ref import part_degrees_ref, part_onehot, volume_degree_rows_ref
 
@@ -12,6 +14,8 @@ __all__ = ["part_degrees", "volume_degree_rows", "gain_matrix"]
 def part_degrees(adj: torch.Tensor, part: torch.Tensor, k: int,
                  rows: torch.Tensor | None = None) -> torch.Tensor:
     """(R, k) f32 degrees D[r, b] = sum_{u: part[u]=b} adj[rows[r], u]."""
+    spans.add(degree_calls=1,
+              degree_rows=adj.shape[0] if rows is None else rows.shape[0])
     if adj.device.type == "cuda":
         return part_degrees_cuda(adj, part, k, rows)
     if adj.device.type == "cpu":
@@ -25,6 +29,7 @@ def volume_degree_rows(vxadj: torch.Tensor, vedges: torch.Tensor,
                        own: torch.Tensor) -> torch.Tensor:
     """(R, k) f32 volume-mode degrees D*[r, c] = sum of w over the CSR
     entries e of vertex rows[r] with phi[e, c] > (c == own[r])."""
+    spans.add(degree_calls=1, degree_rows=own.shape[0])
     if vxadj.device.type == "cuda":
         return volume_degree_rows_cuda(vxadj, vedges, w, phi, rows, own)
     if vxadj.device.type == "cpu":

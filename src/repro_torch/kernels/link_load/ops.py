@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.device import resolve_device
 from repro_torch.nocsim.xy import link_count
 
@@ -78,6 +79,7 @@ def record_link_loads(
         raise ValueError(f"a {mesh_w}x{mesh_h} mesh exceeds {MAX_CORES} cores")
     if n and (np.any(win[1:] < win[:-1]) or win[0] < 0 or win[-1] >= n_win):
         raise ValueError(f"packet windows must be sorted ids in [0, {n_win})")
+    spans.add(link_load_calls=1, link_load_records=n, link_load_windows=n_win)
     # Offsets, then records, in one int32 buffer: a single upload.
     buf = torch.empty(n_win + 1 + n, dtype=torch.int32,
                       pin_memory=dev.type == "cuda")

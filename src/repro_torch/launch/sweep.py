@@ -31,11 +31,11 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
 
+from repro_torch import spans
 from repro_torch.core.mapping import OBJECTIVE_AWARE_MAPPERS
 from repro_torch.core.mapping_device import sa_search_jax_batch
 from repro_torch.core.pipeline import (
@@ -172,136 +172,139 @@ def run_sweep(
     if not isinstance(profiles, (list, tuple)):
         profiles = [profiles]
     say = progress if progress is not None else (lambda msg: None)
-    t_sweep = time.perf_counter()
     all_rows: list[dict] = []
     all_results: list[ToolchainResult] = []
 
-    for profile in profiles:
-        hyper = profile.graph.hyper
-        cfgs = [c.resolve(hyper) for c in configs]
-        n = len(cfgs)
+    # The root span of the sweep's steps; a row's phase seconds are its
+    # phase spans' own clock reads.
+    with spans.phase("sneap.sweep", configs=len(configs)) as root:
+        for profile in profiles:
+            hyper = profile.graph.hyper
+            cfgs = [c.resolve(hyper) for c in configs]
+            n = len(cfgs)
 
-        # -- partition phase, deduplicated --------------------------------
-        # parts: partition_key -> [PartitionResult, seconds, share_count]
-        parts: dict = {}
-        for c in cfgs:
-            key = c.partition_key()
-            if key not in parts:
-                t0 = time.perf_counter()
-                pres = partition_phase(profile, c)
-                parts[key] = [pres, time.perf_counter() - t0, 0]
-            parts[key][2] += 1
-        say(f"{profile.name}: {len(parts)} partition runs for {n} configs")
+            # -- partition phase, deduplicated --------------------------------
+            # parts: partition_key -> [PartitionResult, seconds, share_count]
+            parts: dict = {}
+            for c in cfgs:
+                key = c.partition_key()
+                if key not in parts:
+                    with spans.phase("sneap.partition") as ph:
+                        pres = partition_phase(profile, c)
+                    parts[key] = [pres, ph.seconds, 0]
+                parts[key][2] += 1
+            say(f"{profile.name}: {len(parts)} partition runs for {n} configs")
 
-        # -- shared traffic matrices and placement objectives --------------
-        traffics: dict = {}
-        for c in cfgs:
-            tk = c.traffic_key()
-            if tk not in traffics:
-                traffics[tk] = build_traffic(
-                    profile, parts[c.partition_key()][0], c)
-        objectives: dict = {}
+            # -- shared traffic matrices and placement objectives --------------
+            traffics: dict = {}
+            for c in cfgs:
+                tk = c.traffic_key()
+                if tk not in traffics:
+                    traffics[tk] = build_traffic(
+                        profile, parts[c.partition_key()][0], c)
+            objectives: dict = {}
 
-        # -- mapping phase: device buckets + host singles ------------------
-        # mapping_out[i] = (mres, place_objective, traffic, trace_len, sec)
-        mapping_out: list = [None] * n
-        buckets: dict = {}
-        for i, c in enumerate(cfgs):
-            if batch_device and _bucketable(c):
-                bkey = (c.num_cores, c.mesh_w,
-                        tuple(sorted(c.mapper_kwargs.items())), c.device)
-                buckets.setdefault(bkey, []).append(i)
+            # -- mapping phase: device buckets + host singles ------------------
+            # mapping_out[i] = (mres, place_objective, traffic, trace_len, sec)
+            mapping_out: list = [None] * n
+            buckets: dict = {}
+            for i, c in enumerate(cfgs):
+                if batch_device and _bucketable(c):
+                    bkey = (c.num_cores, c.mesh_w,
+                            tuple(sorted(c.mapper_kwargs.items())), c.device)
+                    buckets.setdefault(bkey, []).append(i)
 
-        for bkey, idxs in buckets.items():
-            t0 = time.perf_counter()
-            bc = [cfgs[i] for i in idxs]
-            for c in bc:
-                if c.requested_place == "tree":
-                    raise ValueError(
-                        "mapper 'sa_jax' cannot run the tree objective"
-                    )
-            trs = [traffics[c.traffic_key()] for c in bc]
-            tls = [int(t.sum()) for t in trs]
-            seeds = [phase_seeds(c.seed)[1] for c in bc]
-            say(f"{profile.name}: sa_jax bucket of {len(idxs)} configs "
-                f"(cores={bkey[0]})")
-            mk = dict(bc[0].mapper_kwargs)
-            mk.setdefault("device", bc[0].device)
-            mresults = sa_search_jax_batch(
-                trs, bc[0].num_cores, bc[0].mesh_w, tls, seeds, **mk)
-            for i, c, mres, tr, tl in zip(idxs, bc, mresults, trs, tls):
+            for bkey, idxs in buckets.items():
+                with spans.phase("sneap.mapping", configs=len(idxs)) as ph:
+                    bc = [cfgs[i] for i in idxs]
+                    for c in bc:
+                        if c.requested_place == "tree":
+                            raise ValueError(
+                                "mapper 'sa_jax' cannot run the tree objective"
+                            )
+                    trs = [traffics[c.traffic_key()] for c in bc]
+                    tls = [int(t.sum()) for t in trs]
+                    seeds = [phase_seeds(c.seed)[1] for c in bc]
+                    say(f"{profile.name}: sa_jax bucket of {len(idxs)} configs "
+                        f"(cores={bkey[0]})")
+                    mk = dict(bc[0].mapper_kwargs)
+                    mk.setdefault("device", bc[0].device)
+                    mresults = sa_search_jax_batch(
+                        trs, bc[0].num_cores, bc[0].mesh_w, tls, seeds, **mk)
+                    for i, c, mres, tr, tl in zip(idxs, bc, mresults, trs, tls):
+                        pres = parts[c.partition_key()][0]
+                        # Same reporting path as mapping_phase's device branch.
+                        with spans.span("sneap.mapping.score"):
+                            mres.avg_hop, mres.tree_hop = evaluate_placement(
+                                mres.placement, tr, c.num_cores, c.mesh_w, tl,
+                                mesh_h=c.mesh_h, hyper=hyper, part=pres.part,
+                            )
+                        po = ("pairwise" if c.place_objective == "tree"
+                              else c.place_objective)
+                        mapping_out[i] = (mres, po, tr, tl, None)
+                per = ph.seconds / len(idxs)
+                for i in idxs:
+                    mapping_out[i] = mapping_out[i][:4] + (per,)
+
+            for i, c in enumerate(cfgs):
+                if mapping_out[i] is not None:
+                    continue
                 pres = parts[c.partition_key()][0]
-                # Same reporting path as mapping_phase's device branch.
-                mres.avg_hop, mres.tree_hop = evaluate_placement(
-                    mres.placement, tr, c.num_cores, c.mesh_w, tl,
-                    mesh_h=c.mesh_h, hyper=hyper, part=pres.part,
+                traffic = traffics[c.traffic_key()]
+                obj = None
+                mapper_name = "pso" if c.method == "spinemap" else c.mapper
+                if (c.method != "sco" and mapper_name in OBJECTIVE_AWARE_MAPPERS
+                        and "objective" not in c.mapper_kwargs):
+                    okey = c.traffic_key() + (c.place_objective, c.mesh_w,
+                                              c.mesh_h)
+                    if okey not in objectives:
+                        objectives[okey] = make_objective(
+                            c.place_objective, traffic, c.num_cores, c.mesh_w,
+                            mesh_h=c.mesh_h, hyper=hyper, part=pres.part,
+                        )
+                    obj = objectives[okey]
+                with spans.phase("sneap.mapping") as ph:
+                    mres, po, traffic, tl = mapping_phase(
+                        profile, pres, c, traffic=traffic, objective=obj)
+                mapping_out[i] = (mres, po, traffic, tl, ph.seconds)
+
+            # -- evaluation phase + rows ---------------------------------------
+            rows: list[dict] = []
+            results: list[ToolchainResult] = []
+            for i, c in enumerate(cfgs):
+                entry = parts[c.partition_key()]
+                pres, psec = entry[0], entry[1] / entry[2]
+                mres, po, traffic, tl, msec = mapping_out[i]
+                with spans.phase("sneap.evaluate") as ph:
+                    noc = evaluate_phase(profile, pres, mres, c)
+                esec = ph.seconds
+                result = ToolchainResult(
+                    method=c.method, snn=profile.name, partition=pres,
+                    mapping=mres, noc=noc,
+                    phase_seconds={"partition": psec, "mapping": msec,
+                                   "evaluate": esec},
+                    objective=c.objective, cast=c.cast, place_objective=po,
                 )
-                po = ("pairwise" if c.place_objective == "tree"
-                      else c.place_objective)
-                mapping_out[i] = (mres, po, tr, tl, None)
-            per = (time.perf_counter() - t0) / len(idxs)
-            for i in idxs:
-                mapping_out[i] = mapping_out[i][:4] + (per,)
-
-        for i, c in enumerate(cfgs):
-            if mapping_out[i] is not None:
-                continue
-            pres = parts[c.partition_key()][0]
-            traffic = traffics[c.traffic_key()]
-            obj = None
-            mapper_name = "pso" if c.method == "spinemap" else c.mapper
-            if (c.method != "sco" and mapper_name in OBJECTIVE_AWARE_MAPPERS
-                    and "objective" not in c.mapper_kwargs):
-                okey = c.traffic_key() + (c.place_objective, c.mesh_w, c.mesh_h)
-                if okey not in objectives:
-                    objectives[okey] = make_objective(
-                        c.place_objective, traffic, c.num_cores, c.mesh_w,
-                        mesh_h=c.mesh_h, hyper=hyper, part=pres.part,
-                    )
-                obj = objectives[okey]
-            t0 = time.perf_counter()
-            mres, po, traffic, tl = mapping_phase(
-                profile, pres, c, traffic=traffic, objective=obj)
-            mapping_out[i] = (mres, po, traffic, tl,
-                              time.perf_counter() - t0)
-
-        # -- evaluation phase + rows ---------------------------------------
-        rows: list[dict] = []
-        results: list[ToolchainResult] = []
-        for i, c in enumerate(cfgs):
-            entry = parts[c.partition_key()]
-            pres, psec = entry[0], entry[1] / entry[2]
-            mres, po, traffic, tl, msec = mapping_out[i]
-            t0 = time.perf_counter()
-            noc = evaluate_phase(profile, pres, mres, c)
-            esec = time.perf_counter() - t0
-            result = ToolchainResult(
-                method=c.method, snn=profile.name, partition=pres,
-                mapping=mres, noc=noc,
-                phase_seconds={"partition": psec, "mapping": msec,
-                               "evaluate": esec},
-                objective=c.objective, cast=c.cast, place_objective=po,
-            )
-            row = result.summary()
-            row.update(
-                mapper=c.mapper, seed=c.seed, mesh_w=c.mesh_w,
-                mesh_h=c.mesh_h, capacity=c.capacity,
-                partition_impl=c.partition_impl,
-                score_backend=c.mapper_kwargs.get("score_backend", ""),
-                stepper=c.noc_kwargs.get("stepper", "numpy"),
-                screen=c.noc_kwargs.get("screen", "numpy"),
-                knobs=";".join(f"{k}={v}"
-                               for k, v in sorted(c.knobs.items())),
-            )
-            rows.append(row)
-            results.append(result)
-        for row, flag in zip(rows, pareto_flags(rows, pareto_keys)):
-            row["pareto"] = int(flag)
-        all_rows.extend(rows)
-        all_results.extend(results)
-        say(f"{profile.name}: {sum(r['pareto'] for r in rows)} of "
-            f"{len(rows)} configs on the Pareto front")
+                row = result.summary()
+                row.update(
+                    mapper=c.mapper, seed=c.seed, mesh_w=c.mesh_w,
+                    mesh_h=c.mesh_h, capacity=c.capacity,
+                    partition_impl=c.partition_impl,
+                    score_backend=c.mapper_kwargs.get("score_backend", ""),
+                    stepper=c.noc_kwargs.get("stepper", "numpy"),
+                    screen=c.noc_kwargs.get("screen", "numpy"),
+                    knobs=";".join(f"{k}={v}"
+                                   for k, v in sorted(c.knobs.items())),
+                )
+                rows.append(row)
+                results.append(result)
+            for row, flag in zip(rows, pareto_flags(rows, pareto_keys)):
+                row["pareto"] = int(flag)
+            all_rows.extend(rows)
+            all_results.extend(results)
+            say(f"{profile.name}: {sum(r['pareto'] for r in rows)} of "
+                f"{len(rows)} configs on the Pareto front")
 
     return SweepResult(rows=all_rows,
-                       seconds=time.perf_counter() - t_sweep,
+                       seconds=root.seconds,
                        pareto_keys=pareto_keys, results=all_results)

@@ -63,6 +63,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import spans
+
 from .energy import EnergyModel
 from .replay_device import joint_stepper_device
 from .stats import NoCStats, edge_stats
@@ -264,10 +266,13 @@ def queued_unicast(
                       np.zeros(nl, np.int64), 0, n_local, energy, "unicast", 0)
     if order is not None and (stepper != "numpy" or screen == "linkload"):
         raise ValueError("fault-escape routes require numpy stepper/screen")
-    win, n_win = _window_ids(trace_t)
-    inject = _inject_cycles(win, src_core, ncores, inject_capacity)
-    hops = route_hops(src_core, dst_core, w)
-    total_hops = int(hops.sum())
+    with spans.span("sneap.replay.windows", noc_packets=n) as sp:
+        win, n_win = _window_ids(trace_t)
+        inject = _inject_cycles(win, src_core, ncores, inject_capacity)
+        hops = route_hops(src_core, dst_core, w)
+        total_hops = int(hops.sum())
+        lat = inject + hops  # analytic fast path (exact off overloaded pairs)
+        sp.add(windows=n_win)
 
     # Tier 1: whole-window (window, link) loads -> overloaded pairs.  Only
     # packets whose route crosses an overloaded pair can ever be blocked
@@ -276,18 +281,23 @@ def queued_unicast(
     if screen == "linkload":
         # Device path: per-window load maps via the link_load kernel; the
         # route expansion is only materialized for dirty windows.
-        loads = _window_loads_linkload(win, src_core, dst_core, n_win, w, h,
-                                       device)
-        per_link = loads.sum(axis=0)
-        hot_keys = np.flatnonzero(loads.ravel() > link_capacity)
-        stepped = np.zeros(n, dtype=bool)
-        if hot_keys.shape[0]:
-            dirty = np.zeros(n_win, dtype=bool)
-            dirty[hot_keys // nl] = True
-            sel = np.flatnonzero(dirty[win])
-            ids, pkt = link_ids_for_routes(src_core[sel], dst_core[sel], w, h)
-            pm = _member(hot_keys, win[sel[pkt]] * np.int64(nl) + ids)
-            stepped[sel[np.unique(pkt[pm])]] = True
+        with spans.span("sneap.replay.screen") as sp:
+            loads = _window_loads_linkload(win, src_core, dst_core, n_win, w,
+                                           h, device)
+            per_link = loads.sum(axis=0)
+            hot_keys = np.flatnonzero(loads.ravel() > link_capacity)
+            sp.add(hot_pairs=int(hot_keys.shape[0]))
+        with spans.span("sneap.replay.expand") as sp:
+            stepped = np.zeros(n, dtype=bool)
+            if hot_keys.shape[0]:
+                dirty = np.zeros(n_win, dtype=bool)
+                dirty[hot_keys // nl] = True
+                sel = np.flatnonzero(dirty[win])
+                ids, pkt = link_ids_for_routes(src_core[sel], dst_core[sel],
+                                               w, h)
+                pm = _member(hot_keys, win[sel[pkt]] * np.int64(nl) + ids)
+                stepped[sel[np.unique(pkt[pm])]] = True
+                sp.add(links=int(ids.shape[0]))
     else:
         # One route expansion serves both tiers: the (window, link) load
         # screen below and — via boolean masking that preserves the exact
@@ -295,28 +305,32 @@ def queued_unicast(
         # produce — the stepped packets' link/step arrays.  On saturated
         # traces (stepped ~= everything) this halves the expansion work,
         # the dominant cold-start cost of the batched engine.
-        ids, pkt, steps = link_ids_for_routes(src_core, dst_core, w, h,
-                                              order=order, with_steps=True)
-        per_link = np.bincount(ids, minlength=nl)
-        wl_key = win[pkt] * np.int64(nl) + ids
-        hot_keys, counts = _hot_pairs(wl_key, n_win, nl, link_capacity)
-        stepped = np.zeros(n, dtype=bool)
-        if hot_keys.shape[0]:
-            pm = (counts[wl_key] > link_capacity if counts is not None
-                  else _member(hot_keys, wl_key))
-            stepped[pkt[pm]] = True
-            if stepped.any():
-                tm = stepped[pkt]
-                sids, sstep = ids[tm], steps[tm]
-                spkt = (np.cumsum(stepped) - 1)[pkt[tm]]
-    lat = inject + hops  # analytic fast path (exact off overloaded pairs)
+        with spans.span("sneap.replay.screen") as sp:
+            ids, pkt, steps = link_ids_for_routes(src_core, dst_core, w, h,
+                                                  order=order,
+                                                  with_steps=True)
+            per_link = np.bincount(ids, minlength=nl)
+            wl_key = win[pkt] * np.int64(nl) + ids
+            hot_keys, counts = _hot_pairs(wl_key, n_win, nl, link_capacity)
+            stepped = np.zeros(n, dtype=bool)
+            if hot_keys.shape[0]:
+                pm = (counts[wl_key] > link_capacity if counts is not None
+                      else _member(hot_keys, wl_key))
+                stepped[pkt[pm]] = True
+                if stepped.any():
+                    tm = stepped[pkt]
+                    sids, sstep = ids[tm], steps[tm]
+                    spkt = (np.cumsum(stepped) - 1)[pkt[tm]]
+            sp.add(hot_pairs=int(hot_keys.shape[0]), links=int(ids.shape[0]))
     congestion = 0
     if stepped.any():
-        sidx = np.flatnonzero(stepped)
-        if sids is None:  # device screen materialized only dirty windows
-            sids, spkt, sstep = link_ids_for_routes(
-                src_core[sidx], dst_core[sidx], w, h, with_steps=True,
-                order=order[sidx] if order is not None else None)
+        with spans.span("sneap.replay.expand") as sp:
+            sidx = np.flatnonzero(stepped)
+            if sids is None:  # device screen materialized only dirty windows
+                sids, spkt, sstep = link_ids_for_routes(
+                    src_core[sidx], dst_core[sidx], w, h, with_steps=True,
+                    order=order[sidx] if order is not None else None)
+                sp.add(links=int(sids.shape[0]))
         # Static schedule screen: windows whose stepped packets never
         # oversubscribe any (cycle, link) bucket under the unobstructed
         # schedule (inject + step) cannot block — their overload is
@@ -328,55 +342,65 @@ def queued_unicast(
         # traces that empties the screen entirely (the old
         # `saturated_unicast` 0.8x gap), while merely-bursty windows
         # still get screened (where the pruning pays for itself).
-        uwin0 = np.unique(win[sidx])
-        cwin0 = np.searchsorted(uwin0, win[sidx])
-        nw0 = uwin0.shape[0]
-        cw_t = cwin0[spkt]
-        sched = inject[sidx[spkt]] + sstep
-        span_w = np.zeros(nw0, dtype=np.int64)
-        np.maximum.at(span_w, cw_t, sched)
-        span_w += 1
-        lkey = cw_t * np.int64(nl) + sids
-        if nw0 * nl <= _DENSE_SCREEN_SPACE:
-            loadmax_w = np.bincount(
-                lkey, minlength=nw0 * nl).reshape(nw0, nl).max(axis=1)
-        else:
-            loadmax_w = np.zeros(nw0, dtype=np.int64)
-            uk, uc = np.unique(lkey, return_counts=True)
-            np.maximum.at(loadmax_w, uk // nl, uc)
-        hopeless = loadmax_w > link_capacity * span_w
-        if hopeless.all():
-            bad = np.arange(nw0, dtype=np.int64)
-        else:
-            sub = ~hopeless[cw_t]
-            bad = _schedule_congested(cw_t[sub], sched[sub], sids[sub],
-                                      nl, link_capacity)
-            bad = np.union1d(np.flatnonzero(hopeless), bad)
-        if bad.shape[0] < nw0:
-            keep_w = np.zeros(nw0, dtype=bool)
-            keep_w[bad] = True
-            keep_p = keep_w[cwin0]
-            keep_t = keep_p[spkt]
-            remap = np.cumsum(keep_p) - 1
-            sids, sstep = sids[keep_t], sstep[keep_t]
-            spkt = remap[spkt[keep_t]]
-            sidx = sidx[keep_p]
-        if sidx.shape[0]:
-            uwin = np.unique(win[sidx])
-            cwin = np.searchsorted(uwin, win[sidx])
-            if stepper == "jax":
-                lat_s, congestion = joint_stepper_device(
-                    src_core[sidx], dst_core[sidx], inject[sidx], cwin,
-                    w, h, nl, link_capacity, max_cycles_per_window, device)
+        with spans.span("sneap.replay.schedule",
+                        past_screen=int(sidx.shape[0])) as sp:
+            uwin0 = np.unique(win[sidx])
+            cwin0 = np.searchsorted(uwin0, win[sidx])
+            nw0 = uwin0.shape[0]
+            cw_t = cwin0[spkt]
+            sched = inject[sidx[spkt]] + sstep
+            span_w = np.zeros(nw0, dtype=np.int64)
+            np.maximum.at(span_w, cw_t, sched)
+            span_w += 1
+            lkey = cw_t * np.int64(nl) + sids
+            if nw0 * nl <= _DENSE_SCREEN_SPACE:
+                loadmax_w = np.bincount(
+                    lkey, minlength=nw0 * nl).reshape(nw0, nl).max(axis=1)
             else:
-                lat_s, congestion = _joint_stepper(
-                    sids, spkt, sstep, hops[sidx], inject[sidx], cwin,
-                    nl, link_capacity, max_cycles_per_window)
-            lat[sidx] = lat_s
+                loadmax_w = np.zeros(nw0, dtype=np.int64)
+                uk, uc = np.unique(lkey, return_counts=True)
+                np.maximum.at(loadmax_w, uk // nl, uc)
+            hopeless = loadmax_w > link_capacity * span_w
+            if hopeless.all():
+                bad = np.arange(nw0, dtype=np.int64)
+            else:
+                sub = ~hopeless[cw_t]
+                bad = _schedule_congested(cw_t[sub], sched[sub], sids[sub],
+                                          nl, link_capacity)
+                bad = np.union1d(np.flatnonzero(hopeless), bad)
+            if bad.shape[0] < nw0:
+                keep_w = np.zeros(nw0, dtype=bool)
+                keep_w[bad] = True
+                keep_p = keep_w[cwin0]
+                keep_t = keep_p[spkt]
+                remap = np.cumsum(keep_p) - 1
+                sids, sstep = sids[keep_t], sstep[keep_t]
+                spkt = remap[spkt[keep_t]]
+                sidx = sidx[keep_p]
+            if sidx.shape[0]:
+                uwin = np.unique(win[sidx])
+                cwin = np.searchsorted(uwin, win[sidx])
+            sp.add(stepped=int(sidx.shape[0]))
+        if sidx.shape[0]:
+            with spans.span("sneap.replay.stepper", stepper=stepper,
+                            packets=int(sidx.shape[0])) as sp:
+                if stepper == "jax":
+                    lat_s, congestion = joint_stepper_device(
+                        src_core[sidx], dst_core[sidx], inject[sidx], cwin,
+                        w, h, nl, link_capacity, max_cycles_per_window,
+                        device)
+                else:
+                    lat_s, congestion = _joint_stepper(
+                        sids, spkt, sstep, hops[sidx], inject[sidx], cwin,
+                        nl, link_capacity, max_cycles_per_window)
+                lat[sidx] = lat_s
+                if sp:  # the last arrival
+                    sp.add(cycles=int(lat_s.max()))
 
-    cycles_total = int(_per_window_max(lat, win, n_win).sum())
-    return _stats(lat, total_hops, congestion, per_link, per_link,
-                  cycles_total, n_local, energy, "unicast", n)
+    with spans.span("sneap.replay.stats"):
+        cycles_total = int(_per_window_max(lat, win, n_win).sum())
+        return _stats(lat, total_hops, congestion, per_link, per_link,
+                      cycles_total, n_local, energy, "unicast", n)
 
 
 def _joint_stepper(

@@ -35,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.device import resolve_device
 
 __all__ = ["joint_stepper_device", "CHECK_EVERY"]
@@ -121,7 +122,7 @@ def joint_stepper_device(
     congestion = torch.zeros((), dtype=torch.int64, device=dev)
     pos = torch.arange(n, device=dev)
     state = [inj, ids, ta, hs, nh, tb, vs, hops, k, lat, pos]
-    cycle = 0
+    cycle = reads = 0
     while True:
         inj, ids, ta, hs, nh, tb, vs, hops, k, lat, pos = state
         for _ in range(min(CHECK_EVERY, max_cycles - cycle)):
@@ -138,7 +139,9 @@ def joint_stepper_device(
             lat.masked_fill_(go & (k == hops), cycle + 1)
             cycle += 1
         alive = k < hops
-        remaining = int(alive.sum())
+        with spans.span("sneap.replay.stepper.wait"):
+            remaining = int(alive.sum())
+        reads += 1
         done = ~alive
         out[ids[done]] = lat[done]
         if remaining == 0:
@@ -147,4 +150,7 @@ def joint_stepper_device(
             raise RuntimeError("NoC window failed to drain — capacity too low?")
         if remaining < pos.shape[0]:
             state = [t[alive] for t in state[:-1]] + [pos[:remaining]]
-    return out.cpu().numpy(), int(congestion)
+    with spans.span("sneap.replay.stepper.wait"):
+        out_host, blocked = out.cpu().numpy(), int(congestion)
+    spans.add(reads=reads + 2, loop_cycles=cycle)
+    return out_host, blocked

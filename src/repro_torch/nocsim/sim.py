@@ -42,6 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.device import resolve_device
 from repro_torch.trace import dedupe_firings
 
@@ -94,9 +95,10 @@ def _analytic(
     windows = np.split(np.arange(t.shape[0]), bounds)
     batch: list[np.ndarray] = []
     batch_size = 0
+    expanded = 0
 
     def flush(idxs: list[np.ndarray]) -> int:
-        nonlocal per_link
+        nonlocal per_link, expanded
         cong = 0
         for widx in idxs:
             ow = o[widx] if o is not None else None
@@ -108,6 +110,7 @@ def _analytic(
             loads = np.bincount(ids, minlength=nl)
             per_link += loads
             cong += int(np.maximum(loads - link_capacity, 0).sum())
+            expanded += ids.shape[0]
         return cong
 
     for widx in windows:
@@ -120,6 +123,8 @@ def _analytic(
 
     n_noc = int(t.shape[0])
     traversals = int(per_link.sum())  # == total_hops when unicast
+    spans.add(records=int(trace_t.shape[0]), noc_packets=n_noc,
+              links=expanded)
     return NoCStats(
         avg_latency=float(hops.mean()) if n_noc else 0.0,
         max_latency=int(hops.max()) if n_noc else 0,
@@ -334,27 +339,29 @@ def simulate_noc(
             raise ValueError("fault-aware replay requires screen='numpy'")
         dead = faults.dead_cores
         blocked = faults.blocked_links()
-    core_of_neuron = placement[part]
-    src_core = core_of_neuron[trace_src]
-    dst_core = core_of_neuron[trace_dst]
-    # Canonical record order within each time step: queued stats must
-    # depend on the multiset of simultaneous records, not on the order the
-    # profiler emitted them (injection-stagger and arbitration tie-breaks
-    # would otherwise leak emission order into latencies).
-    ncores = mesh_w * mesh_h
-    tmax = int(trace_t.max()) + 1 if trace_t.shape[0] else 1
-    if tmax * ncores * ncores < np.iinfo(np.int64).max // 4:
-        packed = ((trace_t.astype(np.int64) * ncores + src_core) * ncores
-                  + dst_core)
-        order = np.argsort(packed, kind="stable")
-    else:
-        order = np.lexsort((dst_core, src_core, trace_t))
-    trace_t = trace_t[order]
-    trace_src = trace_src[order]
-    src_core = src_core[order]
-    dst_core = dst_core[order]
-    local = src_core == dst_core
-    n_local = int(local.sum())
+    with spans.span("sneap.noc.order", records=int(trace_t.shape[0])) as sp:
+        core_of_neuron = placement[part]
+        src_core = core_of_neuron[trace_src]
+        dst_core = core_of_neuron[trace_dst]
+        # Canonical record order within each time step: queued stats must
+        # depend on the multiset of simultaneous records, not on the order
+        # the profiler emitted them (injection-stagger and arbitration
+        # tie-breaks would otherwise leak emission order into latencies).
+        ncores = mesh_w * mesh_h
+        tmax = int(trace_t.max()) + 1 if trace_t.shape[0] else 1
+        if tmax * ncores * ncores < np.iinfo(np.int64).max // 4:
+            packed = ((trace_t.astype(np.int64) * ncores + src_core) * ncores
+                      + dst_core)
+            order = np.argsort(packed, kind="stable")
+        else:
+            order = np.lexsort((dst_core, src_core, trace_t))
+        trace_t = trace_t[order]
+        trace_src = trace_src[order]
+        src_core = src_core[order]
+        dst_core = dst_core[order]
+        local = src_core == dst_core
+        n_local = int(local.sum())
+        sp.add(local=n_local)
     keep_local = local
     dropped = 0
     detour_hops = 0
@@ -414,9 +421,10 @@ def simulate_noc(
                 order_cat = np.concatenate(
                     [np.zeros(n_local, dtype=bool), route_order])
         if mode == "analytic":
-            return _with_faults(_analytic(
-                trace_t, src_core, dst_core, mesh_w, mesh_h,
-                link_capacity, energy, group, route_order=order_cat))
+            with spans.span("sneap.noc.analytic"):
+                return _with_faults(_analytic(
+                    trace_t, src_core, dst_core, mesh_w, mesh_h,
+                    link_capacity, energy, group, route_order=order_cat))
         if engine == "ref":
             return _with_faults(_queued_ref(
                 trace_t, src_core, dst_core, mesh_w, mesh_h,
@@ -445,16 +453,21 @@ def simulate_noc(
     else:
         order_cat = None
     if mode == "analytic":
-        return _with_faults(_analytic(
-            trace_t, src_core, dst_core, mesh_w, mesh_h,
-            link_capacity, energy, route_order=order_cat))
+        with spans.span("sneap.noc.analytic"):
+            return _with_faults(_analytic(
+                trace_t, src_core, dst_core, mesh_w, mesh_h,
+                link_capacity, energy, route_order=order_cat))
     if engine == "ref":
         return _with_faults(_queued_ref(
             trace_t, src_core, dst_core, mesh_w, mesh_h,
             link_capacity, inject_capacity, energy, None,
             max_cycles_per_window, route_order=order_cat))
+    with spans.span("sneap.noc.order"):  # the local split
+        remote = ~local
+        remote_t = trace_t[remote]
+        remote_src, remote_dst = src_core[remote], dst_core[remote]
     return _with_faults(queued_unicast(
-        trace_t[~local], src_core[~local], dst_core[~local], mesh_w, mesh_h,
+        remote_t, remote_src, remote_dst, mesh_w, mesh_h,
         link_capacity, inject_capacity, energy, n_local,
         max_cycles_per_window, stepper=stepper, screen=screen,
         order=route_order, device=dev))

@@ -18,13 +18,13 @@ reaches the target, so benchmark traffic volumes match the paper.
 from __future__ import annotations
 
 import hashlib
-import time
 from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core.graph import Graph, Hypergraph, build_graph, build_hypergraph
 from repro_torch.device import resolve_device
 from repro_torch.kernels.lif_step import synapses_from_dense
@@ -151,43 +151,51 @@ def profile_snn(
                 fire_counts=z["fire_counts"], seconds=float(z["seconds"]),
             )
 
-    t0 = time.perf_counter()
     n = topo.num_neurons
-    drive = torch.from_numpy(profile_drive(topo, num_steps, seed))
-    # The synapse list is built on the host and only it goes to the card:
-    # the dense (N, N) matrix is never uploaded.
-    weights = np.ascontiguousarray(topo.weights, dtype=np.float32)
-    syn = synapses_from_dense(torch.from_numpy(weights))
-    if dev.type == "cuda":
-        drive = drive.pin_memory().to(dev, non_blocking=True)
-        syn = syn.to(dev)
-    raster = lif_run_synapses(syn, drive, params)
+    # The root span of the profile's steps; its seconds are the result's.
+    with spans.phase("sneap.profile", neurons=n, steps=num_steps) as whole:
+        src = topo.syn_src.astype(np.int64)
+        dst = topo.syn_dst.astype(np.int64)
+        with spans.span("sneap.profile.upload", synapses=int(src.shape[0])):
+            drive = torch.from_numpy(profile_drive(topo, num_steps, seed))
+            # The synapse list is built on the host and only it goes to the
+            # card: the dense (N, N) matrix is never uploaded.
+            weights = np.ascontiguousarray(topo.weights, dtype=np.float32)
+            syn = synapses_from_dense(torch.from_numpy(weights))
+            if dev.type == "cuda":
+                drive = drive.pin_memory().to(dev, non_blocking=True)
+                syn = syn.to(dev)
+        # The step loop, up to the raster on the host: a wait.
+        with spans.span("sneap.profile.lif", steps=num_steps):
+            raster = lif_run_synapses(syn, drive, params)
 
-    xadj, adjncy = _synapse_csr(n, topo.syn_src.astype(np.int64), topo.syn_dst.astype(np.int64))
-    trace_t, trace_src, trace_dst = _expand_trace(raster, xadj, adjncy)
+        with spans.span("sneap.profile.extract") as s:
+            xadj, adjncy = _synapse_csr(n, src, dst)
+            trace_t, trace_src, trace_dst = _expand_trace(raster, xadj, adjncy)
 
-    # Truncate at the step where cumulative transmissions reach Table 1's count.
-    if topo.target_spikes is not None and trace_t.shape[0] > topo.target_spikes:
-        step_end = int(trace_t[topo.target_spikes - 1])
-        keep = trace_t <= step_end
-        trace_t, trace_src, trace_dst = trace_t[keep], trace_src[keep], trace_dst[keep]
-        raster = raster[: step_end + 1]
-        num_steps = step_end + 1
+            # Truncate at the step where cumulative transmissions reach
+            # Table 1's count.
+            if (topo.target_spikes is not None
+                    and trace_t.shape[0] > topo.target_spikes):
+                step_end = int(trace_t[topo.target_spikes - 1])
+                keep = trace_t <= step_end
+                trace_t, trace_src, trace_dst = (
+                    trace_t[keep], trace_src[keep], trace_dst[keep])
+                raster = raster[: step_end + 1]
+                num_steps = step_end + 1
 
-    fire_counts = raster.sum(axis=0).astype(np.int64)
-    # Synapse graph: each directed synapse (i -> j) carried fire_counts[i] spikes.
-    graph = build_graph(
-        n,
-        src=topo.syn_src.astype(np.int64),
-        dst=topo.syn_dst.astype(np.int64),
-        weight=fire_counts[topo.syn_src.astype(np.int64)],
-    )
-    # Multicast view: one hyperedge per source with its destination pin set.
-    graph.hyper = build_hypergraph(
-        n, topo.syn_src.astype(np.int64), topo.syn_dst.astype(np.int64),
-        fire_counts,
-    )
-    seconds = time.perf_counter() - t0
+            fire_counts = raster.sum(axis=0).astype(np.int64)
+            s.add(spikes=int(trace_t.shape[0]))
+
+        with spans.span("sneap.profile.graph"):
+            # Synapse graph: each directed synapse (i -> j) carried
+            # fire_counts[i] spikes.
+            graph = build_graph(n, src=src, dst=dst, weight=fire_counts[src])
+            # Multicast view: one hyperedge per source with its destination
+            # pin set.
+            graph.hyper = build_hypergraph(n, src, dst, fire_counts)
+        whole.add(spikes=int(trace_t.shape[0]))
+    seconds = whole.seconds
     result = ProfileResult(
         name=topo.name, graph=graph, trace_t=trace_t, trace_src=trace_src,
         trace_dst=trace_dst, num_neurons=n, num_steps=num_steps,
