@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the six CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
+1. Builds the seven CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
    one process per source, in parallel).
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes the slice runs give it (bitwise for lif_step — 60 fused steps of
@@ -25,10 +25,15 @@
    kernel, which must give the run's avg_hop.  Every kernel's launch count
    is set to 0 just before each run and read just after; each kernel of a
    run's path must have launched, the cut run exactly one lif_step launch
-   a profiled step and each run exactly one link_loads launch (counted by
-   the wrappers and seen by the profiler).  Each run prints the device
-   time per launch of the redesigned kernels and the count and device
-   time of its host-to-device copies.
+   a profiled step and one replay_screen launch (the unicast replay's
+   screens) and no link_loads launch, the volume run exactly one
+   link_loads launch (the multicast replay's loads) and no replay_screen
+   launch (counted by the wrappers and seen by the profiler).  Each run
+   prints the device time per launch of the redesigned kernels and the
+   count and device time of its host-to-device copies.  The cut run's
+   replay screen is then held against its plain version on the card on
+   the same packets (flags, so the stepped set, and per-link totals
+   bitwise) and timed there.
 4. Runs the device slice run on the same profile: the cut run's
    configuration with the device searches and stepper — ``mapper="sa_jax"``
    (population SA, then the greedy polish on swap_deltas) and
@@ -547,6 +552,70 @@ def check_link_loads(dev, rng) -> dict:
         shape=f"{b} windows x {per_window} packet records, K={k}")
 
 
+class ScreenSpy:
+    """Keeps the arguments of the replay's screen calls
+    (``record_replay_screen``) made while it is open, in ``calls``."""
+
+    def __init__(self):
+        from repro_torch.kernels import link_load
+
+        self.link_load, self.calls = link_load, []
+        self.real = link_load.record_replay_screen
+
+    def __enter__(self):
+        def spy(*args, **kwargs):
+            self.calls.append(args)
+            return self.real(*args, **kwargs)
+
+        self.link_load.record_replay_screen = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.link_load.record_replay_screen = self.real
+        return False
+
+
+def check_replay_screen(dev, packets) -> dict:
+    """The replay screen's kernel against its plain version on the card, on
+    the packets a replay handed it (``ScreenSpy``): flags (so the stepped
+    set) and per-link totals and counts bitwise."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.link_load import STEPPED
+    from repro_torch.kernels.link_load.kernel import replay_screen_cuda
+    from repro_torch.kernels.link_load.ref import pack_routes, replay_screen_ref
+
+    win, src, dst, inject, n_win, w, h, cap = packets[:8]
+    woff = torch.tensor(np.searchsorted(win, np.arange(n_win + 1)),
+                        dtype=torch.int32, device=dev)
+    rec = pack_routes(torch.tensor(src, device=dev), torch.tensor(dst, device=dev))
+    inj = torch.tensor(inject, dtype=torch.int32, device=dev)
+    got = replay_screen_cuda(woff, rec, inj, w, h, cap)
+    want = replay_screen_ref(woff, rec, inj, w, h, cap)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        fail("replay_screen differs from the plain version")
+    nl = got[1].shape[0] - 3
+    hot, past, bad = got[1][nl:].tolist()
+    stepped = int(((got[0] & STEPPED) != 0).sum())
+    print(f"replay_screen on the cut run's packets: {rec.shape[0]} packets in "
+          f"{n_win} windows; {hot} hot pairs, {past} past the load screen, "
+          f"{bad} windows oversubscribed, {stepped} stepped, as the plain "
+          "version")
+    hops = (np.abs(src % w - dst % w) + np.abs(src // w - dst // w)).sum()
+    t_bound, by = bound(nbytes(woff, rec, inj, *got), float(hops))
+    return dict(
+        name="replay_screen", source="src/repro_torch/csrc/replay_screen.cu",
+        replaces="none (the host's route expansion behind the replay's screens)",
+        max_abs_err=float((got[1] - want[1]).abs().max()),
+        kernel=lambda: replay_screen_cuda(woff, rec, inj, w, h, cap),
+        plain=lambda: replay_screen_ref(woff, rec, inj, w, h, cap),
+        library=None, iters=20, bound_ms=t_bound, bound_by=by,
+        shape=f"the cut run's {rec.shape[0]} packets in {n_win} windows, "
+              f"K={w * h}, link capacity {cap}")
+
+
 def check_connectivity_degrees(dev, rng) -> dict:
     import numpy as np
     import torch
@@ -699,36 +768,38 @@ def launch_counters():
             "connectivity_degrees": (gain_eval, "connectivity_launches"),
             "swap_deltas": (swap_delta, "launches"),
             "link_loads": (link_load, "launches"),
+            "replay_screen": (link_load, "screen_launches"),
             "hop_cost": (hop_eval, "launches")}
 
 
 # The kernels each run's path goes through.
 PATHS = {
-    "cut": ("lif_step", "part_degrees", "swap_deltas", "link_loads", "hop_cost"),
+    "cut": ("lif_step", "part_degrees", "swap_deltas", "replay_screen",
+            "hop_cost"),
     "volume": ("connectivity_degrees", "link_loads", "hop_cost"),
-    "device": ("part_degrees", "swap_deltas", "link_loads", "hop_cost"),
-    # The baselines partition and place on the host; the replay's screen
+    "device": ("part_degrees", "swap_deltas", "replay_screen", "hop_cost"),
+    # The baselines partition and place on the host; the replay's screens
     # and the final hop cost are on the card.
-    "spinemap": ("link_loads", "hop_cost"),
-    "sco": ("link_loads", "hop_cost"),
+    "spinemap": ("replay_screen", "hop_cost"),
+    "sco": ("replay_screen", "hop_cost"),
     # A replay under a live fault state is host-only (the reference's rule).
     "fault_zero": ("part_degrees", "swap_deltas", "hop_cost"),
     "fault_incremental": ("part_degrees", "swap_deltas", "hop_cost"),
     "fault_scratch": ("part_degrees", "swap_deltas", "hop_cost"),
     "fault_link": ("part_degrees", "swap_deltas", "hop_cost"),
-    "sweep": ("part_degrees", "swap_deltas", "link_loads", "hop_cost"),
+    "sweep": ("part_degrees", "swap_deltas", "replay_screen", "hop_cost"),
     # A sharded level refines on the host: no degree kernel.
     "sharded_cut": (),
     "sharded_stream": (),
     "sharded_volume": (),
     # The island SA is torch ops (graphed epochs), with no polish.
-    "island": ("part_degrees", "link_loads", "hop_cost"),
+    "island": ("part_degrees", "replay_screen", "hop_cost"),
     # The layout search is host numpy (torus distances).
     "layout": (),
-    # The engine cases: the replay's screen, the SA's scorer and the vec
-    # refiner's two degree kernels.
+    # The engine cases: the unicast and multicast replays' screens, the
+    # SA's scorer and the vec refiner's two degree kernels.
     "engines": ("part_degrees", "connectivity_degrees", "swap_deltas",
-                "link_loads"),
+                "link_loads", "replay_screen"),
     # The LLM serving and training paths are torch ops (matmuls, the
     # chunked softmax, autograd, AdamW); no TPU kernel lies on them.
     "serve": (),
@@ -898,33 +969,41 @@ DEVICE_SYMBOLS = {"lif_step": "lif_step_kernel",
                   "swap_deltas": "swap_deltas_kernel",
                   "connectivity_degrees": "volume_degree_rows_kernel",
                   "link_loads": "link_loads_kernel",
+                  "replay_screen": "replay_screen_kernel",
                   "hop_cost": "hop_cost_kernel"}
 # Launches each slice run must make exactly: one fused LIF launch a
-# profiled step, one link_loads launch for a replay on the link-load
-# screen (none under faults: the numpy screen), one hop_cost launch for the
-# final placement's total; the sweep's four rows one each.
-EXACT_LAUNCHES = {"cut": {"lif_step": SLICE["num_steps"], "link_loads": 1,
+# profiled step; for a replay on the link-load screen one replay_screen
+# launch (unicast: both screens) or one link_loads launch (multicast: the
+# loads), and none under faults (the numpy screen); one hop_cost launch
+# for the final placement's total; the sweep's four rows one each.
+UNICAST = {"link_loads": 0, "replay_screen": 1}
+EXACT_LAUNCHES = {"cut": {"lif_step": SLICE["num_steps"], **UNICAST,
                           "hop_cost": 1},
-                  "volume": {"lif_step": 0, "link_loads": 1, "hop_cost": 1},
-                  "device": {"lif_step": 0, "link_loads": 1, "hop_cost": 1},
-                  "spinemap": {"lif_step": 0, "part_degrees": 0,
-                               "link_loads": 1, "hop_cost": 1},
-                  "sco": {"lif_step": 0, "part_degrees": 0, "link_loads": 1,
+                  "volume": {"lif_step": 0, "link_loads": 1,
+                             "replay_screen": 0, "hop_cost": 1},
+                  "device": {"lif_step": 0, **UNICAST, "hop_cost": 1},
+                  "spinemap": {"lif_step": 0, "part_degrees": 0, **UNICAST,
+                               "hop_cost": 1},
+                  "sco": {"lif_step": 0, "part_degrees": 0, **UNICAST,
                           "hop_cost": 1},
-                  **{run: {"lif_step": 0, "link_loads": 0, "hop_cost": 1}
+                  **{run: {"lif_step": 0, "link_loads": 0, "replay_screen": 0,
+                           "hop_cost": 1}
                      for run in FAULT_RUNS},
-                  "sweep": {"lif_step": 0, "link_loads": 4, "hop_cost": 4},
+                  "sweep": {"lif_step": 0, "link_loads": 0,
+                            "replay_screen": 4, "hop_cost": 4},
                   **{run: {name: 0 for name in
                            ("lif_step", "part_degrees", "connectivity_degrees",
-                            "swap_deltas", "link_loads", "hop_cost")}
+                            "swap_deltas", "link_loads", "replay_screen",
+                            "hop_cost")}
                      for run in SHARDED_RUNS + ("layout", "serve", "train",
                                                 "roofline")},
-                  "island": {"lif_step": 0, "swap_deltas": 0, "link_loads": 1,
+                  "island": {"lif_step": 0, "swap_deltas": 0, **UNICAST,
                              "hop_cost": 1},
                   "engines": {"lif_step": 0, "hop_cost": 0},
                   "ranks": {"lif_step": 0, "part_degrees": 0,
                             "connectivity_degrees": 0, "swap_deltas": 0,
-                            "link_loads": 0, "hop_cost": 1}}
+                            "link_loads": 0, "replay_screen": 0,
+                            "hop_cost": 1}}
 
 
 # `torch.cuda._sleep`'s kernel, launched last in every traced run: a trace
@@ -4551,7 +4630,11 @@ def main() -> int:
         print_row(r, r.pop("shape"))
 
     counters = launch_counters()
-    prof, cut_res, cut_hop, cut_launches = traced_run("cut", counters)
+    with ScreenSpy() as screens:
+        prof, cut_res, cut_hop, cut_launches = traced_run("cut", counters)
+    row = timed(check_replay_screen(dev, screens.calls[-1]))
+    print_row(row, row.pop("shape"))
+    rows.append(row)
     _, vol_res, vol_hop, vol_launches = traced_run("volume", counters, prof)
     spans.clear()
     with spans.recording():

@@ -17,6 +17,7 @@ Each subpackage mirrors the reference's layout:
                connectivity degree rows (vec refiner).
   swap_delta — all-pairs SA swap deltas (batched mapper's device scorer).
   link_load  — per-window XY link loads of packet records (NoC replay
-               contention screen).
+               contention screen), and the unicast replay's two tier-1
+               screens in one pass a window (``replay_screen``).
   hop_eval   — total hop cost of a placement (Algorithm 1).
 """

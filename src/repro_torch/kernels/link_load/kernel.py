@@ -1,4 +1,5 @@
-"""Launch of the CUDA link-load kernel (``csrc/link_loads.cu``)."""
+"""Launch of the CUDA link-load kernel (``csrc/link_loads.cu``) and of the
+replay's screen kernel (``csrc/replay_screen.cu``)."""
 from __future__ import annotations
 
 import ctypes
@@ -10,10 +11,13 @@ from repro_torch.nocsim.xy import link_count
 from .. import _build
 from .ref import MAX_CORES, dense_to_records
 
-__all__ = ["MAX_RECORDS", "link_loads_cuda", "link_loads_records_cuda", "launches"]
+__all__ = ["MAX_RECORDS", "link_loads_cuda", "link_loads_records_cuda",
+           "replay_screen_cuda", "launches", "screen_launches"]
 
-# Launches since the last reset (set to 0 by callers that count a run).
+# Launches since the last reset (set to 0 by callers that count a run):
+# link_loads, and replay_screen.
 launches = 0
+screen_launches = 0
 
 MAX_RECORDS = 2 ** 31 - 1  # the kernel's int32 record offsets
 # The per-window link histogram lives in (static-limit) shared memory
@@ -22,6 +26,7 @@ _MAX_LINKS = (48 * 1024 - 1024) // 4
 
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_SCREEN_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def link_loads_records_cuda(woff: torch.Tensor, rec: torch.Tensor,
@@ -60,6 +65,42 @@ def link_loads_records_cuda(woff: torch.Tensor, rec: torch.Tensor,
     _build.check(rc, "link_loads")
     launches += 1
     return out
+
+
+def replay_screen_cuda(woff: torch.Tensor, rec: torch.Tensor,
+                       inject: torch.Tensor, mesh_w: int, mesh_h: int,
+                       link_capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """woff: (n_win + 1,) i32 window offsets into the window-sorted route
+    records ``rec`` (n,) i32 of row-major cores; inject: (n,) i32 injection
+    cycles, with ``inject + hops`` below 2**31.
+
+    The replay's two tier-1 screens in one launch (``ref.replay_screen_ref``
+    states them): returns the (n,) uint8 flags (``PAST``, ``STEPPED``) and
+    the (num_links + 3,) int64 totals.
+    """
+    global screen_launches
+    nl = link_count(mesh_w, mesh_h)
+    if nl > _MAX_LINKS:
+        raise ValueError(f"a {mesh_w}x{mesh_h} mesh has more than {_MAX_LINKS} "
+                         "links, the kernel's shared-memory histogram")
+    if mesh_w * mesh_h > MAX_CORES:
+        raise ValueError(f"a {mesh_w}x{mesh_h} mesh exceeds {MAX_CORES} cores")
+    if not 0 <= link_capacity < 2 ** 31:
+        raise ValueError(f"link_capacity {link_capacity} is not a count")
+    n, n_win = rec.shape[0], woff.shape[0] - 1
+    _build.require(rec, "rec", torch.int32, (n,))
+    dev = rec.device
+    _build.require(woff, "woff", torch.int32, (n_win + 1,), dev)
+    _build.require(inject, "inject", torch.int32, (n,), dev)
+    flags = torch.empty(n, dtype=torch.uint8, device=dev)
+    totals = torch.empty(nl + 3, dtype=torch.int64, device=dev)
+    rc = _build.bind("replay_screen", _SCREEN_ARGTYPES)(
+        woff.data_ptr(), rec.data_ptr(), inject.data_ptr(), flags.data_ptr(),
+        totals.data_ptr(), n_win, mesh_w, mesh_h, link_capacity,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "replay_screen")
+    screen_launches += 1
+    return flags, totals
 
 
 def link_loads_cuda(counts: torch.Tensor, x: torch.Tensor, y: torch.Tensor,

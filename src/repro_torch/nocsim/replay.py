@@ -15,10 +15,12 @@ Tier 1 (contention screens, no cycle stepping):
     packet whose route avoids every overloaded pair is exact
     analytically: latency = injection stagger + hops.  Loads come from a
     ``bincount`` over the vectorized route expansion, or — with
-    ``screen="linkload"`` — from the ``kernels/link_load`` route histogram
-    on the run's device via ``record_link_loads`` (the window-sorted packet
-    records), in which case routes are only expanded for windows that
-    have an overloaded pair at all.
+    ``screen="linkload"`` — from the run's device: unicast replays run
+    both tier-1 screens there in one pass a window
+    (``record_replay_screen``, ``csrc/replay_screen.cu``), which walks
+    each route in registers, so the host expands no route for either
+    screen; multicast replays take the per-window loads of
+    ``record_link_loads``.
   * Static schedule screen.  Packet ``p`` crosses the ``j``-th link of its
     route at cycle ``inject(p) + j`` when nothing blocks; a window where
     no (cycle, link) bucket exceeds ``link_capacity`` under that schedule
@@ -255,8 +257,8 @@ def queued_unicast(
     carries the core-local delivery count for energy accounting.
     ``order`` flags records routed YX (fault-escape detours; numpy screen
     and stepper only) — ``None`` is the pure XY replay.  ``device`` is
-    where ``screen="linkload"`` computes the window loads and
-    ``stepper="jax"`` steps the congested windows.
+    where ``screen="linkload"`` runs the two screens and ``stepper="jax"``
+    steps the congested windows.
     """
     nl = link_count(w, h)
     ncores = w * h
@@ -279,25 +281,23 @@ def queued_unicast(
     # (or delay anything), so everything else is scored analytically.
     sids = spkt = sstep = None
     if screen == "linkload":
-        # Device path: per-window load maps via the link_load kernel; the
-        # route expansion is only materialized for dirty windows.
+        # Device path: both screens in one kernel pass a window on the run's
+        # device; the host reads back which packets to step and expands no
+        # route.
+        from repro_torch.kernels.link_load import STEPPED, record_replay_screen
+
         with spans.span("sneap.replay.screen") as sp:
-            loads = _window_loads_linkload(win, src_core, dst_core, n_win, w,
-                                           h, device)
-            per_link = loads.sum(axis=0)
-            hot_keys = np.flatnonzero(loads.ravel() > link_capacity)
-            sp.add(hot_pairs=int(hot_keys.shape[0]))
-        with spans.span("sneap.replay.expand") as sp:
-            stepped = np.zeros(n, dtype=bool)
-            if hot_keys.shape[0]:
-                dirty = np.zeros(n_win, dtype=bool)
-                dirty[hot_keys // nl] = True
-                sel = np.flatnonzero(dirty[win])
-                ids, pkt = link_ids_for_routes(src_core[sel], dst_core[sel],
-                                               w, h)
-                pm = _member(hot_keys, win[sel[pkt]] * np.int64(nl) + ids)
-                stepped[sel[np.unique(pkt[pm])]] = True
-                sp.add(links=int(ids.shape[0]))
+            per_link, flags, counts = record_replay_screen(
+                win, src_core, dst_core, inject, n_win, w, h, link_capacity,
+                device)
+            sp.add(**counts)
+        with spans.span("sneap.replay.expand"):
+            sidx = np.flatnonzero(flags & STEPPED)
+        if counts["past_screen"]:
+            with spans.span("sneap.replay.schedule",
+                            past_screen=counts["past_screen"]) as sp:
+                cwin = _window_ids(win[sidx])[0]
+                sp.add(stepped=int(sidx.shape[0]))
     else:
         # One route expansion serves both tiers: the (window, link) load
         # screen below and — via boolean masking that preserves the exact
@@ -322,80 +322,79 @@ def queued_unicast(
                     sids, sstep = ids[tm], steps[tm]
                     spkt = (np.cumsum(stepped) - 1)[pkt[tm]]
             sp.add(hot_pairs=int(hot_keys.shape[0]), links=int(ids.shape[0]))
-    congestion = 0
-    if stepped.any():
-        with spans.span("sneap.replay.expand") as sp:
-            sidx = np.flatnonzero(stepped)
-            if sids is None:  # device screen materialized only dirty windows
-                sids, spkt, sstep = link_ids_for_routes(
-                    src_core[sidx], dst_core[sidx], w, h, with_steps=True,
-                    order=order[sidx] if order is not None else None)
-                sp.add(links=int(sids.shape[0]))
-        # Static schedule screen: windows whose stepped packets never
-        # oversubscribe any (cycle, link) bucket under the unobstructed
-        # schedule (inject + step) cannot block — their overload is
-        # diffused by injection stagger.  Keep only truly contending ones.
-        # Saturation detector: a window whose peak link load exceeds
-        # capacity x its unobstructed cycle span is congested by
-        # pigeonhole — no schedule can grant that demand — so it skips
-        # the screen's (window, cycle, link) sort; on fully saturated
-        # traces that empties the screen entirely (the old
-        # `saturated_unicast` 0.8x gap), while merely-bursty windows
-        # still get screened (where the pruning pays for itself).
-        with spans.span("sneap.replay.schedule",
-                        past_screen=int(sidx.shape[0])) as sp:
-            uwin0 = np.unique(win[sidx])
-            cwin0 = np.searchsorted(uwin0, win[sidx])
-            nw0 = uwin0.shape[0]
-            cw_t = cwin0[spkt]
-            sched = inject[sidx[spkt]] + sstep
-            span_w = np.zeros(nw0, dtype=np.int64)
-            np.maximum.at(span_w, cw_t, sched)
-            span_w += 1
-            lkey = cw_t * np.int64(nl) + sids
-            if nw0 * nl <= _DENSE_SCREEN_SPACE:
-                loadmax_w = np.bincount(
-                    lkey, minlength=nw0 * nl).reshape(nw0, nl).max(axis=1)
-            else:
-                loadmax_w = np.zeros(nw0, dtype=np.int64)
-                uk, uc = np.unique(lkey, return_counts=True)
-                np.maximum.at(loadmax_w, uk // nl, uc)
-            hopeless = loadmax_w > link_capacity * span_w
-            if hopeless.all():
-                bad = np.arange(nw0, dtype=np.int64)
-            else:
-                sub = ~hopeless[cw_t]
-                bad = _schedule_congested(cw_t[sub], sched[sub], sids[sub],
-                                          nl, link_capacity)
-                bad = np.union1d(np.flatnonzero(hopeless), bad)
-            if bad.shape[0] < nw0:
-                keep_w = np.zeros(nw0, dtype=bool)
-                keep_w[bad] = True
-                keep_p = keep_w[cwin0]
-                keep_t = keep_p[spkt]
-                remap = np.cumsum(keep_p) - 1
-                sids, sstep = sids[keep_t], sstep[keep_t]
-                spkt = remap[spkt[keep_t]]
-                sidx = sidx[keep_p]
-            if sidx.shape[0]:
-                uwin = np.unique(win[sidx])
-                cwin = np.searchsorted(uwin, win[sidx])
-            sp.add(stepped=int(sidx.shape[0]))
-        if sidx.shape[0]:
-            with spans.span("sneap.replay.stepper", stepper=stepper,
-                            packets=int(sidx.shape[0])) as sp:
-                if stepper == "jax":
-                    lat_s, congestion = joint_stepper_device(
-                        src_core[sidx], dst_core[sidx], inject[sidx], cwin,
-                        w, h, nl, link_capacity, max_cycles_per_window,
-                        device)
+        sidx = np.empty(0, dtype=np.int64)
+        if stepped.any():
+            with spans.span("sneap.replay.expand"):
+                sidx = np.flatnonzero(stepped)
+            # Static schedule screen: windows whose stepped packets never
+            # oversubscribe any (cycle, link) bucket under the unobstructed
+            # schedule (inject + step) cannot block — their overload is
+            # diffused by injection stagger.  Keep only truly contending
+            # ones.  Saturation detector: a window whose peak link load
+            # exceeds capacity x its unobstructed cycle span is congested by
+            # pigeonhole — no schedule can grant that demand — so it skips
+            # the screen's (window, cycle, link) sort; on fully saturated
+            # traces that empties the screen entirely (the old
+            # `saturated_unicast` 0.8x gap), while merely-bursty windows
+            # still get screened (where the pruning pays for itself).
+            with spans.span("sneap.replay.schedule",
+                            past_screen=int(sidx.shape[0])) as sp:
+                uwin0 = np.unique(win[sidx])
+                cwin0 = np.searchsorted(uwin0, win[sidx])
+                nw0 = uwin0.shape[0]
+                cw_t = cwin0[spkt]
+                sched = inject[sidx[spkt]] + sstep
+                span_w = np.zeros(nw0, dtype=np.int64)
+                np.maximum.at(span_w, cw_t, sched)
+                span_w += 1
+                lkey = cw_t * np.int64(nl) + sids
+                if nw0 * nl <= _DENSE_SCREEN_SPACE:
+                    loadmax_w = np.bincount(
+                        lkey, minlength=nw0 * nl).reshape(nw0, nl).max(axis=1)
                 else:
-                    lat_s, congestion = _joint_stepper(
-                        sids, spkt, sstep, hops[sidx], inject[sidx], cwin,
-                        nl, link_capacity, max_cycles_per_window)
-                lat[sidx] = lat_s
-                if sp:  # the last arrival
-                    sp.add(cycles=int(lat_s.max()))
+                    loadmax_w = np.zeros(nw0, dtype=np.int64)
+                    uk, uc = np.unique(lkey, return_counts=True)
+                    np.maximum.at(loadmax_w, uk // nl, uc)
+                hopeless = loadmax_w > link_capacity * span_w
+                if hopeless.all():
+                    bad = np.arange(nw0, dtype=np.int64)
+                else:
+                    sub = ~hopeless[cw_t]
+                    bad = _schedule_congested(cw_t[sub], sched[sub], sids[sub],
+                                              nl, link_capacity)
+                    bad = np.union1d(np.flatnonzero(hopeless), bad)
+                if bad.shape[0] < nw0:
+                    keep_w = np.zeros(nw0, dtype=bool)
+                    keep_w[bad] = True
+                    keep_p = keep_w[cwin0]
+                    keep_t = keep_p[spkt]
+                    remap = np.cumsum(keep_p) - 1
+                    sids, sstep = sids[keep_t], sstep[keep_t]
+                    spkt = remap[spkt[keep_t]]
+                    sidx = sidx[keep_p]
+                if sidx.shape[0]:
+                    uwin = np.unique(win[sidx])
+                    cwin = np.searchsorted(uwin, win[sidx])
+                sp.add(stepped=int(sidx.shape[0]))
+    congestion = 0
+    if sidx.shape[0]:
+        with spans.span("sneap.replay.stepper", stepper=stepper,
+                        packets=int(sidx.shape[0])) as sp:
+            if stepper == "jax":
+                lat_s, congestion = joint_stepper_device(
+                    src_core[sidx], dst_core[sidx], inject[sidx], cwin,
+                    w, h, nl, link_capacity, max_cycles_per_window,
+                    device)
+            else:
+                if sids is None:  # the device screens expand no route
+                    sids, spkt, sstep = link_ids_for_routes(
+                        src_core[sidx], dst_core[sidx], w, h, with_steps=True)
+                lat_s, congestion = _joint_stepper(
+                    sids, spkt, sstep, hops[sidx], inject[sidx], cwin,
+                    nl, link_capacity, max_cycles_per_window)
+            lat[sidx] = lat_s
+            if sp:  # the last arrival
+                sp.add(cycles=int(lat_s.max()))
 
     with spans.span("sneap.replay.stats"):
         cycles_total = int(_per_window_max(lat, win, n_win).sum())

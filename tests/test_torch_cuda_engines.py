@@ -1,6 +1,7 @@
 """The engine cases of the reference's main-path suites on the card: each
-runs the port with ``device="cuda"`` (the hand-written kernels: link_loads
-in the replay's screen, swap_deltas in the SA scorer and the polish,
+runs the port with ``device="cuda"`` (the hand-written kernels:
+replay_screen in the unicast replay's screens, link_loads in the multicast
+replay's, swap_deltas in the SA scorer and the polish,
 part_degrees and connectivity_degrees in the vec refiner, lif_step in the
 profile) and with ``device="cpu"`` (their plain versions) on the same
 inputs, and holds the two equal: bitwise for integer results, placements
@@ -54,6 +55,7 @@ class launched:
     """Asserts on exit that each named kernel counter grew."""
 
     COUNTERS = {"link_loads": (link_kernel, "launches"),
+                "replay_screen": (link_kernel, "screen_launches"),
                 "swap_deltas": (swap_kernel, "launches"),
                 "part_degrees": (gain_kernel, "launches"),
                 "connectivity_degrees": (gain_kernel, "connectivity_launches"),
@@ -82,10 +84,15 @@ def same_stats(a, b) -> list[str]:
     return out
 
 
+def screen_kernel(cast: str = "unicast") -> str:
+    """The kernel of the link-load screen of a ``cast`` replay."""
+    return "replay_screen" if cast == "unicast" else "link_loads"
+
+
 def replay(cuda, *args, **kw):
     """One replay on the card (link-load screen, torch stepper) against the
     same replay on the CPU; returns the card's stats."""
-    with launched("link_loads"):
+    with launched(screen_kernel(kw.get("cast", "unicast"))):
         got = simulate_noc(*args, device=cuda, **CARD_REPLAY, **kw)
     want = simulate_noc(*args, device="cpu", **CARD_REPLAY, **kw)
     assert same_stats(got, want) == []
@@ -126,7 +133,7 @@ def test_screen_backends_do_not_change_results(cuda):
     args = (*random_spike_trace(seed=2, n_spikes=800, timesteps=6), 3, 3)
     for cast in ("unicast", "multicast"):
         base = simulate_noc(*args, link_capacity=2, cast=cast, device="cpu")
-        with launched("link_loads"):
+        with launched(screen_kernel(cast)):
             got = simulate_noc(*args, link_capacity=2, cast=cast,
                                screen="linkload", device=cuda)
         assert same_stats(got, base) == [], cast
@@ -415,7 +422,8 @@ def test_run_toolchain_sneap_on_the_card(cuda, smooth_320, objective):
     places with the tree objective, which the kernel scorer does not
     take): partition, placement and NoCStats equal the CPU run's."""
     mapper_kwargs = {"iters": 4000}
-    kernels = ["link_loads"]
+    kernels = [screen_kernel("multicast" if objective == "volume"
+                             else "unicast")]
     if objective == "cut":
         mapper_kwargs.update(impl="vec", score_backend="auto")
         kernels.append("swap_deltas")

@@ -28,6 +28,7 @@ from repro_torch.kernels.lif_step import synapses_from_dense  # noqa: E402
 from repro_torch.kernels.link_load import kernel as link_kernel  # noqa: E402
 from repro_torch.kernels.link_load import link_loads_records_ref  # noqa: E402
 from repro_torch.kernels.link_load import link_loads_ref, window_link_loads  # noqa: E402
+from repro_torch.kernels.link_load import replay_screen_ref  # noqa: E402
 from repro_torch.kernels.link_load import edge_variance  # noqa: E402
 from repro_torch.kernels.link_load.ref import dense_to_records, pack_routes  # noqa: E402
 from repro_torch.snn import make_snn, profile_drive  # noqa: E402
@@ -251,6 +252,66 @@ def test_link_loads_record_kernel_matches_plain_exactly(cuda, case):
     assert link_kernel.launches == before + 1
     assert got.shape == (len(sizes), 2 * (w - 1) * h + 2 * w * (h - 1))
     assert torch.equal(got, link_loads_records_ref(woff, rec, count, x, y, w, h))
+
+
+def _screen_case(case):
+    """(mesh w, h, link capacity, windows of (src, dst, inject) arrays)."""
+    def random_window(n, k, inj_cap, cores=None):
+        s = RNG.integers(0, k, n) if cores is None else RNG.choice(cores, n)
+        d = (s + RNG.integers(1, k, n)) % k
+        rank = np.zeros(n, dtype=np.int64)
+        for c in np.unique(s):
+            rank[s == c] = np.arange((s == c).sum())
+        return s, d, rank // inj_cap
+
+    if case == "random":  # the replay's capacities, empty windows among them
+        return 16, 16, 4, [random_window(int(n), 256, 256)
+                           for n in RNG.integers(0, 4000, 12)]
+    if case == "few_sources":  # inject up to ~250: four bucket passes
+        return 16, 16, 1, [random_window(2000, 256, 1, cores=np.arange(8))]
+    if case == "late_conflict":
+        # Core 0 sends 200 packets east along row 0, core 1 first 100 west,
+        # then 100 east: no (cycle, link) bucket holds two until cycle 100,
+        # past the first pass's cycles on 16 x 16; a second window stays
+        # clean through all its passes (one source, one packet a cycle).
+        a = (np.zeros(200, int), np.full(200, 15), np.arange(200))
+        b = (np.ones(200, int), np.r_[np.zeros(100, int), np.full(100, 15)],
+             np.arange(200))
+        clean = (np.zeros(300, int), np.full(300, 15), np.arange(300))
+        return 16, 16, 1, [tuple(np.r_[x, y] for x, y in zip(a, b)), clean]
+    if case in ("cap_16bit", "cap_32bit"):  # one route, counters wider than 8 bits
+        n, inj_cap, cap = ((80_000, 256, 255) if case == "cap_16bit"
+                           else (80_000, 100_000, 70_000))
+        return 16, 16, cap, [(np.full(n, 17), np.full(n, 250),
+                              np.arange(n) // inj_cap)]
+    return 4, 4, 2, [random_window(int(n), 16, 3)  # small mesh, many windows
+                     for n in RNG.integers(1, 60, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "few_sources", "late_conflict",
+                                  "cap_16bit", "cap_32bit", "many_windows"])
+def test_replay_screen_kernel_matches_plain_exactly(cuda, case):
+    """The replay's two screens in one launch: flags, per-link totals and
+    counts equal the plain version's, on random windows (empty ones among
+    them), windows whose cycles need several bucket passes, a conflict only
+    past the first pass, bucket counters of 16 and 32 bits, and 300 short
+    windows on a 4 x 4 mesh."""
+    w, h, cap, windows = _screen_case(case)
+    sizes = [len(x[0]) for x in windows]
+    woff = torch.tensor(np.r_[0, np.cumsum(sizes)].astype(np.int32), device=cuda)
+    s, d, inj = (torch.tensor(np.concatenate([x[i] for x in windows]),
+                              device=cuda) for i in range(3))
+    rec = pack_routes(s, d)
+    inj = inj.to(torch.int32)
+    before = link_kernel.screen_launches
+    flags, totals = link_kernel.replay_screen_cuda(woff, rec, inj, w, h, cap)
+    assert link_kernel.screen_launches == before + 1
+    want_flags, want_totals = replay_screen_ref(woff, rec, inj, w, h, cap)
+    assert torch.equal(flags, want_flags)
+    assert torch.equal(totals, want_totals)
+    if case == "late_conflict":  # the first window steps, the clean one not
+        assert bool((flags[:400] == 3).all()) and bool((flags[400:] == 1).all())
 
 
 @pytest.mark.cuda

@@ -40,14 +40,19 @@ from repro_torch.kernels.link_load import kernel as link_kernel  # noqa: E402
 from repro_torch.kernels.link_load import link_loads, window_link_loads  # noqa: E402
 from repro_torch.kernels.link_load import edge_variance, flatten_link_maps  # noqa: E402
 from repro_torch.kernels.link_load import (  # noqa: E402
+    PAST,
+    STEPPED,
     link_loads_records,
     link_loads_records_ref,
     link_loads_ref,
     record_link_loads,
+    record_replay_screen,
+    replay_screen,
 )
 from repro_torch.kernels.link_load.ref import dense_to_records, pack_routes  # noqa: E402
 from repro_torch.kernels.swap_delta import kernel as swap_kernel  # noqa: E402
 from repro_torch.kernels.swap_delta import swap_deltas, swap_deltas_pairs  # noqa: E402
+from repro_torch.nocsim.replay import _inject_cycles, _window_ids  # noqa: E402
 
 RNG = np.random.default_rng(0)
 LIF_KW = dict(decay=0.9, threshold=1.0, v_reset=0.0, refractory=2)
@@ -404,6 +409,89 @@ def test_record_link_loads_refuses_bad_windows():
         record_link_loads(np.zeros(3, np.int64), s, s, 1, 256, 256, device="cpu")
 
 
+def _screen_trace(kind, w, h, inject_capacity, seed):
+    """A replay's NoC-bound packets (win, src, dst, inject, n_win): window
+    ids and injection cycles as the replay computes them.  ``random``: 6
+    windows of random packets; ``single``: one window; ``quiet``: busy
+    windows between windows of a few packets, which hold no hot pair;
+    ``cold``: a few packets a window, no hot pair at all."""
+    rng = np.random.default_rng(seed)
+    k = w * h
+    if kind == "quiet":
+        sizes = [600, 3, 500, 2, 4, 700]
+    else:
+        sizes = {"random": [int(rng.integers(100, 700)) for _ in range(6)],
+                 "single": [900], "cold": [1, 3, 2, 4, 1]}[kind]
+    t = np.repeat(np.arange(len(sizes)) * 3, sizes)
+    s, d = rng.integers(0, k, t.shape[0]), rng.integers(0, k, t.shape[0])
+    d = np.where(s == d, (d + 1) % k, d)  # NoC-bound only
+    # The short windows' packets hop 0 -> 1 -> 2 ...: no link is loaded
+    # twice, so these windows hold no hot pair.
+    for lo, n in zip(np.cumsum([0] + sizes[:-1]), sizes):
+        if n < 5:
+            s[lo:lo + n] = np.arange(n)
+            d[lo:lo + n] = np.arange(n) + 1
+    win, n_win = _window_ids(t)
+    return win, s, d, _inject_cycles(win, s, k, inject_capacity), n_win
+
+
+def _host_screens(win, s, d, inject, n_win, w, h, cap):
+    """The replay's host screens on the ``linkload`` path as they were:
+    packets crossing a (window, link) pair loaded above ``cap`` are past;
+    of those, the packets of windows whose unobstructed (cycle, link)
+    schedule oversubscribes a bucket are stepped, where a peak link load
+    above ``cap`` x the window's span marks the window at once
+    (pigeonhole).  Returns (past, stepped, per_link, counts)."""
+    nl = 2 * (w - 1) * h + 2 * w * (h - 1)
+    ids, pkt, step = link_ids_for_routes(s, d, w, h, with_steps=True)
+    key = win[pkt] * nl + ids
+    loads = np.bincount(key, minlength=n_win * nl)
+    past = np.zeros(s.shape[0], dtype=bool)
+    past[pkt[loads[key] > cap]] = True
+    m = past[pkt]
+    pw, cyc, link = win[pkt[m]], inject[pkt[m]] + step[m], ids[m]
+    span = np.zeros(n_win, dtype=np.int64)
+    np.maximum.at(span, pw, cyc + 1)
+    peak = np.bincount(pw * nl + link, minlength=n_win * nl)
+    bad = peak.reshape(n_win, nl).max(axis=1) > cap * span
+    cycles = int(cyc.max()) + 1 if cyc.shape[0] else 1
+    buckets = np.bincount((pw * cycles + cyc) * nl + link)
+    bad[np.flatnonzero(buckets > cap) // (cycles * nl)] = True
+    counts = dict(hot_pairs=int((loads > cap).sum()),
+                  past_screen=int(past.sum()), bad_windows=int(bad.sum()))
+    return past, past & bad[win], loads.reshape(n_win, nl).sum(axis=0), counts
+
+
+@pytest.mark.parametrize("kind,w,h,link_capacity,inject_capacity", [
+    *[("random", w, h, cap, inj) for w, h in ((4, 4), (5, 3), (16, 16))
+      for cap in (1, 2, 4) for inj in (1, 3, 256)],
+    ("single", 4, 4, 2, 3),
+    ("quiet", 5, 3, 2, 256),
+    ("cold", 4, 4, 4, 1),
+])
+def test_replay_screen_plain_matches_host_screens(kind, w, h, link_capacity,
+                                                  inject_capacity):
+    """The replay's two tier-1 screens in one pass (the plain version on
+    CPU tensors) step exactly the packets the host screens stepped, with
+    the same per-link totals and counts."""
+    win, s, d, inject, n_win = _screen_trace(kind, w, h, inject_capacity,
+                                             seed=w * h + link_capacity)
+    past, stepped, per_link, counts = _host_screens(win, s, d, inject, n_win,
+                                                    w, h, link_capacity)
+    got_link, flags, got = record_replay_screen(
+        win, s, d, inject, n_win, w, h, link_capacity, device="cpu")
+    assert flags.dtype == np.uint8 and flags.shape == s.shape
+    np.testing.assert_array_equal(flags & PAST != 0, past)
+    np.testing.assert_array_equal(np.flatnonzero(flags & STEPPED),
+                                  np.flatnonzero(stepped))
+    np.testing.assert_array_equal(got_link, per_link)
+    assert got == counts
+    if kind == "cold":
+        assert counts["hot_pairs"] == 0 and not flags.any()
+    if kind == "quiet":
+        assert 0 < counts["past_screen"] < s.shape[0]
+
+
 # ------------------------------------------------------ dispatch / guards
 
 def _tiny_csr(device="cpu"):
@@ -427,7 +515,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     def counts():
         return (lif_kernel.launches, gain_kernel.launches,
                 gain_kernel.connectivity_launches, swap_kernel.launches,
-                link_kernel.launches, hop_kernel.launches)
+                link_kernel.launches, link_kernel.screen_launches,
+                hop_kernel.launches)
 
     before = counts()
     lif_step(torch.zeros(4), torch.zeros(4, dtype=torch.int32), torch.ones(4),
@@ -440,6 +529,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     link_loads(torch.ones(1, 4, 4, dtype=torch.int32),
                torch.tensor([0, 1, 0, 1], dtype=torch.int32),
                torch.tensor([0, 0, 1, 1], dtype=torch.int32), 2, 2)
+    replay_screen(torch.tensor([0, 2], dtype=torch.int32),
+                  pack_routes(torch.tensor([0, 1]), torch.tensor([3, 2])),
+                  torch.zeros(2, dtype=torch.int32), 2, 2, 1)
     assert before == counts()
 
 
@@ -462,6 +554,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         link_kernel.link_loads_cuda(torch.ones(1, 4, 4, dtype=torch.int32),
                                     torch.zeros(4, dtype=torch.int32),
                                     torch.zeros(4, dtype=torch.int32), 2, 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        link_kernel.replay_screen_cuda(torch.tensor([0, 1], dtype=torch.int32),
+                                       torch.zeros(1, dtype=torch.int32),
+                                       torch.zeros(1, dtype=torch.int32), 2, 2, 1)
 
 
 def test_record_kernel_wrapper_refuses_cpu_tensors_and_counts_no_cpu_launch():
