@@ -15,14 +15,20 @@ answer of the window.  A traced run traces the jobs that start inside the
 window; its per-layer metrics read those, and the quality jobs left after
 it run untraced.
 
+A configuration's ``platform`` may state ``cast`` (``unicast`` or
+``multicast``); where it does not, the cast follows the objective, as the
+program's ``ToolchainConfig.resolve`` documents.  The cast so stated is the
+one the reference holds every answer to.
+
 A mix says what one job runs, as data: ``entry`` (``run_toolchain``, the
 default, or ``run_sweep``), ``toolchain`` (any field of the program's
-``ToolchainConfig``, ``method`` included, over the configuration's platform),
-and for ``run_toolchain`` ``run_kwargs`` (``remap_strategy``,
-``remap_kwargs``, ``detect_windows``) and ``fault_schedule`` (a list of
-``{"t", "kind", "ids"}`` events), for ``run_sweep`` ``grid`` (a list of
-``ToolchainConfig`` overrides, one configuration each).  Every result a job
-returns is an answer that the reference judges.
+``ToolchainConfig``, ``method`` and ``cast`` included, over the
+configuration's platform), and for ``run_toolchain`` ``run_kwargs``
+(``remap_strategy``, ``remap_kwargs``, ``detect_windows``) and
+``fault_schedule`` (a list of ``{"t", "kind", "ids"}`` events), for
+``run_sweep`` ``grid`` (a list of ``ToolchainConfig`` overrides, one
+configuration each).  Every result a job returns is an answer that the
+reference judges.
 
 Seeds.  The network, its drive and the mapping seeds of the J quality jobs
 come from the configuration's ``input_seed``, so every run averages its
@@ -47,7 +53,7 @@ import snngen
 import tracing
 from reference import check, lif
 
-__all__ = ["ROOT", "Spec", "load_spec", "run"]
+__all__ = ["ROOT", "Spec", "load_spec", "spec_from_files", "run"]
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -93,6 +99,14 @@ def load_spec(workload: str, root: Path = ROOT) -> Spec:
         chips=int(w["chips"]), root=root)
 
 
+def spec_from_files(config: Path, mix: Path, cell: Path) -> Spec:
+    """A cell that ``BENCHMARK.json`` does not hold: its configuration,
+    traffic mix and cell file given by path, with no metrics."""
+    return Spec(workload=f"{config.stem}.{mix.stem}", config=_load(config),
+                mix=_load(mix), cell=_load(cell), end_to_end=[], per_layer=[],
+                chips=1)
+
+
 def load_reader(name: str, root: Path = ROOT):
     path = root / "bench" / "metrics" / f"{name}.py"
     spec = importlib.util.spec_from_file_location(
@@ -120,8 +134,9 @@ class Context:
 
 
 def _toolchain_config(spec: Spec, device: str):
-    """The configuration's platform, then the mix's ``toolchain`` block
-    whole, over the program's defaults."""
+    """The configuration's platform (its ``cast`` where it states one),
+    then the mix's ``toolchain`` block whole, over the program's
+    defaults."""
     from repro_torch.core import ToolchainConfig
 
     plat, tc = spec.config["platform"], dict(spec.mix["toolchain"])
@@ -130,6 +145,8 @@ def _toolchain_config(spec: Spec, device: str):
     base = dict(mesh_w=int(plat["mesh_w"]), mesh_h=int(plat["mesh_h"]),
                 capacity=int(plat["capacity"]),
                 link_capacity=int(plat["link_capacity"]), device=device)
+    if "cast" in plat:
+        base["cast"] = plat["cast"]
     return ToolchainConfig(**{**base, **tc, "noc_kwargs": noc_kwargs})
 
 
@@ -140,13 +157,23 @@ def _fault_schedule(events: list[dict]):
                           for e in events])
 
 
+def _optional(x, kind):
+    return None if x is None else kind(x)
+
+
 def answer(res, cfg) -> dict:
     """One result of the program, with the platform that the benchmark's
-    data (``cfg``) states for it, which the reference holds it to."""
+    data (``cfg``) states for it, its cast included, which the reference
+    holds it to; ``objective``, ``cast`` and ``place_objective`` are what
+    the program reports it ran."""
     return {"part": res.partition.part, "k": int(res.partition.k),
             "edge_cut": int(res.partition.edge_cut),
+            "comm_volume": _optional(res.partition.comm_volume, int),
             "placement": np.asarray(res.mapping.placement),
             "avg_hop": float(res.mapping.avg_hop),
+            "tree_hop": _optional(res.mapping.tree_hop, float),
+            "objective": res.objective, "cast": res.cast,
+            "place_objective": res.place_objective,
             "phase_seconds": dict(res.phase_seconds),
             "noc": {f: getattr(res.noc, f) for f in check.NOC_FIELDS},
             "platform": {"mesh_w": cfg.mesh_w, "mesh_h": cfg.mesh_h,
@@ -154,7 +181,16 @@ def answer(res, cfg) -> dict:
                          "link_capacity": cfg.link_capacity,
                          "inject_capacity": int(cfg.noc_kwargs.get(
                              "inject_capacity", 256)),
-                         "noc_mode": cfg.noc_mode}}
+                         "noc_mode": cfg.noc_mode,
+                         "cast": cfg.resolve().cast}}
+
+
+def communicated(a: dict) -> int:
+    """Spikes communicated between partitions under the answer's stated
+    cast: the cut (unicast) or the connectivity-1 volume (multicast)."""
+    if a["platform"]["cast"] == "multicast":
+        return a["comm_volume"]
+    return a["edge_cut"]
 
 
 def profile_arrays(prof) -> dict:
@@ -251,7 +287,7 @@ class Cell:
             for name, sec in a["phase_seconds"].items():
                 phases[name] = phases.get(name, 0.0) + sec
         rec.update(answers=answers, k=answers[0]["k"],
-                   edge_cut=sum(a["edge_cut"] for a in answers) / n,
+                   edge_cut=sum(communicated(a) for a in answers) / n,
                    avg_hop=sum(a["avg_hop"] for a in answers) / n,
                    phase_seconds=phases)
         if self.hooks is not None:
@@ -307,7 +343,8 @@ def judge(cell: Cell, jobs: list[dict], device, want=None) -> tuple[dict, int]:
         for a in job["answers"]:
             platform = {**spec.config["platform"], **a["platform"]}
             got = check.job_numbers(net, want, platform, a,
-                                    platform["noc_mode"] == "queued", device)
+                                    platform["noc_mode"] == "queued", device,
+                                    limits)
             for k, v in got.items():
                 nums[k] = max(nums.get(k, 0), v)
         nums = {k: v for k, v in nums.items() if k in limits}

@@ -4,7 +4,9 @@ Every count is taken over the synapses, each carrying the spikes its source
 fired (``fire_counts``), which is the trace grouped by synapse: the edge cut
 is the spikes on synapses whose ends lie in different partitions, the
 average hop is the Manhattan distance between the cores of a synapse's ends,
-weighted the same way, over all spikes (Eq. 2 of the paper).
+weighted the same way, over all spikes (Eq. 2 of the paper).  Under the
+multicast model the hop and the swap gain take its traffic matrix
+(`multicast.traffic`) in place of the per-synapse spikes.
 """
 from __future__ import annotations
 
@@ -61,10 +63,14 @@ def best_swap_gain(traffic: np.ndarray, placement: np.ndarray, num_cores: int,
 def placement_checks(part: np.ndarray, k: int, placement: np.ndarray,
                      avg_hop: float, num_cores: int, mesh_w: int,
                      src: np.ndarray, dst: np.ndarray,
-                     spikes: np.ndarray) -> dict:
+                     spikes: np.ndarray, traffic: np.ndarray | None = None,
+                     swap: bool = True) -> dict:
     """``place_bad``: partitions without a core of their own on the mesh;
     ``hop_gap``: the reported avg_hop against a recount, relative;
-    ``swap_gain``: `best_swap_gain` of the placement."""
+    ``swap_gain``: `best_swap_gain` of the placement (left out unless
+    ``swap``).  The traffic is one packet a synapse a spike, or the (k, k)
+    ``traffic`` matrix of another model, whose sum is the hop's
+    denominator."""
     placement = np.asarray(placement, dtype=np.int64)
     if placement.shape != (k,):
         return {"place_bad": max(k, 1), "hop_gap": float("inf"),
@@ -74,13 +80,20 @@ def placement_checks(part: np.ndarray, k: int, placement: np.ndarray,
     if bad:
         return {"place_bad": bad, "hop_gap": float("inf"),
                 "swap_gain": float("inf")}
-    ps, pd = part[src], part[dst]
     x, y = _coords(placement, mesh_w)
-    hops = np.abs(x[ps] - x[pd]) + np.abs(y[ps] - y[pd])
-    total = int(spikes.sum())
-    hop = float(int((spikes * hops).sum())) / max(total, 1)
-    traffic = np.bincount(ps * k + pd, weights=spikes,
-                          minlength=k * k).reshape(k, k)
-    return {"place_bad": 0,
-            "hop_gap": abs(float(avg_hop) - hop) / hop if hop else abs(avg_hop),
-            "swap_gain": best_swap_gain(traffic, placement, num_cores, mesh_w)}
+    if traffic is None:
+        ps, pd = part[src], part[dst]
+        hops = np.abs(x[ps] - x[pd]) + np.abs(y[ps] - y[pd])
+        total = int(spikes.sum())
+        hop = float(int((spikes * hops).sum())) / max(total, 1)
+        traffic = np.bincount(ps * k + pd, weights=spikes,
+                              minlength=k * k).reshape(k, k)
+    else:
+        dist = (np.abs(x[:, None] - x[None, :])
+                + np.abs(y[:, None] - y[None, :]))
+        hop = float(int((traffic * dist).sum())) / max(int(traffic.sum()), 1)
+    out = {"place_bad": 0,
+           "hop_gap": abs(float(avg_hop) - hop) / hop if hop else abs(avg_hop)}
+    if swap:
+        out["swap_gain"] = best_swap_gain(traffic, placement, num_cores, mesh_w)
+    return out

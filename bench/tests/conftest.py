@@ -38,6 +38,28 @@ def tiny_spec(workload: str) -> "harness.Spec":
     return spec
 
 
+def tiny_volume(workload: str = "edge_5120-16x16.replay",
+                link_capacity: int = 1) -> "harness.Spec":
+    """`tiny_spec` under the volume objective, which the program runs as
+    multicast, with the queued tree-fork replay on the link-load screen, a
+    link capacity that makes it congest, and the multicast numbers among
+    the cell's limits."""
+    spec = tiny_spec(workload)
+    tc = spec.mix["toolchain"]
+    noc = {"screen": "linkload"} if tc["noc_mode"] == "queued" else {}
+    spec.mix = {**spec.mix, "toolchain": {**tc, "objective": "volume",
+                                          "noc_kwargs": noc}}
+    spec.config["platform"]["link_capacity"] = link_capacity
+    spec.cell = {**spec.cell, "limits": {**spec.cell["limits"],
+                                         "vol_gap": 0, "tree_gap": 0}}
+    return spec
+
+
 @pytest.fixture
 def tiny():
     return tiny_spec
+
+
+@pytest.fixture
+def volume():
+    return tiny_volume

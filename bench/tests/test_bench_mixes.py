@@ -56,3 +56,26 @@ def test_the_cell_names_the_numbers_compared(tiny):
     out = harness.run(spec, 2**31 + 43, 0.0, False, "cpu", time.perf_counter(),
                       log=lambda msg: None)
     assert set(out["checks"]) == set(spec.cell["limits"])
+
+
+def test_platform_cast_reaches_the_program(tiny):
+    spec = tiny("edge_5120-16x16.map")
+    assert harness._toolchain_config(spec, "cpu").cast is None  # as before
+    spec.config["platform"]["cast"] = "multicast"
+    cfg = harness._toolchain_config(spec, "cpu")
+    assert (cfg.objective, cfg.cast) == ("cut", "multicast")
+    spec.mix = {**spec.mix, "toolchain": {**spec.mix["toolchain"],
+                                          "cast": "unicast"}}
+    assert harness._toolchain_config(spec, "cpu").cast == "unicast"
+
+
+def test_volume_mix_answers_are_multicast(volume):
+    spec = volume("edge_5120-16x16.map")
+    rec = harness.Cell(spec, 2**31 + 45, "cpu").job(1)
+    a = rec["answers"][0]
+    assert a["platform"]["cast"] == "multicast"
+    assert (a["objective"], a["cast"]) == ("volume", "multicast")
+    assert isinstance(a["comm_volume"], int) and isinstance(a["tree_hop"],
+                                                            float)
+    assert 0 < a["comm_volume"] < a["edge_cut"]
+    assert rec["edge_cut"] == a["comm_volume"]  # the quality number by cast
