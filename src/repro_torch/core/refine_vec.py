@@ -487,6 +487,12 @@ def refine_level_vec(
         row_cost *= max(avg_inc, 1.0)
     chunk = max(1, int(_MAX_DEG_ENTRIES / row_cost))
 
+    # The engine of a volume level's D* rows, recorded on each of its
+    # `.eval` spans: the connectivity kernel, the host's dense incidence
+    # product, or the host's gather over the incidence lists.
+    eval_engine = ("kernel" if use_kernel else
+                   "dense_host" if dense_inc is not None else "gather_host")
+
     def eval_rows(rows_v: np.ndarray, pvec: np.ndarray) -> np.ndarray:
         """Degree rows of ``rows_v`` read against partition view ``pvec``
         (the global partition vector)."""
@@ -494,26 +500,32 @@ def refine_level_vec(
             if use_kernel:
                 return _degrees_via_kernel(dense, pvec, k, rows_v)
             return partition_degrees(graph, pvec, k, rows=rows_v)
-        if use_kernel:
-            return _volume_degrees_via_kernel(
-                kstate, pvec, rows_v,
-                phi=(None if vstate is not None
-                     else edge_partition_counts(hyper, pvec, k)))
-        if dense_inc is not None:
-            # One (rows, E) @ (E, 2k) BLAS call against the live Φ
-            # presence: base counts any member, the own column demands a
-            # second one (the row vertex always sits there itself).
-            pres = np.concatenate(
-                [vstate.phi > 0, vstate.phi > 1], axis=1).astype(np.float64)
-            both = dense_inc[rows_v] @ pres
-            base, alt = both[:, :k], both[:, k:]
-            own = pvec[rows_v]
-            r = np.arange(rows_v.shape[0])
-            base[r, own] = alt[r, own]
-            return base
-        if vstate is not None:
-            return vstate.degrees_rows(pvec, rows_v)
-        return volume_degrees(hyper, pvec, k, rows=rows_v)
+        with spans.span("sneap.partition.refine.eval", engine=eval_engine,
+                        rows=int(rows_v.shape[0])) as sp:
+            if sp and use_kernel:  # what the kernel reads: rows' lists, Φ
+                vxadj = hyper.incidence()[0]
+                sp.add(k=k, edges=hyper.num_hyperedges, inc_entries=int(
+                    (vxadj[rows_v + 1] - vxadj[rows_v]).sum()))
+            if use_kernel:
+                return _volume_degrees_via_kernel(
+                    kstate, pvec, rows_v,
+                    phi=(None if vstate is not None
+                         else edge_partition_counts(hyper, pvec, k)))
+            if dense_inc is not None:
+                # One (rows, E) @ (E, 2k) BLAS call against the live Φ
+                # presence: base counts any member, the own column demands a
+                # second one (the row vertex always sits there itself).
+                pres = np.concatenate([vstate.phi > 0, vstate.phi > 1],
+                                      axis=1).astype(np.float64)
+                both = dense_inc[rows_v] @ pres
+                base, alt = both[:, :k], both[:, k:]
+                own = pvec[rows_v]
+                r = np.arange(rows_v.shape[0])
+                base[r, own] = alt[r, own]
+                return base
+            if vstate is not None:
+                return vstate.degrees_rows(pvec, rows_v)
+            return volume_degrees(hyper, pvec, k, rows=rows_v)
 
     def eval_chunks(need: np.ndarray):
         """Yield (rows chunk, partition vector) pairs covering ``need``."""

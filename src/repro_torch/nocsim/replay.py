@@ -175,30 +175,6 @@ def _member(sorted_keys: np.ndarray, query: np.ndarray) -> np.ndarray:
     return sorted_keys[pos] == query
 
 
-def _window_loads_linkload(
-    win: np.ndarray,
-    src_core: np.ndarray,
-    dst_core: np.ndarray,
-    n_win: int,
-    w: int,
-    h: int,
-    device: torch.device,
-) -> np.ndarray:
-    """Per-window (n_win, nl) link loads via the kernels/link_load machinery.
-
-    Runs the link-load route histogram over the replay's window-sorted
-    packet records on ``device`` — the device alternative to histogramming
-    the route expansion; on the card the packets go up once and no dense
-    per-window (K, K) traffic matrix is built.  For multicast this is fed
-    replica packets, whose pairwise loads upper-bound the tree loads — a
-    sound (if looser) overload screen.
-    """
-    from repro_torch.kernels.link_load import record_link_loads
-
-    return record_link_loads(win, src_core, dst_core, n_win, w, h,
-                             device=device)
-
-
 # Below this (window * cycle * link) key-space size the demand screen uses a
 # dense bincount (O(n + space)); above it, a sort-based unique.
 _DENSE_SCREEN_SPACE = 1 << 26
@@ -601,97 +577,120 @@ def queued_multicast_tree(
                       "multicast", 0)
     if order is not None and screen == "linkload":
         raise ValueError("fault-escape routes require the numpy screen")
-    win, n_win = _window_ids(trace_t)
-    hops = route_hops(src_core, dst_core, w)
-    total_hops = int(hops.sum())
+    with spans.span("sneap.replay.tree.links", packets=n) as sp:
+        win, n_win = _window_ids(trace_t)
+        hops = route_hops(src_core, dst_core, w)
+        total_hops = int(hops.sum())
 
-    # Firing entities (canonical order: ascending firing id).
-    uf, finv = np.unique(group, return_inverse=True)
-    f_src = np.zeros(uf.shape[0], dtype=np.int64)
-    f_win = np.zeros(uf.shape[0], dtype=np.int64)
-    f_src[finv] = src_core  # every packet of a firing shares (t, src core)
-    f_win[finv] = win
-    f_inject = _inject_cycles(f_win, f_src, ncores, inject_capacity)
+        # Firing entities (canonical order: ascending firing id).
+        uf, finv = np.unique(group, return_inverse=True)
+        f_src = np.zeros(uf.shape[0], dtype=np.int64)
+        f_win = np.zeros(uf.shape[0], dtype=np.int64)
+        f_src[finv] = src_core  # every packet of a firing shares (t, src core)
+        f_win[finv] = win
+        f_inject = _inject_cycles(f_win, f_src, ncores, inject_capacity)
 
-    # Tree-link entities, canonically sorted by (firing, link id).
-    tids, tgrp = multicast_tree_links(src_core, dst_core, group, w, h,
-                                      order=order)
-    tf = np.searchsorted(uf, tgrp)
-    tail, head = link_endpoints(tids, w, h)
-    depth = route_hops(f_src[tf], tail, w)
-    per_link = np.bincount(tids, minlength=nl)
-    e_win = f_win[tf]
+        # Tree-link entities, canonically sorted by (firing, link id).
+        tids, tgrp = multicast_tree_links(src_core, dst_core, group, w, h,
+                                          order=order)
+        tf = np.searchsorted(uf, tgrp)
+        tail, head = link_endpoints(tids, w, h)
+        depth = route_hops(f_src[tf], tail, w)
+        per_link = np.bincount(tids, minlength=nl)
+        e_win = f_win[tf]
 
-    # XY trees enter each node at most once per firing, so (firing, head)
-    # is unique: one sorted key array serves parent pointers and the
-    # packet -> terminal-link lookup.
-    hkey = tf * np.int64(ncores) + head
-    horder = np.argsort(hkey)
-    hsorted = hkey[horder]
+        # XY trees enter each node at most once per firing, so (firing,
+        # head) is unique: one sorted key array serves parent pointers and
+        # the packet -> terminal-link lookup.
+        hkey = tf * np.int64(ncores) + head
+        horder = np.argsort(hkey)
+        hsorted = hkey[horder]
 
-    def entity_of(firing_idx: np.ndarray, node: np.ndarray) -> np.ndarray:
-        """Tree-link entity entering ``node`` in ``firing_idx``'s tree
-        (-1 when the node is the firing's source)."""
-        q = firing_idx * np.int64(ncores) + node
-        pos = np.minimum(np.searchsorted(hsorted, q), hsorted.shape[0] - 1)
-        return np.where(hsorted[pos] == q, horder[pos], -1)
+        def entity_of(firing_idx: np.ndarray, node: np.ndarray) -> np.ndarray:
+            """Tree-link entity entering ``node`` in ``firing_idx``'s tree
+            (-1 when the node is the firing's source)."""
+            q = firing_idx * np.int64(ncores) + node
+            pos = np.minimum(np.searchsorted(hsorted, q), hsorted.shape[0] - 1)
+            return np.where(hsorted[pos] == q, horder[pos], -1)
 
-    par = entity_of(tf, tail)
+        par = entity_of(tf, tail)
+        sp.add(windows=n_win, firings=int(uf.shape[0]),
+               tree_links=int(tids.shape[0]))
 
     # Tier 1: overloaded (window, link) pairs over *tree* loads.  Only a
     # firing whose tree touches an overloaded pair can see queueing (or
     # shift anyone else's timing), so all other firings deliver on the
     # unobstructed schedule: depth-d links cross at inject + d.
-    if screen == "linkload":
-        # Replica pairwise loads upper-bound tree loads: a sound (looser)
-        # overload screen — extra firings get stepped, results identical.
-        loads = _window_loads_linkload(win, src_core, dst_core, n_win, w, h,
-                                       device)
-        hot_keys = np.flatnonzero(loads.ravel() > link_capacity)
-        pm = _member(hot_keys, e_win * np.int64(nl) + tids)
-    else:
-        wl_key = e_win * np.int64(nl) + tids
-        hot_keys, counts = _hot_pairs(wl_key, n_win, nl, link_capacity)
-        pm = (counts[wl_key] > link_capacity if counts is not None
-              else _member(hot_keys, wl_key))
+    with spans.span("sneap.replay.tree.screen") as sp:
+        if screen == "linkload":
+            # Per-window loads of the replica packets from the link-load
+            # route histogram on ``device`` (the packets go up once; no
+            # dense per-window traffic matrix is built).  Replica pairwise
+            # loads upper-bound tree loads: a sound (looser) overload
+            # screen — extra firings get stepped, results identical.
+            from repro_torch.kernels.link_load import record_link_loads
+
+            loads = record_link_loads(win, src_core, dst_core, n_win, w, h,
+                                      device=device)
+            hot_keys = np.flatnonzero(loads.ravel() > link_capacity)
+            pm = _member(hot_keys, e_win * np.int64(nl) + tids)
+        else:
+            wl_key = e_win * np.int64(nl) + tids
+            hot_keys, counts = _hot_pairs(wl_key, n_win, nl, link_capacity)
+            pm = (counts[wl_key] > link_capacity if counts is not None
+                  else _member(hot_keys, wl_key))
+        fstep = np.zeros(uf.shape[0], dtype=bool)
+        fstep[tf[pm]] = True
+        if sp:
+            sp.add(hot_pairs=int(hot_keys.shape[0]),
+                   stepped_firings=int(np.count_nonzero(fstep)))
 
     lat = f_inject[finv] + hops  # analytic fast path
     congestion = 0
+    sub = np.empty(0, dtype=np.int64)
     if pm.any():
-        fstep = np.zeros(uf.shape[0], dtype=bool)
-        fstep[tf[pm]] = True
-        sub = np.flatnonzero(fstep[tf])  # every entity of a stepped firing
         # Static schedule screen: windows whose stepped tree links never
         # oversubscribe any (cycle, link) bucket at inject + depth cannot
         # block (stagger-diffused overloads); keep truly contending ones.
-        uwin0 = np.unique(e_win[sub])
-        cwin0 = np.searchsorted(uwin0, e_win[sub])
-        bad = _schedule_congested(cwin0, f_inject[tf[sub]] + depth[sub],
-                                  tids[sub], nl, link_capacity)
-        if bad.shape[0] < uwin0.shape[0]:
-            badw = np.zeros(n_win, dtype=bool)
-            badw[uwin0[bad]] = True
-            fstep &= badw[f_win]
-            sub = np.flatnonzero(fstep[tf])
-    if pm.any() and sub.shape[0]:
-        remap = np.full(tf.shape[0], -1, dtype=np.int64)
-        remap[sub] = np.arange(sub.shape[0])
-        par_sub = np.where(par[sub] >= 0, remap[par[sub]], -1)
-        uwin = np.unique(e_win[sub])
-        cwin = np.searchsorted(uwin, e_win[sub])
-        grant_sub, congestion = _tree_stepper(
-            cwin * np.int64(nl) + tids[sub],
-            f_inject[tf[sub]], par_sub, depth[sub],
-            uwin.shape[0] * nl, nl, link_capacity, max_cycles_per_window)
-        grant = np.full(tf.shape[0], -1, dtype=np.int64)
-        grant[sub] = grant_sub
-        pmask = fstep[finv]
-        term = entity_of(finv[pmask], dst_core[pmask])
-        lat[pmask] = grant[term] + 1
+        with spans.span("sneap.replay.tree.schedule") as sp:
+            sub = np.flatnonzero(fstep[tf])  # every entity of a stepped firing
+            uwin0 = np.unique(e_win[sub])
+            cwin0 = np.searchsorted(uwin0, e_win[sub])
+            bad = _schedule_congested(cwin0, f_inject[tf[sub]] + depth[sub],
+                                      tids[sub], nl, link_capacity)
+            if bad.shape[0] < uwin0.shape[0]:
+                badw = np.zeros(n_win, dtype=bool)
+                badw[uwin0[bad]] = True
+                fstep &= badw[f_win]
+                sub = np.flatnonzero(fstep[tf])
+            if sp:
+                sp.add(past_screen_windows=int(uwin0.shape[0]),
+                       windows=int(bad.shape[0]),
+                       stepped_firings=int(np.count_nonzero(fstep)))
+    if sub.shape[0]:
+        with spans.span("sneap.replay.tree.stepper",
+                        entities=int(sub.shape[0])) as sp:
+            remap = np.full(tf.shape[0], -1, dtype=np.int64)
+            remap[sub] = np.arange(sub.shape[0])
+            par_sub = np.where(par[sub] >= 0, remap[par[sub]], -1)
+            uwin = np.unique(e_win[sub])
+            cwin = np.searchsorted(uwin, e_win[sub])
+            grant_sub, congestion = _tree_stepper(
+                cwin * np.int64(nl) + tids[sub],
+                f_inject[tf[sub]], par_sub, depth[sub],
+                uwin.shape[0] * nl, nl, link_capacity, max_cycles_per_window)
+            grant = np.full(tf.shape[0], -1, dtype=np.int64)
+            grant[sub] = grant_sub
+            pmask = fstep[finv]
+            term = entity_of(finv[pmask], dst_core[pmask])
+            lat[pmask] = grant[term] + 1
+            if sp:  # the last grant's cycle, and the refused requests
+                sp.add(cycles=int(grant_sub.max()) + 1, congestion=congestion)
 
-    cycles_total = int(_per_window_max(lat, win, n_win).sum())
-    return _stats(lat, total_hops, congestion, per_link, per_link,
-                  cycles_total, n_local, energy, "multicast", n)
+    with spans.span("sneap.replay.tree.stats"):
+        cycles_total = int(_per_window_max(lat, win, n_win).sum())
+        return _stats(lat, total_hops, congestion, per_link, per_link,
+                      cycles_total, n_local, energy, "multicast", n)
 
 
 def _tree_stepper(

@@ -391,10 +391,16 @@ def simulate_noc(
         # Only NoC-bound transmissions deduplicate into packets: a
         # core-local delivery is a synaptic event, not a packet, so every
         # local record keeps its unicast-model energy accounting.
-        rt, rsrc, rdst, firing = dedupe_firings(
-            trace_t[~local], trace_src[~local], dst_core[~local],
-            int(part.shape[0]), mesh_w * mesh_h,
-        )
+        with spans.span("sneap.noc.dedupe") as sp:
+            rt, rsrc, rdst, firing = dedupe_firings(
+                trace_t[~local], trace_src[~local], dst_core[~local],
+                int(part.shape[0]), mesh_w * mesh_h,
+            )
+            if sp:  # firing ids come sorted: count where they change
+                sp.add(records=int(local.shape[0] - np.count_nonzero(local)),
+                       firings=int(np.count_nonzero(np.diff(firing)))
+                       + int(firing.shape[0] > 0),
+                       packets=int(firing.shape[0]))
         rsrc_core = core_of_neuron[rsrc]
         route_order = None
         if fault_on:
