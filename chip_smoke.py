@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the seven CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
+1. Builds the eight CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
    one process per source, in parallel).
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes the slice runs give it (bitwise for lif_step — 60 fused steps of
@@ -33,7 +33,13 @@
    count and device time of its host-to-device copies.  The cut run's
    replay screen is then held against its plain version on the card on
    the same packets (flags, so the stepped set, and per-link totals
-   bitwise) and timed there.
+   bitwise) and timed there.  The volume run must launch volume_select
+   once for each of its refiner's device selection calls; the kernel is
+   then held against its plain version on the card on the inputs of two
+   of those calls, Φ as each call saw it: the one with the most
+   candidates (a plateau escape) and the one nearest 40 candidates —
+   result bytes equal, and the chosen set the refiner's
+   movers — and timed there.
 4. Runs the device slice run on the same profile: the cut run's
    configuration with the device searches and stepper — ``mapper="sa_jax"``
    (population SA, then the greedy polish on swap_deltas) and
@@ -616,6 +622,117 @@ def check_replay_screen(dev, packets) -> dict:
               f"K={w * h}, link capacity {cap}")
 
 
+class SelectSpy:
+    """Counts the volume refiner's device selection calls
+    (``refine_vec._volume_select_via_kernel``) made while it is open, and
+    keeps in ``calls`` the inputs and movers of two of them, Φ copied as
+    the call saw it: ``largest``, the call with the most candidates (a
+    plateau escape at the edge_5120 slice), and ``near_40``, the call
+    nearest 40 candidates."""
+
+    def __init__(self):
+        from repro_torch.core import refine_vec
+
+        self.refine_vec, self.real = refine_vec, refine_vec._volume_select_via_kernel
+        self.calls, self.count = {}, 0
+
+    def reset(self):
+        self.calls, self.count = {}, 0
+
+    def keep(self, kstate, part, target, cand_idx, pri, movers):
+        n = cand_idx.shape[0]
+        slots = [name for name, held, better in (
+            ("largest", self.calls.get("largest"),
+             lambda c: n > c["cand"].shape[0]),
+            ("near_40", self.calls.get("near_40"),
+             lambda c: abs(n - 40) < abs(c["cand"].shape[0] - 40)))
+            if held is None or better(held)]
+        if not slots:
+            return
+        call = dict(vxadj=kstate.vxadj, vedges=kstate.vedges,
+                    phi=kstate.phi.clone(), cand=cand_idx.copy(),
+                    own=part[cand_idx].copy(), target=target[cand_idx].copy(),
+                    pri=pri.copy(), movers=movers.copy())
+        for name in slots:
+            self.calls[name] = call
+
+    def __enter__(self):
+        def spy(kstate, part, target, cand_idx, pri):
+            got = self.real(kstate, part, target, cand_idx, pri)
+            self.count += 1
+            self.keep(kstate, part, target, cand_idx, pri, got[0])
+            return got
+
+        self.refine_vec._volume_select_via_kernel = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.refine_vec._volume_select_via_kernel = self.real
+        return False
+
+
+def check_volume_select(dev, calls: dict) -> dict:
+    """The volume mover selection's kernel against its plain version on the
+    card, on the inputs of the volume run's own calls (``SelectSpy``):
+    result bytes equal (chosen flags, contended keys, rounds run), and the
+    chosen set the movers the refiner took.  Returns the largest call's
+    row; prints the row of the call nearest 40 candidates beside it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.refine_vec import _LUBY_ROUNDS
+    from repro_torch.kernels.gain_eval import SelectSlots
+    from repro_torch.kernels.gain_eval.kernel import volume_select_cuda
+    from repro_torch.kernels.gain_eval.ref import volume_select_ref
+
+    if set(calls) != {"largest", "near_40"}:
+        fail("volume_select: the volume run made no device selection call")
+    rows = {}
+    for name, c in calls.items():
+        ins = [torch.tensor(c[x].astype(np.int32), device=dev)
+               for x in ("cand", "own", "target", "pri")]
+        args = (c["vxadj"], c["vedges"], c["phi"], *ins, _LUBY_ROUNDS)
+        slots = SelectSlots(c["phi"].numel(), dev)
+        got = volume_select_cuda(*args, slots)
+        want = volume_select_ref(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"volume_select on the {name} call differs from the plain version")
+        host = got.cpu().numpy()
+        if not np.array_equal(np.sort(c["cand"][host[8:] != 0]),
+                              np.sort(c["movers"])):
+            fail(f"volume_select on the {name} call: the chosen set is not "
+                 "the refiner's movers")
+        contended, ran = (int(x) for x in host[:8].view(np.int32))
+        vx = c["vxadj"].cpu().numpy().astype(np.int64)
+        nc = c["cand"].shape[0]
+        pairs = int((vx[c["cand"] + 1] - vx[c["cand"]]).sum())
+        e, k = c["phi"].shape
+        # Bytes once: a candidate's four inputs, CSR offsets and result
+        # byte (25 B); a pair's hyperedge id (4 B); for each of a pair's
+        # two slots Φ, the packed counts and the used stamp (16 B); for a
+        # contended key its priority maximum and stamp (12 B).
+        moved = 25 * nc + 4 * pairs + 2 * 16 * pairs + 12 * contended
+        t_bound, by = bound(moved, 0.0)
+        print(f"volume_select on the volume run's {name} call: {nc} "
+              f"candidates, {pairs} pairs, {contended} contended keys, "
+              f"{ran} rounds, {int(host[8:].sum())} chosen, as the plain "
+              "version and the refiner")
+        rows[name] = dict(
+            name="volume_select", source="src/repro_torch/csrc/volume_select.cu",
+            replaces="none (the volume refiner's numpy mover selection)",
+            max_abs_err=float((got.to(torch.int32)
+                               - want.to(torch.int32)).abs().max()),
+            kernel=lambda args=args, slots=slots: volume_select_cuda(*args, slots),
+            plain=lambda args=args: volume_select_ref(*args),
+            library=None, iters=20, bound_ms=t_bound, bound_by=by,
+            shape=f"the volume run's {name} call: C={nc} pairs={pairs} "
+                  f"contended={contended} rounds={ran} E={e} k={k}")
+    near = timed(rows["near_40"])
+    print_row(near, near.pop("shape"))
+    return rows["largest"]
+
+
 def check_connectivity_degrees(dev, rng) -> dict:
     import numpy as np
     import torch
@@ -769,6 +886,7 @@ def launch_counters():
             "swap_deltas": (swap_delta, "launches"),
             "link_loads": (link_load, "launches"),
             "replay_screen": (link_load, "screen_launches"),
+            "volume_select": (gain_eval, "select_launches"),
             "hop_cost": (hop_eval, "launches")}
 
 
@@ -776,7 +894,8 @@ def launch_counters():
 PATHS = {
     "cut": ("lif_step", "part_degrees", "swap_deltas", "replay_screen",
             "hop_cost"),
-    "volume": ("connectivity_degrees", "link_loads", "hop_cost"),
+    "volume": ("connectivity_degrees", "volume_select", "link_loads",
+               "hop_cost"),
     "device": ("part_degrees", "swap_deltas", "replay_screen", "hop_cost"),
     # The baselines partition and place on the host; the replay's screens
     # and the final hop cost are on the card.
@@ -788,7 +907,8 @@ PATHS = {
     "fault_scratch": ("part_degrees", "swap_deltas", "hop_cost"),
     "fault_link": ("part_degrees", "swap_deltas", "hop_cost"),
     "sweep": ("part_degrees", "swap_deltas", "replay_screen", "hop_cost"),
-    # A sharded level refines on the host: no degree kernel.
+    # A sharded level refines on the host: no degree kernel, no device
+    # selection.
     "sharded_cut": (),
     "sharded_stream": (),
     "sharded_volume": (),
@@ -970,6 +1090,7 @@ DEVICE_SYMBOLS = {"lif_step": "lif_step_kernel",
                   "connectivity_degrees": "volume_degree_rows_kernel",
                   "link_loads": "link_loads_kernel",
                   "replay_screen": "replay_screen_kernel",
+                  "volume_select": "volume_select_kernel",
                   "hop_cost": "hop_cost_kernel"}
 # Launches each slice run must make exactly: one fused LIF launch a
 # profiled step; for a replay on the link-load screen one replay_screen
@@ -993,8 +1114,8 @@ EXACT_LAUNCHES = {"cut": {"lif_step": SLICE["num_steps"], **UNICAST,
                             "replay_screen": 4, "hop_cost": 4},
                   **{run: {name: 0 for name in
                            ("lif_step", "part_degrees", "connectivity_degrees",
-                            "swap_deltas", "link_loads", "replay_screen",
-                            "hop_cost")}
+                            "volume_select", "swap_deltas", "link_loads",
+                            "replay_screen", "hop_cost")}
                      for run in SHARDED_RUNS + ("layout", "serve", "train",
                                                 "roofline")},
                   "island": {"lif_step": 0, "swap_deltas": 0, **UNICAST,
@@ -4635,7 +4756,15 @@ def main() -> int:
     row = timed(check_replay_screen(dev, screens.calls[-1]))
     print_row(row, row.pop("shape"))
     rows.append(row)
-    _, vol_res, vol_hop, vol_launches = traced_run("volume", counters, prof)
+    with SelectSpy() as selects:
+        _, vol_res, vol_hop, vol_launches = traced_run(
+            "volume", counters, prof, reset=selects.reset)
+    if vol_launches["volume_select"] != selects.count:
+        fail(f"volume: {vol_launches['volume_select']} volume_select launches "
+             f"for {selects.count} device selection calls")
+    row = timed(check_volume_select(dev, selects.calls))
+    print_row(row, row.pop("shape"))
+    rows.append(row)
     spans.clear()
     with spans.recording():
         _, dev_res, dev_hop, dev_launches = traced_run("device", counters, prof,

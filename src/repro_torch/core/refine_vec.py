@@ -87,6 +87,12 @@ the dense adjacency once per level and the partition vector per
 evaluation.  Volume uploads the incidence CSR and Φ once per level
 (``_VolumeKernelState``), replays each batch's merged Φ updates on the
 card, and per evaluation moves only the row ids and their own columns.
+On the card every unsharded volume level with a live Φ table (kernel
+levels and the finest alike) also selects its movers there
+(``gain_eval.volume_select``): the candidates' ids, columns and priority
+ranks go up, one byte a candidate comes back, and the chosen set is the
+host selection's bit for bit; CPU runs, sharded levels and levels without
+a live Φ keep the numpy selection (``_select_volume_host``).
 """
 from __future__ import annotations
 
@@ -289,6 +295,7 @@ class _VolumeKernelState:
             vxadj.astype(np.int32), vedges.astype(np.int32),
             hyper.hfire[vedges].astype(np.float32))
         self.phi = None if phi is None else self.put(phi.astype(np.int32))[0]
+        self._slots = None  # the selection kernel's slot state, at first use
 
     def put(self, *arrays: np.ndarray) -> list[torch.Tensor]:
         """Copies of ``arrays`` on the device, from one host-to-device copy
@@ -316,6 +323,15 @@ class _VolumeKernelState:
             k_d, d_d = self.put(keys, deltas.astype(np.int32))
             self.phi.view(-1).index_add_(0, k_d, d_d)
 
+    def select_slots(self):
+        """The selection kernel's slot state for ``phi`` (None off the card,
+        where the plain version needs none)."""
+        if self._slots is None and self.dev.type == "cuda":
+            from repro_torch.kernels.gain_eval import SelectSlots
+
+            self._slots = SelectSlots(self.phi.numel(), self.dev)
+        return self._slots
+
 
 def _volume_degrees_via_kernel(kstate: _VolumeKernelState, part: np.ndarray,
                                rows: np.ndarray,
@@ -342,6 +358,128 @@ def _volume_degrees_via_kernel(kstate: _VolumeKernelState, part: np.ndarray,
     deg = volume_degree_rows(kstate.vxadj, kstate.vedges, kstate.w, table,
                              rows_d, own_d)
     return deg.cpu().numpy().astype(np.float64)
+
+
+def _volume_select_via_kernel(kstate: _VolumeKernelState, part: np.ndarray,
+                              target: np.ndarray, cand_idx: np.ndarray,
+                              pri: np.ndarray) -> tuple[np.ndarray, int, int]:
+    """The volume batch's movers among ``cand_idx``, selected on
+    ``kstate``'s device against its resident CSR and live Φ: the candidates'
+    ids, own and target columns and priority ranks go up in one copy, one
+    byte a candidate comes back.  Returns (movers, contended keys, rounds
+    run), the movers in ascending id order."""
+    from repro_torch.kernels.gain_eval import read_select, volume_select
+
+    c_d, o_d, t_d, p_d = kstate.put(
+        cand_idx.astype(np.int32), part[cand_idx].astype(np.int32),
+        target[cand_idx].astype(np.int32), pri)
+    chosen, contended, rounds = read_select(volume_select(
+        kstate.vxadj, kstate.vedges, kstate.phi, c_d, o_d, t_d, p_d,
+        _LUBY_ROUNDS, kstate.select_slots()))
+    return cand_idx[chosen], contended, rounds
+
+
+def _select_volume_host(hyper: Hypergraph, k: int, part: np.ndarray,
+                        target: np.ndarray, cand_idx: np.ndarray,
+                        pri: np.ndarray, phi: np.ndarray | None = None,
+                        bufs: tuple | None = None,
+                        slot_phi=None) -> tuple[np.ndarray, int, int]:
+    """The volume batch's conflict-free movers among ``cand_idx``, in numpy
+    (the rule is ``refine_level_vec``'s ``select_movers``).  ``pri`` holds
+    the candidates' distinct priority ranks.  ``phi`` is the live (E, k)
+    table with ``bufs`` = (slot_cnt, slot_out, slot_rank, slot_done), its
+    persistent flat slot buffers (the count buffers None below
+    ``_SLOT_BINCOUNT_MAX`` entries); without a live table ``slot_phi``
+    counts Φ for given slot keys.  Returns (movers, contended keys, rounds
+    run)."""
+    vxadj, vedges = hyper.incidence()
+    nc = cand_idx.shape[0]
+    chosen: list[np.ndarray] = []
+    rounds = 0
+    # One pair per (candidate, incident edge, side): every slot a
+    # move's +-1 lands on.  Gathered once; the rounds below work on
+    # boolean-masked views of these arrays, never re-gathering.
+    ei0, lc0 = _csr_gather(vxadj, cand_idx)
+    eids0 = vedges[ei0]
+    lc2 = np.concatenate([lc0, lc0])
+    if phi is not None:
+        slot_cnt, slot_out, slot_rank, slot_done = bufs
+        # Flat persistent buffers addressed by the packed key
+        # e * k + c, computed in int32 outright (phi.size < 2^31
+        # whenever the live table exists, so the arithmetic is
+        # exact and skips an int64 pass + downcast).
+        base = eids0.astype(np.int32) * np.int32(k)
+        key = np.concatenate([
+            base + part[cand_idx].astype(np.int32)[lc0],
+            base + target[cand_idx].astype(np.int32)[lc0],
+        ])
+        half = eids0.shape[0]
+        if slot_cnt is None:
+            # Small table: two straight bincounts beat the buffered
+            # fancy-index adds and need no zeroing afterwards.
+            t_cnt = np.bincount(key, minlength=phi.size)
+            o_cnt = np.bincount(key[:half], minlength=phi.size)
+        else:
+            ones = np.ones(key.shape[0], dtype=np.int32)
+            np.add.at(slot_cnt, key, ones)
+            np.add.at(slot_out, key[:half], ones[:half])
+            t_cnt, o_cnt = slot_cnt, slot_out
+        ps = phi.reshape(-1)[key]
+        cm = (t_cnt[key] > 1) & ((ps < 2) | (ps - o_cnt[key] < 2))
+        if t_cnt is slot_cnt:  # zero only what this call touched
+            slot_cnt[key] = 0
+            slot_out[key] = 0
+        used_buf, rank_buf, persistent = slot_done, slot_rank, True
+    else:
+        skey = np.concatenate([
+            eids0 * k + part[cand_idx][lc0],       # leaving slots
+            eids0 * k + target[cand_idx][lc0],     # entering
+        ])
+        # No phi table (level too big to densify): compress the
+        # slot keys first, then use call-local buffers.
+        slots = np.unique(skey)
+        key = np.searchsorted(slots, skey)
+        t_cnt = np.bincount(key, minlength=slots.shape[0])
+        o_cnt = np.bincount(key[:eids0.shape[0]],
+                            minlength=slots.shape[0])
+        phi_slot = slot_phi(slots)
+        cm = ((t_cnt[key] > 1)
+              & ((phi_slot[key] < 2)
+                 | (phi_slot[key] - o_cnt[key] < 2)))
+        used_buf = np.zeros(slots.shape[0], dtype=bool)
+        rank_buf = np.zeros(slots.shape[0], dtype=np.int32)
+        persistent = False
+    # Fat-round payoff: a candidate touching no contended slot
+    # conflicts with nobody and wins outright; only contended
+    # candidates enter the priority rounds.
+    rmask = np.bincount(lc2[cm], minlength=nc) > 0
+    free = cand_idx[~rmask]
+    if free.shape[0]:
+        chosen.append(free)
+    ckey, clc = key[cm], lc2[cm]  # contended pairs only
+    for _ in range(_LUBY_ROUNDS):
+        if not rmask.any():
+            break
+        rounds += 1
+        ap = rmask[clc]  # this round's live contended pairs
+        akey, alc = ckey[ap], clc[ap]
+        excl = np.bincount(alc[used_buf[akey]], minlength=nc) > 0
+        rank_buf[akey] = 0
+        np.maximum.at(rank_buf, akey, pri[alc])
+        lost = np.bincount(alc[rank_buf[akey] > pri[alc]],
+                           minlength=nc) > 0
+        win = rmask & ~excl & ~lost
+        winners = cand_idx[win]
+        if winners.shape[0]:
+            chosen.append(winners)
+            used_buf[akey[win[alc]]] = True
+        rmask &= ~excl & lost
+    if persistent:  # zero only what this call touched
+        used_buf[ckey] = False
+        rank_buf[ckey] = 0
+    movers = (np.concatenate(chosen) if chosen
+              else np.empty(0, dtype=np.int64))
+    return movers, int(ckey.shape[0]), rounds
 
 
 def _kernel_auto(graph: Graph, k: int, objective: str,
@@ -433,7 +571,8 @@ def refine_level_vec(
         use_kernel = False  # a sharded level refines on the host
     src = graph.edge_src
     nbr = adjncy.astype(np.int64)
-    if use_kernel is None:
+    auto = use_kernel is None
+    if auto:
         use_kernel = _kernel_auto(graph, k, objective, dev)
     # Incremental Φ bookkeeping (the scalar FM queue's VolumeState, driven
     # in batch mode) unless the dense (E, k) table would blow the memory
@@ -455,6 +594,13 @@ def refine_level_vec(
                     and avg_inc * 16 >= ne):
                 # Exact in float64: entries are hfire-weighted 0/1 sums.
                 dense_inc = _dense_incidence(hyper).astype(np.float64)
+    # The movers of an unsharded volume level with a live Φ table are
+    # selected on the device (its plain version on the CPU) where the
+    # kernel path is forced, or left to the rule on the card: every such
+    # level there, whatever engine evaluates its D* rows.
+    select_on_device = (vstate is not None and not sharded
+                        and (use_kernel or (auto and dev.type == "cuda")))
+    select_engine = "kernel" if select_on_device else "host"
     # Persistent flat slot buffers for select_movers, addressed by the
     # packed key e * k + c directly — no per-call unique/searchsorted
     # compression.  phi.size <= _PHI_MAX_ENTRIES < 2**31 whenever vstate
@@ -462,7 +608,7 @@ def refine_level_vec(
     # entries it touched.  Tables small enough for whole-table bincounts
     # skip the toucher/leaver count buffers entirely (see select_movers).
     slot_cnt = slot_out = slot_rank = slot_done = None
-    if vstate is not None:
+    if vstate is not None and not select_on_device:
         if vstate.phi.size > _SLOT_BINCOUNT_MAX:
             slot_cnt = np.zeros(vstate.phi.size, dtype=np.int32)
             slot_out = np.zeros(vstate.phi.size, dtype=np.int32)
@@ -471,11 +617,12 @@ def refine_level_vec(
 
     # The level's dense adjacency (cut), or incidence CSR and Φ (volume),
     # go to the device once, here; each eval_rows call moves only the
-    # partition vector (cut) or the row ids and own columns (volume).
+    # partition vector (cut) or the row ids and own columns (volume), and
+    # each device selection the candidates.
     dense = kstate = None
     if use_kernel and objective == "cut":
         dense = torch.from_numpy(_dense_adjacency(graph)).to(dev)
-    elif use_kernel:
+    elif use_kernel or select_on_device:
         kstate = _VolumeKernelState(
             hyper, None if vstate is None else vstate.phi, dev)
     # The volume path materializes a (pairs, k) product where pairs is the
@@ -586,6 +733,10 @@ def refine_level_vec(
         replaying the same batch out and back — the deterministic-orbit
         failure mode of batch negative-gain walks.  Applied gains stay the
         exact cached values; only who wins the conflict changes.
+
+        A volume call selects on the device (``_volume_select_via_kernel``)
+        or in numpy (``_select_volume_host``), the same movers either way,
+        inside one ``sneap.partition.refine.select`` span.
         """
         g_sel = gain_full
         if jitter_round is not None:
@@ -597,100 +748,36 @@ def refine_level_vec(
                      / float(1 << 64))
                 g_sel = gain_full.copy()
                 g_sel[cand_idx] = cg + 0.5 * span * u
+        if objective == "volume":
+            nc = cand_idx.shape[0]
+            with spans.span("sneap.partition.refine.select",
+                            engine=select_engine, candidates=int(nc),
+                            escape=jitter_round is not None) as sp:
+                # Dense (gain, -id) ranks as priorities, computed once per
+                # call: rank comparisons are order-isomorphic to the
+                # pairwise tie-breaking, and stay valid on every
+                # remaining-subset.
+                pri = np.empty(nc, dtype=np.int32)
+                pri[np.lexsort((cand_idx, -g_sel[cand_idx]))] = np.arange(
+                    nc, 0, -1, dtype=np.int32)
+                if select_on_device:
+                    movers, contended, rounds = _volume_select_via_kernel(
+                        kstate, part, target_full, cand_idx, pri)
+                else:
+                    movers, contended, rounds = _select_volume_host(
+                        hyper, k, part, target_full, cand_idx, pri,
+                        phi=None if vstate is None else vstate.phi,
+                        bufs=(slot_cnt, slot_out, slot_rank, slot_done),
+                        slot_phi=_slot_phi)
+                if sp:
+                    vxadj = hyper.incidence()[0]
+                    sp.add(pairs=int((vxadj[cand_idx + 1]
+                                      - vxadj[cand_idx]).sum()),
+                           contended=contended, rounds=rounds,
+                           winners=int(movers.shape[0]))
+            return movers
         chosen: list[np.ndarray] = []
         remaining = cand_idx
-        if objective == "volume":
-            vxadj, vedges = hyper.incidence()
-            nc = cand_idx.shape[0]
-            # One pair per (candidate, incident edge, side): every slot a
-            # move's +-1 lands on.  Gathered once; the rounds below work on
-            # boolean-masked views of these arrays, never re-gathering.
-            ei0, lc0 = _csr_gather(vxadj, cand_idx)
-            eids0 = vedges[ei0]
-            lc2 = np.concatenate([lc0, lc0])
-            if slot_done is not None:
-                # Flat persistent buffers addressed by the packed key
-                # e * k + c, computed in int32 outright (phi.size < 2^31
-                # whenever the live table exists, so the arithmetic is
-                # exact and skips an int64 pass + downcast).
-                base = eids0.astype(np.int32) * np.int32(k)
-                key = np.concatenate([
-                    base + part[cand_idx].astype(np.int32)[lc0],
-                    base + target_full[cand_idx].astype(np.int32)[lc0],
-                ])
-                half = eids0.shape[0]
-                if slot_cnt is None:
-                    # Small table: two straight bincounts beat the buffered
-                    # fancy-index adds and need no zeroing afterwards.
-                    t_cnt = np.bincount(key, minlength=vstate.phi.size)
-                    o_cnt = np.bincount(key[:half],
-                                        minlength=vstate.phi.size)
-                else:
-                    ones = np.ones(key.shape[0], dtype=np.int32)
-                    np.add.at(slot_cnt, key, ones)
-                    np.add.at(slot_out, key[:half], ones[:half])
-                    t_cnt, o_cnt = slot_cnt, slot_out
-                ps = vstate.phi.reshape(-1)[key]
-                cm = (t_cnt[key] > 1) & ((ps < 2) | (ps - o_cnt[key] < 2))
-                if t_cnt is slot_cnt:  # zero only what this call touched
-                    slot_cnt[key] = 0
-                    slot_out[key] = 0
-                used_buf, rank_buf, persistent = slot_done, slot_rank, True
-            else:
-                skey = np.concatenate([
-                    eids0 * k + part[cand_idx][lc0],       # leaving slots
-                    eids0 * k + target_full[cand_idx][lc0],  # entering
-                ])
-                # No phi table (level too big to densify): compress the
-                # slot keys first, then use call-local buffers.
-                slots = np.unique(skey)
-                key = np.searchsorted(slots, skey)
-                t_cnt = np.bincount(key, minlength=slots.shape[0])
-                o_cnt = np.bincount(key[:eids0.shape[0]],
-                                    minlength=slots.shape[0])
-                phi_slot = _slot_phi(slots)
-                cm = ((t_cnt[key] > 1)
-                      & ((phi_slot[key] < 2)
-                         | (phi_slot[key] - o_cnt[key] < 2)))
-                used_buf = np.zeros(slots.shape[0], dtype=bool)
-                rank_buf = np.zeros(slots.shape[0], dtype=np.int32)
-                persistent = False
-            # Fat-round payoff: a candidate touching no contended slot
-            # conflicts with nobody and wins outright; only contended
-            # candidates enter the priority rounds.
-            rmask = np.bincount(lc2[cm], minlength=nc) > 0
-            free = cand_idx[~rmask]
-            if free.shape[0]:
-                chosen.append(free)
-            # Dense (gain, -id) ranks as priorities, computed once per
-            # call: rank comparisons are order-isomorphic to the pairwise
-            # tie-breaking, and stay valid on every remaining-subset.
-            pri = np.empty(nc, dtype=np.int32)
-            pri[np.lexsort((cand_idx, -g_sel[cand_idx]))] = np.arange(
-                nc, 0, -1, dtype=np.int32)
-            ckey, clc = key[cm], lc2[cm]  # contended pairs only
-            for _ in range(_LUBY_ROUNDS):
-                if not rmask.any():
-                    break
-                ap = rmask[clc]  # this round's live contended pairs
-                akey, alc = ckey[ap], clc[ap]
-                excl = np.bincount(alc[used_buf[akey]], minlength=nc) > 0
-                rank_buf[akey] = 0
-                np.maximum.at(rank_buf, akey, pri[alc])
-                lost = np.bincount(alc[rank_buf[akey] > pri[alc]],
-                                   minlength=nc) > 0
-                win = rmask & ~excl & ~lost
-                winners = cand_idx[win]
-                if winners.shape[0]:
-                    chosen.append(winners)
-                    used_buf[akey[win[alc]]] = True
-                rmask &= ~excl & lost
-            if persistent:  # zero only what this call touched
-                used_buf[ckey] = False
-                rank_buf[ckey] = 0
-            if not chosen:
-                return np.empty(0, dtype=np.int64)
-            return np.concatenate(chosen)
         # 0 = not a candidate, 1 = still in the running, 2 = chosen.
         status = np.zeros(n, dtype=np.int8)
         status[cand_idx] = 1

@@ -24,7 +24,7 @@ __all__ = ["KERNELS", "bind", "build_all", "build_dir", "check", "load",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("lif_step", "part_degrees", "connectivity_degrees", "swap_deltas",
-           "link_loads", "hop_cost", "replay_screen")
+           "link_loads", "hop_cost", "replay_screen", "volume_select")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v",

@@ -1,14 +1,27 @@
-"""Public wrappers: degree and gain matrices, the kernels on CUDA, plain on CPU."""
+"""Public wrappers: degree and gain matrices and the volume mover selection,
+the kernels on CUDA, plain on CPU."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch import spans
 
-from .kernel import part_degrees_cuda, volume_degree_rows_cuda
-from .ref import part_degrees_ref, part_onehot, volume_degree_rows_ref
+from .kernel import (
+    SelectSlots,
+    part_degrees_cuda,
+    volume_degree_rows_cuda,
+    volume_select_cuda,
+)
+from .ref import (
+    part_degrees_ref,
+    part_onehot,
+    volume_degree_rows_ref,
+    volume_select_ref,
+)
 
-__all__ = ["part_degrees", "volume_degree_rows", "gain_matrix"]
+__all__ = ["part_degrees", "volume_degree_rows", "gain_matrix",
+           "volume_select", "read_select"]
 
 
 def part_degrees(adj: torch.Tensor, part: torch.Tensor, k: int,
@@ -45,3 +58,29 @@ def gain_matrix(adj: torch.Tensor, part: torch.Tensor, k: int) -> torch.Tensor:
     deg = part_degrees(adj, part, k)
     own = torch.take_along_dim(deg, part[:, None].to(torch.int64), dim=1)
     return (deg - own) * (1.0 - part_onehot(part, k))
+
+
+def volume_select(vxadj: torch.Tensor, vedges: torch.Tensor,
+                  phi: torch.Tensor, cand: torch.Tensor, own: torch.Tensor,
+                  target: torch.Tensor, pri: torch.Tensor, rounds: int,
+                  slots: SelectSlots | None = None) -> torch.Tensor:
+    """(8 + C,) uint8: the conflict-free movers among the candidates ``cand``
+    (see ``volume_select_ref``), after a header of the contended key count
+    and the rounds run.  On CUDA ``slots`` is the Φ table's slot state kept
+    across calls (``SelectSlots``); the plain version needs none."""
+    if vxadj.device.type == "cuda":
+        return volume_select_cuda(vxadj, vedges, phi, cand, own, target, pri,
+                                  rounds, slots)
+    if vxadj.device.type == "cpu":
+        return volume_select_ref(vxadj, vedges, phi, cand, own, target, pri,
+                                 rounds)
+    raise ValueError(
+        f"volume_select runs on cuda or cpu tensors, not {vxadj.device}")
+
+
+def read_select(out: torch.Tensor) -> tuple[np.ndarray, int, int]:
+    """``volume_select``'s result on the host, in one read: (chosen mask,
+    contended keys, rounds run)."""
+    host = out.cpu().numpy()
+    contended, rounds = (int(x) for x in host[:8].view(np.int32))
+    return host[8:] != 0, contended, rounds

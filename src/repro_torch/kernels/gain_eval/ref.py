@@ -23,13 +23,17 @@ needs its degree rows with the own column demanding a second member,
 which ``volume_degree_rows_ref`` computes from the sparse vertex ->
 hyperedge CSR and the member-count table Φ.  Only the requested ``rows``
 of D and D* are computed.
+
+``volume_select_ref`` is the volume batch's conflict-free mover selection
+over the same CSR and Φ: slot contention, then iterated Luby rounds.
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = ["part_onehot", "part_degrees_ref", "gain_matrix_ref",
-           "connectivity_degrees_ref", "volume_degree_rows_ref"]
+           "connectivity_degrees_ref", "volume_degree_rows_ref",
+           "volume_select_ref"]
 
 
 def part_onehot(part: torch.Tensor, k: int) -> torch.Tensor:
@@ -96,3 +100,74 @@ def volume_degree_rows_ref(vxadj: torch.Tensor, vedges: torch.Tensor,
     hits = (phi[vedges.to(torch.int64)[idx]] > thr).to(torch.float32)
     out = torch.zeros((rows.shape[0], k), dtype=torch.float32, device=rows.device)
     return out.index_add_(0, local, hits * w.to(torch.float32)[idx][:, None])
+
+
+def volume_select_ref(vxadj: torch.Tensor, vedges: torch.Tensor,
+                      phi: torch.Tensor, cand: torch.Tensor,
+                      own: torch.Tensor, target: torch.Tensor,
+                      pri: torch.Tensor, rounds: int) -> torch.Tensor:
+    """The conflict-free movers among candidates ``cand`` (vertex ids, with
+    own and target columns ``own`` / ``target`` and distinct positive
+    priorities ``pri``), from the vertex -> hyperedge CSR (``vxadj``,
+    ``vedges``) and the (E, k) member counts ``phi``.
+
+    Each incident hyperedge e of a candidate gives two slots, (e, own) (a
+    leaver) and (e, target).  A slot is contended when more than one
+    candidate touches it and Φ < 2 or Φ less its leavers < 2.  Candidates
+    on no contended slot are chosen outright; the others run up to
+    ``rounds`` rounds in which a live candidate is excluded when one of its
+    contended slots is used, loses when a live candidate of higher priority
+    shares one (excluded candidates count in that maximum), and otherwise
+    wins and marks its contended slots used; losers that were not excluded
+    stay live.  ``refine_vec``'s host selection, on torch tensors.
+
+    Returns (8 + C,) uint8: the contended keys (pairs of a candidate and a
+    slot, both sides counted) and the rounds run as two little-endian
+    int32, then 1 for each chosen candidate, else 0.
+    """
+    dev = cand.device
+    nc = cand.shape[0]
+    k = phi.shape[1]
+    c = cand.to(torch.int64)
+    starts = vxadj.to(torch.int64)[c]
+    counts = vxadj.to(torch.int64)[c + 1] - starts
+    local = torch.repeat_interleave(torch.arange(nc, device=dev), counts)
+    ramp = (torch.arange(local.shape[0], device=dev)
+            - torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts))
+    e = vedges.to(torch.int64)[starts[local] + ramp] * k
+    key = torch.cat([e + own.to(torch.int64)[local],
+                     e + target.to(torch.int64)[local]])
+    side = torch.cat([local, local])
+    slots, inv = torch.unique(key, return_inverse=True)
+    touch = torch.bincount(inv, minlength=slots.shape[0])
+    leave = torch.bincount(inv[:local.shape[0]], minlength=slots.shape[0])
+    p = phi.reshape(-1).to(torch.int64)[slots]
+    cm = ((touch > 1) & ((p < 2) | (p - leave < 2)))[inv]
+    live = torch.zeros(nc, dtype=torch.bool, device=dev)
+    live[side[cm]] = True
+    chosen = ~live
+    ckey, cl = inv[cm], side[cm]
+    rank = pri.to(torch.int64)
+    used = torch.zeros(slots.shape[0], dtype=torch.bool, device=dev)
+    ran = 0
+    for _ in range(rounds):
+        if not bool(live.any()):
+            break
+        ran += 1
+        ap = live[cl]
+        akey, al = ckey[ap], cl[ap]
+        excl = torch.zeros(nc, dtype=torch.bool, device=dev)
+        excl[al[used[akey]]] = True
+        top = torch.zeros(slots.shape[0], dtype=torch.int64, device=dev)
+        top.scatter_reduce_(0, akey, rank[al], "amax")
+        lost = torch.zeros(nc, dtype=torch.bool, device=dev)
+        lost[al[top[akey] > rank[al]]] = True
+        win = live & ~excl & ~lost
+        chosen |= win
+        used[akey[win[al]]] = True
+        live &= ~excl & lost
+    out = torch.zeros(8 + nc, dtype=torch.uint8, device=dev)
+    out[:8].view(torch.int32).copy_(torch.tensor(
+        [int(cm.sum()), ran], dtype=torch.int32))
+    out[8:] = chosen.to(torch.uint8)
+    return out

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card: bitwise for lif_step (alone and fused with the synaptic product
 over T steps), exact for part_degrees, volume_degree_rows
-(the connectivity_degrees kernel) and link_loads (packet records, weighted
+(the connectivity_degrees kernel), volume_select (the chosen set and its
+counts, over calls sharing one slot state, and the volume refiner on the
+card against the host) and link_loads (packet records, weighted
 records and dense counts), exact for swap_deltas on
 integer traffic and rtol 1e-4 / atol 1e-2 on fractional traffic, rtol
 1e-6 (and bitwise repeatable, one launch) for hop_cost; and the device
@@ -20,6 +22,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels.gain_eval import kernel as gain_kernel  # noqa: E402
 from repro_torch.kernels.gain_eval import part_degrees_ref  # noqa: E402
 from repro_torch.kernels.gain_eval import volume_degree_rows_ref  # noqa: E402
+from repro_torch.kernels.gain_eval import SelectSlots, volume_select_ref  # noqa: E402
 from repro_torch.kernels.hop_eval import hop_cost_ref  # noqa: E402
 from repro_torch.kernels.hop_eval import kernel as hop_kernel  # noqa: E402
 from repro_torch.kernels.lif_step import kernel as lif_kernel  # noqa: E402
@@ -136,6 +139,84 @@ def test_connectivity_degrees_kernel_matches_plain_exactly(cuda, n, e, k, longes
     for r, o in ((rows, own[rows]), (None, own)):
         assert torch.equal(gain_kernel.volume_degree_rows_cuda(*args, r, o),
                            volume_degree_rows_ref(*args, r, o))
+
+
+def _select_call(rng, n, nc, cols):
+    """One selection call's candidates: ids, own and target columns drawn
+    from the first ``cols`` columns (fewer columns, more contention) and
+    distinct priorities 1..nc."""
+    cand = np.sort(rng.choice(n, nc, replace=False))
+    own = rng.integers(0, cols, nc)
+    target = (own + rng.integers(1, cols, nc)) % cols
+    pri = np.empty(nc, dtype=np.int64)
+    pri[rng.permutation(nc)] = np.arange(nc, 0, -1)
+    return [torch.tensor(a.astype(np.int32)) for a in (cand, own, target, pri)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,e,k,nc,longest,cols", [
+    (7, 5, 3, 4, 5, 3),             # tiny, every slot shared
+    (600, 300, 64, 40, 30, 64),     # a positive call: few candidates
+    (3072, 4096, 141, 2000, 66, 141),  # an escape call's shape
+    (5120, 4096, 141, 4000, 60, 4),    # > 100k contended keys
+])
+def test_volume_select_kernel_matches_plain_exactly(cuda, n, e, k, nc, longest,
+                                                    cols):
+    """volume_select against its plain version: the chosen bytes and the
+    header (contended keys, rounds run) equal, over three calls sharing one
+    slot state with Φ changed between them, and the counts left at zero."""
+    rng = np.random.default_rng(n)
+    counts = rng.integers(0, longest + 1, n)
+    vxadj = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    vedges = np.concatenate(
+        [rng.choice(e, c, replace=False) for c in counts]).astype(np.int32)
+    phi = torch.tensor(rng.integers(0, 3, (e, k)).astype(np.int32))
+    csr = (torch.tensor(vxadj), torch.tensor(vedges))
+    slots = SelectSlots(phi.numel(), cuda)
+    before = gain_kernel.select_launches
+    for call in range(3):
+        args = _select_call(rng, n, nc, cols)
+        want = volume_select_ref(*csr, phi, *args, 4)
+        got = gain_kernel.volume_select_cuda(
+            *(t.to(cuda) for t in csr), phi.to(cuda),
+            *(t.to(cuda) for t in args), 4, slots)
+        assert torch.equal(got.cpu(), want)
+        head = want[:8].view(torch.int32).tolist()
+        if nc >= 4000:
+            assert head[0] > 100_000
+        phi = torch.clamp(phi + torch.tensor(
+            rng.integers(-1, 2, (e, k)).astype(np.int32)), min=0)
+    assert gain_kernel.select_launches == before + 3
+    assert slots.calls == 3
+    assert not slots.buf[:slots.slots].any()  # the counts are zero at rest
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,cap", [(60, 30), (80, 20)])
+def test_volume_refine_on_the_card_equals_the_host(cuda, k, cap):
+    """refine_level_vec on the card (the selection kernel on every level,
+    the connectivity kernel where k >= 64) gives the host's partition and
+    score, every selection span reading ``kernel``, one launch each."""
+    from repro_torch import spans
+    from repro_torch.core.initpart import greedy_region_growing
+    from repro_torch.core.refine_vec import refine_level_vec
+    from torch_builders import fanout_snn_graph
+
+    g = fanout_snn_graph(1500, seed=1)
+    p0 = greedy_region_growing(g, k, cap, np.random.default_rng(1))
+    want = refine_level_vec(g, p0.copy(), k, cap, objective="volume",
+                            device="cpu")
+    before = gain_kernel.select_launches
+    spans.clear()
+    with spans.recording():
+        got = refine_level_vec(g, p0.copy(), k, cap, objective="volume",
+                               device=cuda)
+    sel = [s for s in spans.spans() if s.name == "sneap.partition.refine.select"]
+    spans.clear()
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1]
+    assert sel and {s.attrs["engine"] for s in sel} == {"kernel"}
+    assert gain_kernel.select_launches - before == len(sel)
 
 
 @pytest.mark.cuda

@@ -5,7 +5,8 @@ steps on a 10 x 10 mesh: the vec partitioner's volume refiner, ``sa_jax``
 with the polish on the multicast traffic, then the queued tree-fork replay
 on the link-load screen at link capacity 1, so that it steps) is run with
 tracing off and under ``spans.recording()``; and the refiner's kernel
-engine is driven on its plain version.
+engine (its D* rows and its mover selection) is driven on its plain
+version.
 """
 import dataclasses
 
@@ -132,6 +133,34 @@ def test_counts_are_consistent(runs):
     assert 0 < stepper.attrs["cycles"] <= noc.max_latency
 
 
+def _assert_select_counts(sel, engine):
+    """Each selection span's counts add up, on the engine named."""
+    assert sel
+    for s in sel:
+        a = s.attrs
+        assert a["engine"] == engine
+        assert isinstance(a["escape"], bool)
+        assert 0 < a["winners"] <= a["candidates"] <= a["pairs"]
+        assert 0 <= a["contended"] <= 2 * a["pairs"]
+        assert 0 <= a["rounds"] <= 4
+        assert (a["rounds"] > 0) == (a["contended"] > 0)
+
+
+def test_select_spans_nest_under_the_levels(runs):
+    """One ``.refine.select`` span a batch of a volume level, under that
+    level's span (a CPU job: the numpy selection), escapes among them."""
+    res, recorded = runs["recording"]
+    by_id = {s.id: s for s in recorded}
+    sel = _named(recorded, "sneap.partition.refine.select")
+    for s in sel:
+        assert by_id[s.parent].name == "sneap.partition.refine"
+    _assert_select_counts(sel, "host")
+    assert any(s.attrs["escape"] for s in sel)
+    assert not all(s.attrs["escape"] for s in sel)
+    levels = {s.id for s in _named(recorded, "sneap.partition.refine")}
+    assert {s.parent for s in sel} <= levels
+
+
 @pytest.mark.parametrize("screen", ["numpy", "linkload"])
 def test_tree_replay_spans_on_either_screen(prof, runs, screen):
     """The tree replay alone, on the job's mapping: the same statistics
@@ -164,8 +193,10 @@ def test_tree_replay_spans_on_either_screen(prof, runs, screen):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_kernel_engine_counts_the_incidence_entries_it_reads(seed):
     """The connectivity kernel's evaluations (its plain version here) count
-    the rows and the incidence entries the kernel reads; the partition is
-    the one refined with tracing off."""
+    the rows and the incidence entries the kernel reads, and the selection
+    kernel's calls (its plain version) their candidates, pairs, contended
+    keys, rounds and winners; the partition is the one refined with
+    tracing off."""
     rng = np.random.default_rng(seed)
     n = 300
     src, dst = rng.integers(0, n, 2400), rng.integers(0, n, 2400)
@@ -192,3 +223,7 @@ def test_kernel_engine_counts_the_incidence_entries_it_reads(seed):
         # The wrapper's own count lands on the span that holds the call.
         assert s.attrs["degree_rows"] == s.attrs["rows"]
         assert s.attrs["rows"] <= s.attrs["inc_entries"] <= int(vxadj[-1])
+    (level,) = _named(recorded, "sneap.partition.refine")
+    sel = _named(recorded, "sneap.partition.refine.select")
+    assert {s.parent for s in sel} == {level.id}
+    _assert_select_counts(sel, "kernel")
